@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Drive neojax_torch's per-block convolver end to end on one CUDA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
+NVIDIA Hopper card (the kernels are built for sm_90a) and nvcc; it exits
+non-zero without a card and never falls back to the CPU.
+
+Configuration: the repo's headline (``bench.py``, BASELINE.json config
+#3) — 64 channels, a 10 s shared decaying-noise IR at 48 kHz (938
+partitions, padded to P = 960), block B = 512, transform N = 1024.
+
+Phases, each printing one JSON object per line:
+  1. device and environment (plus the raw nvidia-smi name/power-limit line)
+  2. build the CUDA kernels from ``neojax_torch/csrc`` (nvcc, sm_90a)
+  3. each kernel against its plain PyTorch version at the headline shapes,
+     all four storages (B1 shared + per-channel filter, B2 at three ring
+     positions, B3 over 64 blocks starting at P-5 so the ring wraps)
+  4. the main path, UPOLS ``Convolver.process`` per storage, SNR against an
+     f64 FFT-convolution oracle in steady state (blocks 1152-1167, 4
+     channels), gated on the storage's class (split 90, int16 74, bf16 40
+     dB; int8 is printed: the reference's per-block int8 sits below its
+     46 dB class)
+  5. the other entry points (split and int8): ``__call__`` on exact blocks
+     (B2), the re-blocking FIFO + ``flush``, UPOLA ``process`` (B2 per
+     block) and ``fused=False`` (B1), each against ``process``
+  6. ``process`` times per storage, kernel route against the plain torch
+     route (``mac_backend="torch"``: cuFFT transforms + tensor-op MAC)
+  7. the kernels summary, then the final ``{"ok": true, ...}`` line
+
+Launch counters are zeroed right before phase 4 and read right after
+phase 5; each kernel of the path must have launched in that window.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SR = 48000
+BLOCK = 512
+CHANNELS = 64
+P_REAL = int(np.ceil(10.0 * SR / BLOCK))  # 938 partitions: a 10 s IR
+P = 960  # Convolver.filter's padding of 938
+NB_MAIN = 1168  # blocks streamed on the main path
+SNR_START, SNR_BLOCKS, SNR_CH = 1152, 16, 4  # steady-state window (> P_REAL)
+STORAGES = ("split", "bf16", "int16", "int8")
+SNR_CLASS_DB = {"split": 90.0, "int16": 74.0, "bf16": 40.0}  # bench.py:319
+# max|kernel - plain| / max|plain| (tests/test_fused_step.py:43)
+TOL = {"split": 2e-5, "bf16": 5e-3, "int16": 5e-4, "int8": 2e-2}
+INT_MAX = {"int16": 32767, "int8": 127}
+DEVICE = "cuda"
+
+
+def emit(**obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def make_ir() -> np.ndarray:
+    """bench.py's IR: 10 s of exponentially decaying noise, seeded."""
+    rng = np.random.default_rng(0)
+    n = P_REAL * BLOCK
+    t = np.arange(n)
+    return rng.standard_normal(n) * (0.05 * np.exp(-t / (n / 4)))
+
+
+def snr_db(out: np.ndarray, ref: np.ndarray) -> float:
+    err = np.asarray(out, np.float64) - ref
+    den = float(np.sum(err**2))
+    return float("inf") if den == 0 else 10.0 * np.log10(float(np.sum(ref**2)) / den)
+
+
+def rel_err(a, b) -> tuple[float, float]:
+    """(max|a - b|, max|a - b| / max|b|) in float64."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    d = float(np.abs(a - b).max())
+    return d, d / max(1e-30, float(np.abs(b).max()))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from neojax_torch import conv
+    from neojax_torch import kernels
+    from neojax_torch.conv import convolver as cv
+    from neojax_torch.fft import matmul_backend as mb
+    from neojax_torch.kernels import _build
+    from neojax_torch.kernels import fdl_mac as mac_mod
+    from neojax_torch.kernels import fused_step as fs_mod
+
+    dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+
+    # ---- 1. device and environment
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    card = {"card": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit(phase="device", **card, count=torch.cuda.device_count(),
+         capability=list(torch.cuda.get_device_capability(0)),
+         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
+         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    _build.load()
+    info = _build.build_info()
+    log_path = info["path"][: -len(".so")] + ".log"
+    ptxas = []
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            ptxas = [ln.strip() for ln in f
+                     if any(w in ln for w in ("Function properties", "registers", "spill"))]
+    emit(phase="build", seconds=time.perf_counter() - t0, built=info["built"],
+         library=os.path.relpath(info["path"], os.path.dirname(os.path.abspath(__file__))),
+         ptxas=ptxas)
+
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        ev1.synchronize()
+        return ev0.elapsed_time(ev1) / reps
+
+    # ---- 3. each kernel against its plain version at the headline shapes
+    rng = np.random.default_rng(7)
+    c, b, n = CHANNELS, BLOCK, 2 * BLOCK
+    summary = {"fdl_mac": {}, "fused_block_step": {}, "fused_stream": {}}
+
+    def ring_inputs(storage):
+        sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
+        if storage in INT_MAX:
+            m = INT_MAX[storage]
+            ring = torch.from_numpy(rng.integers(-m, m + 1, (2, P, c, b), dtype=np.int32)).to(dev, sdt)
+            scales = torch.from_numpy(rng.uniform(1.0, 40.0, (P, c)).astype(np.float32)).to(dev)
+        else:
+            ring = torch.from_numpy((10 * rng.standard_normal((2, P, c, b))).astype(np.float32)).to(dev, sdt)
+            scales = None
+        return ring, scales
+
+    def check_ring(storage, k_ring, p_ring, k_scl, p_scl, what):
+        if storage in INT_MAX:
+            lsb = int((k_ring.to(torch.int32) - p_ring.to(torch.int32)).abs().max())
+            assert lsb <= 1, f"{what}: int ring differs by {lsb} LSB"
+            _, r = rel_err(k_scl.cpu(), p_scl.cpu())
+            assert r < 1e-5, f"{what}: scales differ ({r})"
+        else:
+            _, r = rel_err(k_ring.float().cpu(), p_ring.float().cpu())
+            assert r < TOL[storage], f"{what}: ring differs ({r})"
+
+    for storage in STORAGES:
+        sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
+        mdt = fs_mod.MATRIX_DTYPES[sdt]
+        ring, scales = ring_inputs(storage)
+
+        # B1: shared and per-channel rotated filters
+        row = {}
+        for cf in (1, c):
+            fr = torch.from_numpy((0.05 * rng.standard_normal((P, cf, b))).astype(np.float32)).to(dev)
+            fi = torch.from_numpy((0.05 * rng.standard_normal((P, cf, b))).astype(np.float32)).to(dev)
+            k_re, k_im = mac_mod.fdl_mac(ring, fr, fi, scales)
+            p_re, p_im = mac_mod.fdl_mac_reference(ring, fr, fi, scales)
+            torch.cuda.synchronize()
+            d, r = rel_err(torch.cat([k_re, k_im]).cpu(), torch.cat([p_re, p_im]).cpu())
+            assert r < TOL[storage], f"fdl_mac {storage} cf={cf}: rel err {r}"
+            form = "shared" if cf == 1 else "per_channel"
+            row[form] = {"max_abs_err": d, "rel_err": r,
+                         "ms": cuda_ms(lambda: mac_mod.fdl_mac(ring, fr, fi, scales), 20),
+                         "plain_ms": cuda_ms(lambda: mac_mod.fdl_mac_reference(ring, fr, fi, scales), 3)}
+        emit(phase="kernel_vs_plain", kernel="fdl_mac", storage=storage, tol=TOL[storage], **row, **card)
+        summary["fdl_mac"][storage] = row["shared"] | {"per_channel": row["per_channel"]}
+
+        # shared fused filter [2P, 1, 2B] in the matrix dtype
+        rim = torch.from_numpy((0.05 * rng.standard_normal((2 * P, 1, 2 * b))).astype(np.float32)).to(dev, mdt)
+
+        # B2 at three ring positions
+        cs, ab = mb.packed_mats(n, mdt, dev)
+        worst = (0.0, 0.0)
+        for pos in (0, P // 2, P - 1):
+            frame = torch.from_numpy(rng.uniform(-1, 1, (c, n)).astype(np.float32)).to(dev)
+            dcfix = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32)).to(dev)
+            k_ring, p_ring = ring.clone(), ring.clone()
+            k_scl = None if scales is None else scales.clone()
+            p_scl = None if scales is None else scales.clone()
+            ky = fs_mod.fused_block_step(frame, k_ring, rim, pos, dcfix, cs, ab, k_scl)[0]
+            py = fs_mod.fused_block_step_reference(frame, p_ring, rim, pos, dcfix, cs, ab, p_scl)[0]
+            torch.cuda.synchronize()
+            d, r = rel_err(ky.cpu(), py.cpu())
+            assert r < TOL[storage], f"fused_block_step {storage} pos={pos}: rel err {r}"
+            check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_block_step {storage} pos={pos}")
+            worst = max(worst, (d, r), key=lambda x: x[1])
+        step_ms = cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl), 20)
+        step_plain = cuda_ms(lambda: fs_mod.fused_block_step_reference(frame, p_ring, rim, 3, dcfix, cs, ab, p_scl), 3)
+        summary["fused_block_step"][storage] = {"max_abs_err": worst[0], "rel_err": worst[1],
+                                                "ms": step_ms, "plain_ms": step_plain}
+        emit(phase="kernel_vs_plain", kernel="fused_block_step", storage=storage, tol=TOL[storage],
+             positions=[0, P // 2, P - 1], **summary["fused_block_step"][storage], **card)
+
+        # B3 over 64 blocks from pos0 = P-5 (wraps the ring)
+        nb, pos0 = 64, P - 5
+        cs2, abt = mb.packed_stream_mats(n, mdt, dev)
+        sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(dev)
+        dcfix_all = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(dev)
+        k_ring, p_ring = ring.clone(), ring.clone()
+        k_scl = None if scales is None else scales.clone()
+        p_scl = None if scales is None else scales.clone()
+        ko = fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl)[0]
+        po = fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2, abt, p_scl)[0]
+        torch.cuda.synchronize()
+        d, r = rel_err(ko.cpu(), po.cpu())
+        assert r < TOL[storage], f"fused_stream {storage}: rel err {r}"
+        check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream {storage}")
+        s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl), 3)
+        s_plain = cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2, abt, p_scl), 1)
+        summary["fused_stream"][storage] = {"max_abs_err": d, "rel_err": r, "ms": s_ms, "plain_ms": s_plain,
+                                            "blocks": nb, "us_per_block": 1e3 * s_ms / nb}
+        emit(phase="kernel_vs_plain", kernel="fused_stream", storage=storage, tol=TOL[storage],
+             pos0=pos0, **summary["fused_stream"][storage], **card)
+        del ring, scales, k_ring, p_ring
+        torch.cuda.empty_cache()
+
+    # ---- 4. the main path: UPOLS process per storage
+    ir = conv.normalize_impulse(torch.from_numpy(make_ir().astype(np.float32))).numpy()
+    parts = conv.uniform_partition(ir, BLOCK)
+    assert parts.shape == (1, P_REAL, BLOCK + 1)
+    sig_np = np.random.default_rng(1).uniform(-1, 1, (CHANNELS, NB_MAIN * BLOCK)).astype(np.float32)
+    sig = torch.from_numpy(sig_np).to(dev)
+
+    t_len = NB_MAIN * BLOCK
+    nfft = 1 << int(np.ceil(np.log2(t_len + ir.size)))
+    x64 = sig_np[:SNR_CH].astype(np.float64)
+    oracle = np.fft.irfft(np.fft.rfft(x64, nfft) * np.fft.rfft(ir.astype(np.float64), nfft)[None], nfft)[:, :t_len]
+
+    def window(a, start):
+        return np.asarray(a[:SNR_CH, start * BLOCK : (start + SNR_BLOCKS) * BLOCK], np.float64)
+
+    kernels.reset_launch_counts()
+    snrs = {}
+    for storage in STORAGES:
+        before = fs_mod.fused_stream.launches
+        cvl = conv.Convolver(storage=storage, device=dev)
+        cvl.filter(parts)
+        assert cvl.config.num_partitions == P and cvl.config.channels == 1
+        t0 = time.perf_counter()
+        out = cvl.process(sig)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        assert tuple(out.shape) == (CHANNELS, t_len) and bool(torch.isfinite(out).all())
+        assert fs_mod.fused_stream.launches > before, "process did not run fused_stream"
+        assert cvl.state["pos"] == NB_MAIN % P
+        snr = snr_db(window(out.cpu().numpy(), SNR_START), window(oracle, SNR_START))
+        snrs[storage] = snr
+        cls = SNR_CLASS_DB.get(storage)
+        emit(phase="main_path", entry="Convolver.process", scheme="upols", storage=storage,
+             channels=CHANNELS, partitions=P, block=BLOCK, blocks=NB_MAIN,
+             snr_db_vs_f64=snr, snr_class_db=cls, first_call_s=dt, **card)
+        if cls is not None:
+            assert snr >= cls, f"{storage}: SNR {snr:.1f} dB below its {cls} dB class"
+        del cvl, out
+    torch.cuda.empty_cache()
+
+    # ---- 5. the other entry points at the headline configuration
+    nb5 = 32
+    sig5 = sig[:, : nb5 * BLOCK].contiguous()
+    for storage in ("split", "int8"):
+        def fresh(scheme="upols"):
+            v = conv.Convolver(scheme=scheme, storage=storage, device=dev)
+            v.filter(parts)
+            return v
+
+        ref = fresh().process(sig5)
+        results = {}
+
+        a = fresh()
+        blocks = torch.cat([a(sig5[:, i * BLOCK : (i + 1) * BLOCK]) for i in range(nb5)], dim=-1)
+        results["__call__"] = rel_err(blocks.cpu(), ref.cpu())
+
+        f = fresh()
+        chunks, off, sizes = [], 0, (100, 700, 3, 512, 1000, 211, 0, 1537, 64)
+        i = 0
+        while off < sig5.shape[1]:
+            k = sizes[i % len(sizes)]
+            chunks.append(f(sig5[:, off : off + k]))
+            off += k
+            i += 1
+        chunks.append(f.flush())
+        got = torch.cat(chunks, dim=-1)
+        want = torch.cat([torch.zeros((CHANNELS, BLOCK - 1), device=dev), ref], dim=-1)
+        assert got.shape == want.shape and f.latency == BLOCK - 1
+        results["fifo_flush"] = rel_err(got.cpu(), want.cpu())
+
+        u = fresh()
+        cfg_u = dataclasses.replace(u.config, channels=CHANNELS, fused=False)
+        _, out_u = cv.process(cfg_u, u.params, cv.init_state(cfg_u, dev), sig5)
+        results["fused=False"] = rel_err(out_u.cpu(), ref.cpu())
+
+        for name, (d, r) in results.items():
+            emit(phase="entry_point", entry=name, storage=storage, max_abs_err=d, rel_err=r,
+                 tol=TOL[storage], against="process")
+            assert r < TOL[storage], f"{name} ({storage}) disagrees with process: {r}"
+
+        # UPOLA over P + 16 blocks (B2 per block) against UPOLS, both held
+        # to the oracle on the steady-state window [P, P + 16)
+        nbu = P + 16
+        sigu = sig[:, : nbu * BLOCK].contiguous()
+        out_a = fresh("upola").process(sigu).cpu().numpy()
+        out_s = fresh().process(sigu).cpu().numpy()
+        snr_a = snr_db(window(out_a, P), window(oracle, P))
+        snr_s = snr_db(window(out_s, P), window(oracle, P))
+        d, r = rel_err(out_a, out_s)
+        emit(phase="entry_point", entry="upola.process", storage=storage, blocks=nbu,
+             snr_db_vs_f64=snr_a, upols_snr_db_vs_f64=snr_s, max_abs_err=d, rel_err=r)
+        if storage in SNR_CLASS_DB:
+            assert snr_a >= SNR_CLASS_DB[storage] and r < TOL[storage], f"UPOLA {storage}: {snr_a} dB, {r}"
+        else:
+            assert abs(snr_a - snr_s) <= 3.0, f"UPOLA {storage}: {snr_a:.1f} vs UPOLS {snr_s:.1f} dB"
+
+    counts = kernels.launch_counts()
+    emit(phase="launch_counts", **counts)
+    for name, cnt in counts.items():
+        assert cnt > 0, f"{name} was not launched on the main path"
+
+    # ---- 6. process times: kernel route vs the plain torch route
+    nbt, nbp = 256, 32
+    sig_t = sig[:, : nbt * BLOCK].contiguous()
+    sig_p = sig[:, : nbp * BLOCK].contiguous()
+
+    def median_s(fn, runs):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    times = {}
+    for storage in STORAGES:
+        v = conv.Convolver(storage=storage, device=dev)
+        v.filter(parts)
+        cfg_k = dataclasses.replace(v.config, channels=CHANNELS)
+        cfg_p = dataclasses.replace(cfg_k, mac_backend="torch")
+        st_k = cv.init_state(cfg_k, dev)
+        st_p = cv.init_state(cfg_p, dev)
+        s_k = median_s(lambda: cv.process(cfg_k, v.params, st_k, sig_t), 5) / nbt
+        s_p = median_s(lambda: cv.process(cfg_p, v.params, st_p, sig_p), 3) / nbp
+        times[storage] = {"kernel_us_per_block": 1e6 * s_k, "plain_us_per_block": 1e6 * s_p,
+                          "kernel_samples_per_s": CHANNELS * BLOCK / s_k,
+                          "plain_samples_per_s": CHANNELS * BLOCK / s_p}
+        emit(phase="times", entry="process", storage=storage, kernel_blocks=nbt, plain_blocks=nbp,
+             plain_route="mac_backend='torch' (cuFFT + tensor-op MAC)", **times[storage], **card)
+        del v, st_k, st_p
+        torch.cuda.empty_cache()
+
+    # ---- 7. kernels summary and the final line
+    sources = {
+        "fdl_mac": ("neojax_torch/csrc/fdl_mac.cu", "neojax/kernels/fdl_mac.py:111"),
+        "fused_block_step": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
+        "fused_stream": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
+    }
+    rows = []
+    for name, (src, repl) in sources.items():
+        head = summary[name]["split"]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                     "launches": counts[name], "max_abs_err": head["max_abs_err"],
+                     "ms": head["ms"], "plain_ms": head["plain_ms"], "storage": "split",
+                     "by_storage": summary[name]})
+    emit(phase="summary", snr_db_vs_f64=snrs, times=times, total_s=time.perf_counter() - t_start, **card)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

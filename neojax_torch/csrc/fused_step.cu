@@ -1,0 +1,297 @@
+// B2 and B3: the fused per-block pipeline of the uniformly-partitioned
+// convolver (packed-512 layout, ring FDL).
+//
+// Replaces neojax/kernels/fused_step.py :: fused_block_step (Pallas body
+// _mk_kernel) and :: fused_stream (Pallas body _mk_stream_kernel). Per block
+// and channel:
+//
+//   1. frame -> shared memory (rounded to the matrix dtype)
+//   2. forward packed DFT: a GEMV against the packed matrices, f32 sums
+//   3. quantize (per-channel peak scale, rint = round half to even, op order
+//      x / scale * int_max, clamp) or cast
+//   4. ring-row insert at pos, in place (+ scales[pos, c])
+//   5. MAC over P against the rotated filter rows filt_rim[P-1-pos + p];
+//      slot pos is read back after the barrier, so it holds the NEW row and
+//      scale
+//   6. lane 0 := the exact DC/Nyquist values (dcfix)
+//   7. inverse packed DFT of the accumulator (rounded to the matrix dtype):
+//      all N samples (B2) or only the UPOLS tail half (B3)
+//
+// One __device__ routine (channel_block) does one channel's block; two
+// __global__ entry points use it. ONE CTA OWNS ONE CHANNEL — for B3 for all
+// nb blocks. Channels are independent for the whole stream (per-channel
+// scale and dcfix, read-only filter), so the CTA that writes a ring row is
+// the only one that ever reads it, after __syncthreads(): no grid-wide sync.
+// The row write of block i is separated from block i+1's MAC by a barrier,
+// and block i's MAC from block i+1's row write, so there is no buffer race
+// (the TPU kernel's 2-ahead prefetch into 2 slots is not carried over).
+//
+// Bound on the H100: bytes. Per block, each CTA reads its channel's ring
+// slice (2 * P * B storage elements; 3.9 MB split at P=960, B=512) and the
+// rotated filter rows (shared by all channels through L2), and re-reads the
+// DFT matrices from L2 (4 MB forward + 2 MB tail inverse in f32).
+// Known costs left for later work:
+//   - B3 fills only C CTAs (64 of the 132 SMs at the headline config);
+//   - every CTA re-reads the 4 MB f32 forward DFT matrix from L2 every block;
+//     batching the channels into one tensor-core product removes that.
+// Shared memory is static (about 25 KB at B <= 1024).
+#include "common.cuh"
+
+namespace {
+
+using namespace neo;
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxB = 1024;
+constexpr int kPer = 2 * kMaxB / kThreads;  // outputs per thread of a 2B-wide loop
+
+struct Shared {
+  float frame[2 * kMaxB];  // N frame samples, matrix-dtype rounded
+  float spec[2 * kMaxB];   // [re | im] packed spectrum
+  float acc[2 * kMaxB];    // [re | im] accumulator, matrix-dtype rounded
+  float red[kWarps];
+  float scale;
+};
+
+// Matrices are addressed as element (plane, r, col) at
+//   base[plane * plane_stride + r * row_stride + col]
+// which covers both kernels' layouts:
+//   B2  cs [2, N, B]  -> (N*B, B)     ab  [2, B, N] -> (B*N, N)
+//   B3  cs [N, 2B]    -> (B, 2B)      abt [2B, B]   -> (B*B, B)
+template <typename T, typename M>
+__device__ __forceinline__ void channel_block(
+    Shared& sh, const float* __restrict__ frame_src, T* fdl, const M* __restrict__ rim,
+    float* scales, float dc_fix, float ny_fix,
+    const M* __restrict__ fwd, size_t fwd_plane, size_t fwd_row,
+    const M* __restrict__ inv, size_t inv_plane, size_t inv_row,
+    float* __restrict__ out, int n_out, int P, int C, int B, int Cf, int c, int pos) {
+  constexpr bool kQuant = Traits<T>::kQuant;
+  constexpr float kIntMax = Traits<T>::kIntMax;
+  constexpr float kInvMax = 1.0f / Traits<T>::kIntMax;
+  const int tid = threadIdx.x;
+  const int n = 2 * B;
+  const int w = 2 * B;  // packed spectrum width [re | im]
+
+  // 1. frame, rounded to the matrix dtype
+  for (int t = tid; t < n; t += kThreads) sh.frame[t] = round_to<M>(frame_src[t]);
+  __syncthreads();
+
+  // 2. forward packed DFT: spec[j] = sum_t frame[t] * fwd(j / B, t, j % B)
+  {
+    const int nu = tid < w ? (w - tid + kThreads - 1) / kThreads : 0;
+    const M* col[kPer];
+    float acc[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int j = u < nu ? tid + u * kThreads : 0;
+      col[u] = fwd + (j / B) * fwd_plane + (j % B);
+      acc[u] = 0.0f;
+    }
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) {
+      const float f = sh.frame[t];
+      const size_t off = static_cast<size_t>(t) * fwd_row;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        if (u < nu) acc[u] += f * to_f32(col[u][off]);
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if (u < nu) sh.spec[tid + u * kThreads] = acc[u];
+  }
+  __syncthreads();
+
+  // 3 + 4. quantize / cast and insert the row at pos (in place)
+  const size_t row = static_cast<size_t>(C) * B;
+  const size_t plane = static_cast<size_t>(P) * row;
+  float scale = 1.0f;
+  if (kQuant) {
+    float m = 0.0f;
+    for (int j = tid; j < w; j += kThreads) m = fmaxf(m, fabsf(sh.spec[j]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((tid & 31) == 0) sh.red[tid >> 5] = m;
+    __syncthreads();
+    if (tid == 0) {
+      float peak = 0.0f;
+      for (int i = 0; i < kWarps; ++i) peak = fmaxf(peak, sh.red[i]);
+      sh.scale = peak > 0.0f ? peak : 1.0f;
+      scales[static_cast<size_t>(pos) * C + c] = sh.scale;
+    }
+    __syncthreads();
+    scale = sh.scale;
+  }
+  T* dst = fdl + static_cast<size_t>(pos) * row + static_cast<size_t>(c) * B;
+  for (int j = tid; j < w; j += kThreads) {
+    float v = sh.spec[j];
+    if (kQuant) v = fminf(fmaxf(rintf(v / scale * kIntMax), -kIntMax), kIntMax);
+    store(dst + (j / B) * plane + (j % B), v);
+  }
+  __syncthreads();  // the new row and scale are visible to the whole CTA
+
+  // 5 + 6. rotated-filter MAC over P, then the lane-0 DC/Nyquist overwrite
+  const size_t frow = static_cast<size_t>(Cf) * w;
+  const M* frot = rim + static_cast<size_t>(P - 1 - pos) * frow +
+                  static_cast<size_t>(Cf == 1 ? 0 : c) * w;
+  for (int k = tid; k < B; k += kThreads) {
+    const T* xr = fdl + static_cast<size_t>(c) * B + k;
+    const T* xi = xr + plane;
+    const M* fr = frot + k;
+    const M* fi = fr + B;
+    float ar = 0.0f, ai = 0.0f;
+#pragma unroll 4
+    for (int p = 0; p < P; ++p) {
+      float r = to_f32(xr[p * row]);
+      float i = to_f32(xi[p * row]);
+      if (kQuant) {
+        const float s = scales[static_cast<size_t>(p) * C + c] * kInvMax;
+        r *= s;
+        i *= s;
+      }
+      const float a = to_f32(fr[p * frow]);
+      const float b = to_f32(fi[p * frow]);
+      ar += r * a - i * b;
+      ai += r * b + i * a;
+    }
+    if (k == 0) {
+      ar = dc_fix;
+      ai = ny_fix;
+    }
+    sh.acc[k] = round_to<M>(ar);
+    sh.acc[B + k] = round_to<M>(ai);
+  }
+  __syncthreads();
+
+  // 7. inverse packed DFT: out[t] = sum_j acc[j] * inv(j / B, j % B, t)
+  {
+    const int nu = tid < n_out ? (n_out - tid + kThreads - 1) / kThreads : 0;
+    float acc[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) acc[u] = 0.0f;
+    for (int pl = 0; pl < 2; ++pl) {
+      const M* base = inv + pl * inv_plane + tid;
+#pragma unroll 4
+      for (int k = 0; k < B; ++k) {
+        const float a = sh.acc[pl * B + k];
+        const M* r = base + static_cast<size_t>(k) * inv_row;
+#pragma unroll
+        for (int u = 0; u < kPer; ++u)
+          if (u < nu) acc[u] += a * to_f32(r[u * kThreads]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if (u < nu) out[tid + u * kThreads] = acc[u];
+  }
+  __syncthreads();  // smem and the ring are reused by the next block
+}
+
+template <typename T, typename M>
+__global__ void __launch_bounds__(kThreads) fused_block_step_kernel(
+    const float* __restrict__ frame, T* fdl, const M* __restrict__ rim, float* scales,
+    const float* __restrict__ dcfix, const M* __restrict__ cs, const M* __restrict__ ab,
+    float* __restrict__ y, int P, int C, int B, int Cf, int pos) {
+  __shared__ Shared sh;
+  const int c = blockIdx.x;
+  const size_t n = 2 * static_cast<size_t>(B);
+  channel_block<T, M>(sh, frame + c * n, fdl, rim, scales, dcfix[c], dcfix[C + c],
+                      cs, n * B, B, ab, B * n, n, y + c * n, static_cast<int>(n),
+                      P, C, B, Cf, c, pos);
+}
+
+template <typename T, typename M>
+__global__ void __launch_bounds__(kThreads) fused_stream_kernel(
+    const float* __restrict__ sigpad, T* fdl, const M* __restrict__ rim, float* scales,
+    const float* __restrict__ dcfix_all, const M* __restrict__ cs, const M* __restrict__ abt,
+    float* __restrict__ out, int P, int C, int B, int Cf, int nb, int pos0) {
+  __shared__ Shared sh;
+  const int c = blockIdx.x;
+  const size_t bb = static_cast<size_t>(B);
+  const float* sig = sigpad + c * (static_cast<size_t>(nb) + 1) * bb;
+  float* o = out + c * static_cast<size_t>(nb) * bb;
+  for (int i = 0; i < nb; ++i) {
+    const int pos = (pos0 + i) % P;
+    const float* dcf = dcfix_all + static_cast<size_t>(i) * 2 * C;
+    channel_block<T, M>(sh, sig + i * bb, fdl, rim, scales, dcf[c], dcf[C + c],
+                        cs, bb, 2 * bb, abt, bb * bb, bb, o + i * bb, B,
+                        P, C, B, Cf, c, pos);
+  }
+}
+
+bool bad_shape(int P, int C, int B, int Cf) {
+  return P < 1 || C < 1 || B < 2 || B > kMaxB || (B & 1) || (Cf != 1 && Cf != C);
+}
+
+template <typename T, typename M>
+int launch_step(const void* frame, void* fdl, const void* rim, void* scales, const void* dcfix,
+                const void* cs, const void* ab, void* y, int P, int C, int B, int Cf, int pos,
+                cudaStream_t s) {
+  fused_block_step_kernel<T, M><<<C, kThreads, 0, s>>>(
+      static_cast<const float*>(frame), static_cast<T*>(fdl), static_cast<const M*>(rim),
+      static_cast<float*>(scales), static_cast<const float*>(dcfix),
+      static_cast<const M*>(cs), static_cast<const M*>(ab), static_cast<float*>(y),
+      P, C, B, Cf, pos);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename M>
+int launch_stream(const void* sigpad, void* fdl, const void* rim, void* scales,
+                  const void* dcfix_all, const void* cs, const void* abt, void* out,
+                  int P, int C, int B, int Cf, int nb, int pos0, cudaStream_t s) {
+  fused_stream_kernel<T, M><<<C, kThreads, 0, s>>>(
+      static_cast<const float*>(sigpad), static_cast<T*>(fdl), static_cast<const M*>(rim),
+      static_cast<float*>(scales), static_cast<const float*>(dcfix_all),
+      static_cast<const M*>(cs), static_cast<const M*>(abt), static_cast<float*>(out),
+      P, C, B, Cf, nb, pos0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int neo_fused_block_step(int storage, const void* frame, void* fdl, const void* rim,
+                                    void* scales, const void* dcfix, const void* cs,
+                                    const void* ab, void* y, int P, int C, int B, int Cf,
+                                    int pos, void* stream) {
+  if (bad_shape(P, C, B, Cf) || pos < 0 || pos >= P) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (storage) {
+    case neo::kSplit:
+      return launch_step<float, float>(frame, fdl, rim, scales, dcfix, cs, ab, y, P, C, B, Cf, pos, s);
+    case neo::kBf16:
+      return launch_step<__nv_bfloat16, __nv_bfloat16>(frame, fdl, rim, scales, dcfix, cs, ab, y,
+                                                       P, C, B, Cf, pos, s);
+    case neo::kInt16:
+      return launch_step<int16_t, float>(frame, fdl, rim, scales, dcfix, cs, ab, y, P, C, B, Cf, pos, s);
+    case neo::kInt8:
+      return launch_step<int8_t, __nv_bfloat16>(frame, fdl, rim, scales, dcfix, cs, ab, y,
+                                                P, C, B, Cf, pos, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int neo_fused_stream(int storage, const void* sigpad, void* fdl, const void* rim,
+                                void* scales, const void* dcfix_all, const void* cs,
+                                const void* abt, void* out, int P, int C, int B, int Cf, int nb,
+                                int pos0, void* stream) {
+  if (bad_shape(P, C, B, Cf) || nb < 1 || pos0 < 0 || pos0 >= P)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (storage) {
+    case neo::kSplit:
+      return launch_stream<float, float>(sigpad, fdl, rim, scales, dcfix_all, cs, abt, out,
+                                         P, C, B, Cf, nb, pos0, s);
+    case neo::kBf16:
+      return launch_stream<__nv_bfloat16, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all, cs,
+                                                         abt, out, P, C, B, Cf, nb, pos0, s);
+    case neo::kInt16:
+      return launch_stream<int16_t, float>(sigpad, fdl, rim, scales, dcfix_all, cs, abt, out,
+                                           P, C, B, Cf, nb, pos0, s);
+    case neo::kInt8:
+      return launch_stream<int8_t, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all, cs, abt,
+                                                  out, P, C, B, Cf, nb, pos0, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

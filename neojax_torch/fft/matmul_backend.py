@@ -1,0 +1,135 @@
+"""Packed-DFT matrices for the fused kernels, and the packed split transforms.
+
+The fused per-block kernels (``neojax_torch.kernels.fused_step``) evaluate
+the block's forward and inverse real DFT as GEMVs against dense matrices in
+the *packed* spectrum layout of ``neojax.fft.matmul_backend``: B = N/2
+lanes, lane 0 of the re-plane holds DC.re and lane 0 of the im-plane holds
+Nyquist.re (both imaginary parts vanish for real input). The matrices are
+built in float64 numpy and cast once per (size, dtype, device).
+
+Outside the kernels the same packed layout comes from ``torch.fft``
+(:func:`rfft_packed_split` / :func:`irfft_packed_split`), so no float32
+``torch.matmul`` — and no TF32 — is on the port's CUDA path.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = [
+    "packed_mats_np",
+    "packed_mats",
+    "packed_stream_mats",
+    "rfft_packed_split",
+    "irfft_packed_split",
+]
+
+
+@functools.lru_cache(maxsize=32)
+def _rfft_packed_mats_np(n: int):
+    """Forward packed matrices (c, s), each [N, B] float64: spec_re = x @ c,
+    spec_im = x @ s, with the im-plane's lane 0 replaced by the Nyquist
+    column cos(pi t)."""
+    assert n % 2 == 0
+    b = n // 2
+    k = np.arange(b)
+    t = np.arange(n)
+    ang = -2.0 * np.pi * np.outer(t, k) / n  # [N, B]
+    c = np.cos(ang)
+    s = np.sin(ang)
+    s[:, 0] = np.cos(np.pi * t)
+    return c, s
+
+
+@functools.lru_cache(maxsize=32)
+def _irfft_packed_mats_np(n: int):
+    """Inverse packed matrices (a, b), each [B, N] float64 with 1/N folded
+    in: y = re @ a + im @ b, the im-plane's lane 0 multiplying the Nyquist
+    cos row (weight 1)."""
+    assert n % 2 == 0
+    bb = n // 2
+    k = np.arange(bb + 1)
+    t = np.arange(n)
+    ang = 2.0 * np.pi * np.outer(k, t) / n  # [B+1, N]
+    w = np.full((bb + 1, 1), 2.0)
+    w[0] = 1.0
+    w[-1] = 1.0
+    a = w * np.cos(ang) / n
+    bm = -w * np.sin(ang) / n
+    a2 = a[:bb].copy()
+    b2 = bm[:bb].copy()
+    b2[0] = a[bb]
+    return a2, b2
+
+
+def packed_mats_np(n: int):
+    """Host float64 (cs [2, N, B] forward cos|sin, ab [2, B, N] inverse with
+    1/N) — the layout ``fused_block_step`` consumes."""
+    c, s = _rfft_packed_mats_np(n)
+    a, b = _irfft_packed_mats_np(n)
+    return np.stack([c, s]), np.stack([a, b])
+
+
+def _to_device(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    # float64 -> float32 on the host, then the storage dtype (bf16 rounds
+    # from the f32 value, as the JAX package's ``astype`` chain does).
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_mats_cached(n: int, dtype: torch.dtype, device: str):
+    cs, ab = packed_mats_np(n)
+    return _to_device(cs, dtype, device), _to_device(ab, dtype, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_stream_mats_cached(n: int, dtype: torch.dtype, device: str):
+    b = n // 2
+    c, s = _rfft_packed_mats_np(n)
+    a, bm = _irfft_packed_mats_np(n)
+    cs = np.concatenate([c, s], axis=-1)  # [N, 2B]
+    abt = np.concatenate([a[:, b:], bm[:, b:]], axis=0)  # [2B, B]
+    return _to_device(cs, dtype, device), _to_device(abt, dtype, device)
+
+
+def packed_mats(n: int, dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cs [2, N, B], ab [2, B, N]) as ``dtype`` on ``device`` — the matrix
+    operands of ``fused_block_step``. Cached: callers must not write to them."""
+    return _packed_mats_cached(n, dtype, str(torch.device(device)))
+
+
+def packed_stream_mats(n: int, dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole-stream kernel's matrix ABI (``fused_stream``): ONE
+    lane-packed forward matrix ``cs [N, 2B]`` (cos | sin) and ONE row-packed
+    tail-half inverse ``abt [2B, B]`` (last-B columns of both planes).
+    Cached: callers must not write to them."""
+    return _packed_stream_mats_cached(n, dtype, str(torch.device(device)))
+
+
+def rfft_packed_split(x: torch.Tensor, n: int):
+    """Real [..., n] -> packed (re, im), each [..., n//2] float32, on
+    ``torch.fft``: bins 0..n/2-1 with Nyquist.re stored in the im-plane's DC
+    lane."""
+    b = n // 2
+    spec = torch.fft.rfft(x.to(torch.float32), n=n, dim=-1)
+    re = spec.real[..., :b].contiguous()
+    im = spec.imag[..., :b].contiguous()
+    im[..., 0] = spec.real[..., b]
+    return re, im
+
+
+def irfft_packed_split(re: torch.Tensor, im: torch.Tensor, n: int) -> torch.Tensor:
+    """Packed (re, im) [..., n//2] -> real [..., n], normalized (1/n)."""
+    b = n // 2
+    re = re.to(torch.float32)
+    im = im.to(torch.float32)
+    spec_re = torch.cat([re, im[..., :1]], dim=-1)  # Nyquist.re at bin B
+    spec_im = torch.cat(
+        [torch.zeros_like(im[..., :1]), im[..., 1:b], torch.zeros_like(im[..., :1])],
+        dim=-1,
+    )
+    return torch.fft.irfft(torch.complex(spec_re, spec_im), n=n, dim=-1)

@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels (``csrc/``) for the per-block convolver, each
+beside its plain PyTorch version: B1 ``fdl_mac.fdl_mac``, B2
+``fused_step.fused_block_step``, B3 ``fused_step.fused_stream``. Nothing is
+compiled at import time.
+
+Each wrapper counts its kernel launches in a plain int attribute
+(``fdl_mac.fdl_mac.launches``); the CPU route counts nothing."""
+
+from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
+from neojax_torch.kernels import fused_step as _fused_step_mod
+
+
+def _wrappers():
+    return (_fdl_mac_mod.fdl_mac, _fused_step_mod.fused_block_step, _fused_step_mod.fused_stream)
+
+
+def reset_launch_counts() -> None:
+    for k in _wrappers():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in _wrappers()}
+
+
+__all__ = ["reset_launch_counts", "launch_counts"]

@@ -1,0 +1,144 @@
+"""Build and load the port's CUDA kernels: nvcc into a shared library with a
+plain C interface, bound with ``ctypes``.
+
+Sources are ``neojax_torch/csrc/*.cu`` and ``*.cuh`` only. The library is
+built at first use into ``neojax_torch/_build/`` (git-ignored), named by a
+hash of the sources and flags, so an edit to any source rebuilds it. Each C
+entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+
+Nothing here runs at import time: the CPU test suite imports every module
+of the package on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["load", "check", "stream_of", "build_info"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C signatures of the entry points (argtypes, in order). Pointers and the
+# stream are c_void_p: a bare Python int would be passed as a 32-bit int.
+_SIGNATURES = {
+    # storage, fdl, filt_re, filt_im, scales, acc_re, acc_im, P, C, K, Cf, stream
+    "neo_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # storage, frame, fdl, rim, scales, dcfix, cs, ab, y, P, C, B, Cf, pos, stream
+    "neo_fused_block_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # storage, sigpad, fdl, rim, scales, dcfix_all, cs, abt, out, P, C, B, Cf, nb, pos0, stream
+    "neo_fused_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+_info: dict = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = []
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels of neojax_torch are built from source at first use"
+    )
+
+
+def _compile(out: Path) -> str:
+    """nvcc every .cu into ``out``; returns nvcc's log (ptxas -v included)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return res.stdout + res.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call (or when a source changed)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    so = BUILD_DIR / f"libneojax_torch_{_digest()}.so"
+    t0 = time.perf_counter()
+    built = not so.exists()
+    if built:
+        log = _compile(so)
+        (BUILD_DIR / f"{so.stem}.log").write_text(log)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.neo_error_string.argtypes = [_I]
+    lib.neo_error_string.restype = ctypes.c_char_p
+    _info.update(path=str(so), built=built, seconds=time.perf_counter() - t0)
+    _lib = lib
+    return lib
+
+
+def build_info() -> dict:
+    """Where the loaded library lives, whether this process built it, and
+    how long loading (and building) took."""
+    return dict(_info)
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = load().neo_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")

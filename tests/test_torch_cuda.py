@@ -1,0 +1,155 @@
+"""neojax_torch's CUDA kernels against their plain PyTorch versions, on the
+card, at shapes the headline smoke (``chip_smoke.py``) does not cover: odd
+P, C and K, per-channel fused filters, the largest fused block (1024), ring
+wraps, and the convolver's CUDA route against its CPU route.
+
+Marked ``cuda``: every test skips without a CUDA device (decided in the
+``cuda`` fixture, never at import). The file imports no JAX, so on a card
+without JAX run it apart from ``tests/conftest.py`` (which imports JAX):
+``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.
+
+Tolerance: ``_TOL``, max|kernel - plain| / max|plain| (the storage ladder of
+``tests/test_fused_step.py``); the int rings to one LSB.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from neojax_torch import conv
+from neojax_torch.conv import convolver as cv
+from neojax_torch.fft import matmul_backend as mb
+from neojax_torch.kernels import fdl_mac as mac
+from neojax_torch.kernels import fused_step as fs
+
+_TOL = {"split": 2e-5, "bf16": 5e-3, "int16": 5e-4, "int8": 2e-2}
+_DT = {"split": torch.float32, "bf16": torch.bfloat16, "int16": torch.int16, "int8": torch.int8}
+_INT_MAX = {"int16": 32767, "int8": 127}
+_STORAGES = ["split", "bf16", "int16", "int8"]
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(12345)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _ring(rng, storage, p, c, k, dev):
+    if storage in _INT_MAX:
+        m = _INT_MAX[storage]
+        ring = torch.from_numpy(rng.integers(-m, m + 1, (2, p, c, k))).to(dev, _DT[storage])
+        scales = torch.from_numpy(rng.uniform(0.5, 4.0, (p, c)).astype(np.float32)).to(dev)
+        return ring, scales
+    ring = torch.from_numpy(rng.standard_normal((2, p, c, k)).astype(np.float32)).to(dev, _DT[storage])
+    return ring, None
+
+
+def _same_ring(storage, a, b, sa, sb):
+    if storage in _INT_MAX:
+        assert int((a.int() - b.int()).abs().max()) <= 1
+        assert _rel(sa, sb) < 1e-5
+    else:
+        assert _rel(a.float(), b.float()) < _TOL[storage]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+def test_fdl_mac_kernel_matches_plain(cuda, rng, storage, cf):
+    p, c, k = 7, 3, 200  # K not a multiple of the CTA width
+    ring, scales = _ring(rng, storage, p, c, k, cuda)
+    fr = torch.from_numpy(rng.standard_normal((p, cf, k)).astype(np.float32)).to(cuda)
+    fi = torch.from_numpy(rng.standard_normal((p, cf, k)).astype(np.float32)).to(cuda)
+    before = mac.fdl_mac.launches
+    got = mac.fdl_mac(ring, fr, fi, scales)
+    torch.cuda.synchronize()
+    assert mac.fdl_mac.launches == before + 1
+    want = mac.fdl_mac_reference(ring, fr, fi, scales)
+    assert _rel(torch.cat(got), torch.cat(want)) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+@pytest.mark.parametrize("b", [64, 1024])
+def test_fused_block_step_kernel_matches_plain(cuda, rng, storage, cf, b):
+    p, c = 5, 3
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    ring, scales = _ring(rng, storage, p, c, b, cuda)
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, cf, 2 * b))).astype(np.float32)).to(cuda, mdt)
+    cs, ab = mb.packed_mats(2 * b, mdt, cuda)
+    for pos in range(p):
+        frame = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * b)).astype(np.float32)).to(cuda)
+        dcfix = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32)).to(cuda)
+        k_ring, p_ring = ring.clone(), ring.clone()
+        k_s = None if scales is None else scales.clone()
+        p_s = None if scales is None else scales.clone()
+        ky = fs.fused_block_step(frame, k_ring, rim, pos, dcfix, cs, ab, k_s)[0]
+        py = fs.fused_block_step_reference(frame, p_ring, rim, pos, dcfix, cs, ab, p_s)[0]
+        torch.cuda.synchronize()
+        assert _rel(ky, py) < _TOL[storage]
+        _same_ring(storage, k_ring, p_ring, k_s, p_s)
+        ring, scales = p_ring, p_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+def test_fused_stream_kernel_matches_plain(cuda, rng, storage, cf):
+    p, c, b, nb, pos0 = 5, 3, 64, 12, 3  # wraps the ring twice
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    ring, scales = _ring(rng, storage, p, c, b, cuda)
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, cf, 2 * b))).astype(np.float32)).to(cuda, mdt)
+    cs, abt = mb.packed_stream_mats(2 * b, mdt, cuda)
+    sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(cuda)
+    dcfix = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(cuda)
+    k_ring, p_ring = ring.clone(), ring.clone()
+    k_s = None if scales is None else scales.clone()
+    p_s = None if scales is None else scales.clone()
+    ko = fs.fused_stream(sigpad, k_ring, rim, pos0, dcfix, cs, abt, k_s)[0]
+    po = fs.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix, cs, abt, p_s)[0]
+    torch.cuda.synchronize()
+    assert _rel(ko, po) < _TOL[storage]
+    _same_ring(storage, k_ring, p_ring, k_s, p_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["split", "int8"])
+@pytest.mark.parametrize("scheme", ["upols", "upola"])
+@pytest.mark.parametrize("fused", [None, False])
+def test_convolver_cuda_route_matches_cpu_route(cuda, rng, storage, scheme, fused):
+    b, p, c = 64, 6, 3
+    parts = ((rng.standard_normal((c, p, b + 1)) + 1j * rng.standard_normal((c, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    sig = rng.uniform(-1, 1, (c, 9 * b + 5)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        cfg = cv.PartitionedConfig(b, p, c, scheme=scheme, storage=storage, fused=fused)
+        params = cv.filter_params(cfg, parts, device=dev)
+        state, out = cv.process(cfg, params, cv.init_state(cfg, dev), torch.from_numpy(sig).to(dev))
+        outs.append(out)
+    assert _rel(outs[1], outs[0]) < _TOL[storage]
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    ring = torch.zeros((2, 4, 2, 8), dtype=torch.float64, device=cuda)
+    f = torch.zeros((4, 1, 8), device=cuda)
+    with pytest.raises(TypeError):
+        mac.fdl_mac(ring, f, f)
+    with pytest.raises(ValueError, match="one device"):
+        mac.fdl_mac(ring.float(), f.cpu(), f)
+    c = conv.Convolver(device=cuda)
+    assert c._storage == "split"
