@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive neojax_torch's per-block convolver end to end on one CUDA card.
+"""Drive neojax_torch's engines end to end on one CUDA card: the per-block
+convolver, the nested (two-level FDL) engine and the hybrid real-time
+engine.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 NVIDIA Hopper card (the kernels are built for sm_90a) and nvcc; it exits
@@ -7,14 +9,21 @@ non-zero without a card and never falls back to the CPU.
 
 Configuration: the repo's headline (``bench.py``, BASELINE.json config
 #3) — 64 channels, a 10 s shared decaying-noise IR at 48 kHz (938
-partitions, padded to P = 960), block B = 512, transform N = 1024.
+partitions; the per-block convolver pads them to P = 960), block B = 512,
+transform N = 1024. The nested engine runs at S = 128 blocks a chunk
+(meta ring [2, 8, 64, 513, 256]), the hybrid at S = 64 (head ring of 64
+partitions, tail meta ring [2, 14, 64, 513, 128]), as ``bench.py:192-225``.
 
 Phases, each printing one JSON object per line:
   1. device and environment (plus the raw nvidia-smi name/power-limit line)
   2. build the CUDA kernels from ``neojax_torch/csrc`` (nvcc, sm_90a)
   3. each kernel against its plain PyTorch version at the headline shapes,
      all four storages (B1 shared + per-channel filter, B2 at three ring
-     positions, B3 over 64 blocks starting at P-5 so the ring wraps)
+     positions, B3 over 64 blocks starting at P-5 so the ring wraps); then
+     at the nested and hybrid shapes: B5 on both meta rings (all four
+     storages, two ring positions), B3 with ``acc_add`` on the hybrid head
+     (P = 64, split and int16, from 5 rows before the wrap) and B1 on the
+     unfused head's K = 513 bins (P = 64, split and int16)
   4. the main path, UPOLS ``Convolver.process`` per storage, SNR against an
      f64 FFT-convolution oracle in steady state (blocks 1152-1167, 4
      channels), gated on the storage's class (split 90, int16 74, bf16 40
@@ -23,12 +32,24 @@ Phases, each printing one JSON object per line:
   5. the other entry points (split and int8): ``__call__`` on exact blocks
      (B2), the re-blocking FIFO + ``flush``, UPOLA ``process`` (B2 per
      block) and ``fused=False`` (B1), each against ``process``
-  6. ``process`` times per storage, kernel route against the plain torch
-     route (``mac_backend="torch"``: cuFFT transforms + tensor-op MAC)
-  7. the kernels summary, then the final ``{"ok": true, ...}`` line
+  6. the nested main path, ``process_nested`` per storage over 1280
+     blocks, and the hybrid main path, ``process_hybrid`` over 1216
+     blocks, each with the SNR of phase 4 gated on the class of all four
+     storages (split 90, int16 74, int8 46, bf16 40 dB)
+  7. the hybrid's and nested's other entry points: ``HybridStream`` over
+     1216 blocks (split, int8) against ``process_hybrid`` with the unfused
+     and the fused head, and ``process_nested`` with its state carried
+     across two calls against one call
+  8. times: per-block ``process``, ``process_nested`` and
+     ``process_hybrid`` per storage, kernel route against the plain torch
+     route (``mac_backend="torch"``: cuFFT transforms + tensor-op MAC), and
+     ``HybridStream``'s per-callback latency (chunk-boundary callbacks
+     apart)
+  9. the kernels summary, then the final ``{"ok": true, ...}`` line
 
-Launch counters are zeroed right before phase 4 and read right after
-phase 5; each kernel of the path must have launched in that window.
+Launch counters are zeroed right before each main path (phases 4+5, the
+nested and the hybrid halves of 6, and 7) and read right after it; each
+kernel of that path must have launched in its window.
 """
 
 from __future__ import annotations
@@ -47,12 +68,20 @@ BLOCK = 512
 CHANNELS = 64
 P_REAL = int(np.ceil(10.0 * SR / BLOCK))  # 938 partitions: a 10 s IR
 P = 960  # Convolver.filter's padding of 938
-NB_MAIN = 1168  # blocks streamed on the main path
+NB_MAIN = 1168  # blocks streamed on the per-block main path
+S_NESTED, NB_NESTED = 128, 1280  # 10 chunks, covering the SNR window
+S_HYBRID, NB_HYBRID = 64, 1216  # 19 chunks
 SNR_START, SNR_BLOCKS, SNR_CH = 1152, 16, 4  # steady-state window (> P_REAL)
 STORAGES = ("split", "bf16", "int16", "int8")
 SNR_CLASS_DB = {"split": 90.0, "int16": 74.0, "bf16": 40.0}  # bench.py:319
+# the nested and hybrid engines meet the int8 class too (bench.py:319)
+ENGINE_SNR_CLASS_DB = SNR_CLASS_DB | {"int8": 46.0}
 # max|kernel - plain| / max|plain| (tests/test_fused_step.py:43)
 TOL = {"split": 2e-5, "bf16": 5e-3, "int16": 5e-4, "int8": 2e-2}
+# HybridStream against process_hybrid: unfused head, max abs difference
+# (tests/test_hybrid.py:179); fused head, relative to the peak (:129)
+STREAM_TOL = {"split": 1e-5, "int8": 1e-4}
+FUSED_HEAD_TOL = {"split": 1e-5, "int16": 2e-3, "int8": 6e-2}
 INT_MAX = {"int16": 32767, "int8": 127}
 DEVICE = "cuda"
 
@@ -103,8 +132,11 @@ def main() -> int:
     from neojax_torch.conv import convolver as cv
     from neojax_torch.fft import matmul_backend as mb
     from neojax_torch.kernels import _build
+    from neojax_torch.conv import hybrid as hy
+    from neojax_torch.conv import nested as ne
     from neojax_torch.kernels import fdl_mac as mac_mod
     from neojax_torch.kernels import fused_step as fs_mod
+    from neojax_torch.kernels import nested_mac as nm_mod
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -148,7 +180,7 @@ def main() -> int:
     # ---- 3. each kernel against its plain version at the headline shapes
     rng = np.random.default_rng(7)
     c, b, n = CHANNELS, BLOCK, 2 * BLOCK
-    summary = {"fdl_mac": {}, "fused_block_step": {}, "fused_stream": {}}
+    summary = {"fdl_mac": {}, "fused_block_step": {}, "fused_stream": {}, "nested_mac": {}}
 
     def ring_inputs(storage):
         sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
@@ -241,6 +273,111 @@ def main() -> int:
              pos0=pos0, **summary["fused_stream"][storage], **card)
         del ring, scales, k_ring, p_ring
         torch.cuda.empty_cache()
+
+    # ---- 3b. the nested and hybrid engines' kernels at their shapes
+    k = BLOCK + 1
+    for engine, s_e in (("nested", S_NESTED), ("hybrid_tail", S_HYBRID)):
+        p_tail = P_REAL - (S_HYBRID if engine == "hybrid_tail" else 0)
+        p2 = -(-p_tail // s_e)
+        l = 2 * s_e
+        for storage in STORAGES:
+            sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
+            g = ne._quant_groups(cv.PartitionedConfig(BLOCK, P_REAL, c, storage=storage), s_e)
+            if storage in INT_MAX:
+                m = INT_MAX[storage]
+                planes = torch.randint(-m, m + 1, (2, p2, c, k, l), device=dev,
+                                       generator=torch.Generator(dev).manual_seed(3)).to(sdt)
+                scales = torch.rand((p2, c, k, g), device=dev,
+                                    generator=torch.Generator(dev).manual_seed(4)) * 40 + 1
+            else:
+                planes = torch.randn((2, p2, c, k, l), device=dev,
+                                     generator=torch.Generator(dev).manual_seed(3)).mul_(10).to(sdt)
+                scales = None
+            tiled = torch.from_numpy((0.05 * rng.standard_normal((2, 2 * p2, 1, k, l))).astype(np.float32)).to(dev)
+            worst = (0.0, 0.0)
+            for pos in (0, p2 - 1):
+                fr = tiled[0, p2 - 1 - pos : 2 * p2 - 1 - pos, 0]
+                fi = tiled[1, p2 - 1 - pos : 2 * p2 - 1 - pos, 0]
+                k_re, k_im = nm_mod.nested_mac(planes, scales, fr, fi)
+                p_re, p_im = nm_mod.nested_mac_reference(planes, scales, fr, fi)
+                torch.cuda.synchronize()
+                d, r = rel_err(torch.cat([k_re, k_im]).cpu(), torch.cat([p_re, p_im]).cpu())
+                assert r < TOL[storage], f"nested_mac {engine} {storage} pos={pos}: rel err {r}"
+                worst = max(worst, (d, r), key=lambda x: x[1])
+                del k_re, k_im, p_re, p_im
+            ms = cuda_ms(lambda: nm_mod.nested_mac(planes, scales, fr, fi), 20)
+            plain = cuda_ms(lambda: nm_mod.nested_mac_reference(planes, scales, fr, fi), 2)
+            nbytes = (planes.numel() * planes.element_size() + 2 * fr.numel() * 4
+                      + (0 if scales is None else scales.numel() * 4))
+            row = {"max_abs_err": worst[0], "rel_err": worst[1], "ms": ms, "plain_ms": plain,
+                   "planes": list(planes.shape), "groups": g, "mbytes": nbytes / 1e6,
+                   "gbytes_per_s": nbytes / ms / 1e6}
+            summary["nested_mac"].setdefault(engine, {})[storage] = row
+            emit(phase="kernel_vs_plain", kernel="nested_mac", shapes=engine, storage=storage,
+                 tol=TOL[storage], positions=[0, p2 - 1], **row, **card)
+            del planes, scales, tiled
+            torch.cuda.empty_cache()
+
+    # B3 with acc_add and B1 on the hybrid head (P = S = 64): the head's
+    # storages are split and int16 (int8 keeps an int16 head)
+    ph = S_HYBRID
+    summary["fused_stream_acc_add"] = {}
+    summary["fdl_mac_head"] = {}
+    for storage in ("split", "int16"):
+        sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
+        mdt = fs_mod.MATRIX_DTYPES[sdt]
+        if storage in INT_MAX:
+            ring = torch.from_numpy(rng.integers(-32767, 32768, (2, ph, c, b), dtype=np.int32)).to(dev, sdt)
+            scales = torch.from_numpy(rng.uniform(1.0, 40.0, (ph, c)).astype(np.float32)).to(dev)
+        else:
+            ring = torch.from_numpy((10 * rng.standard_normal((2, ph, c, b))).astype(np.float32)).to(dev)
+            scales = None
+        rim = torch.from_numpy((0.05 * rng.standard_normal((2 * ph, 1, 2 * b))).astype(np.float32)).to(dev, mdt)
+        nb, pos0 = 64, ph - 5
+        cs2, abt = mb.packed_stream_mats(n, mdt, dev)
+        sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(dev)
+        dcfix_all = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(dev)
+        seed = torch.from_numpy((20 * rng.standard_normal((nb, 2, c, b))).astype(np.float32)).to(dev)
+        k_ring, p_ring = ring.clone(), ring.clone()
+        k_scl = None if scales is None else scales.clone()
+        p_scl = None if scales is None else scales.clone()
+        ko = fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl, acc_add=seed)[0]
+        po = fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2, abt, p_scl,
+                                           acc_add=seed)[0]
+        torch.cuda.synchronize()
+        d, r = rel_err(ko.cpu(), po.cpu())
+        assert r < TOL[storage], f"fused_stream acc_add {storage}: rel err {r}"
+        check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream acc_add {storage}")
+        s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl,
+                                                   acc_add=seed), 3)
+        s_plain = cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2,
+                                                                abt, p_scl, acc_add=seed), 1)
+        summary["fused_stream_acc_add"][storage] = {"max_abs_err": d, "rel_err": r, "ms": s_ms,
+                                                    "plain_ms": s_plain, "blocks": nb,
+                                                    "us_per_block": 1e3 * s_ms / nb}
+        emit(phase="kernel_vs_plain", kernel="fused_stream", acc_add=True, storage=storage, partitions=ph,
+             tol=TOL[storage], pos0=pos0, **summary["fused_stream_acc_add"][storage], **card)
+
+        # B1 on the unfused head's non-packed bins: [2, 64, 64, 513]
+        if storage in INT_MAX:
+            hring = torch.from_numpy(rng.integers(-32767, 32768, (2, ph, c, k), dtype=np.int32)).to(dev, sdt)
+        else:
+            hring = torch.from_numpy((10 * rng.standard_normal((2, ph, c, k))).astype(np.float32)).to(dev)
+        fr = torch.from_numpy((0.05 * rng.standard_normal((ph, 1, k))).astype(np.float32)).to(dev)
+        fi = torch.from_numpy((0.05 * rng.standard_normal((ph, 1, k))).astype(np.float32)).to(dev)
+        k_re, k_im = mac_mod.fdl_mac(hring, fr, fi, scales)
+        p_re, p_im = mac_mod.fdl_mac_reference(hring, fr, fi, scales)
+        torch.cuda.synchronize()
+        d, r = rel_err(torch.cat([k_re, k_im]).cpu(), torch.cat([p_re, p_im]).cpu())
+        assert r < TOL[storage], f"fdl_mac head K={k} {storage}: rel err {r}"
+        summary["fdl_mac_head"][storage] = {
+            "max_abs_err": d, "rel_err": r,
+            "ms": cuda_ms(lambda: mac_mod.fdl_mac(hring, fr, fi, scales), 50),
+            "plain_ms": cuda_ms(lambda: mac_mod.fdl_mac_reference(hring, fr, fi, scales), 5)}
+        emit(phase="kernel_vs_plain", kernel="fdl_mac", shapes="hybrid_head", storage=storage,
+             ring=list(hring.shape), tol=TOL[storage], **summary["fdl_mac_head"][storage], **card)
+        del ring, hring, k_ring, p_ring
+    torch.cuda.empty_cache()
 
     # ---- 4. the main path: UPOLS process per storage
     ir = conv.normalize_impulse(torch.from_numpy(make_ir().astype(np.float32))).numpy()
@@ -338,12 +475,101 @@ def main() -> int:
         else:
             assert abs(snr_a - snr_s) <= 3.0, f"UPOLA {storage}: {snr_a:.1f} vs UPOLS {snr_s:.1f} dB"
 
-    counts = kernels.launch_counts()
-    emit(phase="launch_counts", **counts)
-    for name, cnt in counts.items():
-        assert cnt > 0, f"{name} was not launched on the main path"
+    windows = {}
 
-    # ---- 6. process times: kernel route vs the plain torch route
+    def read_window(path, expect):
+        """Read the launch counts of one main path and require each kernel
+        of that path to have launched."""
+        counts = kernels.launch_counts()
+        windows[path] = counts
+        emit(phase="launch_counts", path=path, **counts)
+        for name in expect:
+            assert counts[name] > 0, f"{name} was not launched on the {path} path"
+
+    read_window("perblock", ("fdl_mac", "fused_block_step", "fused_stream"))
+
+    # ---- 6. the nested and hybrid main paths, SNR per storage
+    sig2_np = np.random.default_rng(2).uniform(-1, 1, (CHANNELS, NB_NESTED * BLOCK)).astype(np.float32)
+    sig2 = torch.from_numpy(sig2_np).to(dev)
+    t2 = NB_NESTED * BLOCK
+    nfft2 = 1 << int(np.ceil(np.log2(t2 + ir.size)))
+    oracle2 = np.fft.irfft(np.fft.rfft(sig2_np[:SNR_CH].astype(np.float64), nfft2)
+                           * np.fft.rfft(ir.astype(np.float64), nfft2)[None], nfft2)[:, :t2]
+    engines = {
+        "nested": (ne.nested_filter_params, ne.nested_init_state, ne.process_nested, S_NESTED, NB_NESTED),
+        "hybrid": (hy.hybrid_filter_params, hy.hybrid_init_state, hy.process_hybrid, S_HYBRID, NB_HYBRID),
+    }
+    engine_snrs = {}
+    outs_main = {}
+    for name, (build, init, run, s_e, nb_e) in engines.items():
+        kernels.reset_launch_counts()
+        engine_snrs[name] = {}
+        for storage in STORAGES:
+            cfg = cv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage=storage)
+            params = build(cfg, parts, s_e, device=dev)
+            state = init(cfg, params)
+            x = sig2[:, : nb_e * BLOCK]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = run(cfg, params, state, x)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            assert tuple(out.shape) == (CHANNELS, nb_e * BLOCK) and bool(torch.isfinite(out).all())
+            out_np = out.cpu().numpy()
+            snr = snr_db(window(out_np, SNR_START), window(oracle2, SNR_START))
+            engine_snrs[name][storage] = snr
+            cls = ENGINE_SNR_CLASS_DB[storage]
+            extra = {}
+            if name == "nested":
+                extra["meta_ring"] = list(state["fdl"].shape)
+            else:
+                extra["meta_ring"] = list(state["meta_fdl"].shape)
+                extra["fused_head"] = "head_dcny" in state
+            emit(phase="main_path", entry=f"process_{name}", storage=storage, chunk_blocks=s_e,
+                 channels=CHANNELS, partitions=P_REAL, block=BLOCK, blocks=nb_e, snr_db_vs_f64=snr,
+                 snr_class_db=cls, first_call_s=dt, **extra, **card)
+            assert snr >= cls, f"{name} {storage}: SNR {snr:.1f} dB below its {cls} dB class"
+            if storage in ("split", "int8") and name == "hybrid":
+                outs_main[storage] = out
+            del params, state, out
+        torch.cuda.empty_cache()
+        read_window(name, ("nested_mac",) if name == "nested" else ("nested_mac", "fused_stream", "fdl_mac"))
+
+    # ---- 7. the hybrid's and nested's other entry points
+    kernels.reset_launch_counts()
+    x = sig2[:, : NB_HYBRID * BLOCK]
+    for storage in ("split", "int8"):
+        cfg = cv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage=storage)
+        params = hy.hybrid_filter_params(cfg, parts, S_HYBRID, device=dev)
+        unfused = {key: v for key, v in params.items() if key != "head_packed"}
+        _, ref_u = hy.process_hybrid(cfg, unfused, hy.hybrid_init_state(cfg, unfused), x)
+        stream = hy.HybridStream(cfg, params)
+        got = torch.cat([stream(x[:, i * BLOCK : (i + 1) * BLOCK]) for i in range(NB_HYBRID)], dim=-1)
+        torch.cuda.synchronize()
+        d_u, _ = rel_err(got.cpu(), ref_u.cpu())
+        d_f, r_f = rel_err(got.cpu(), outs_main[storage].cpu())
+        emit(phase="entry_point", entry="HybridStream.__call__", storage=storage, blocks=NB_HYBRID,
+             max_abs_err_vs_unfused=d_u, tol_abs=STREAM_TOL[storage],
+             rel_err_vs_fused=r_f, tol_rel=FUSED_HEAD_TOL[storage], against="process_hybrid")
+        assert d_u < STREAM_TOL[storage], f"HybridStream {storage} vs unfused process_hybrid: {d_u}"
+        assert r_f < FUSED_HEAD_TOL[storage], f"HybridStream {storage} vs fused process_hybrid: {r_f}"
+        del stream, got, ref_u
+    del outs_main
+    cfg = cv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage="int8")
+    params = ne.nested_filter_params(cfg, parts, S_NESTED, device=dev)
+    _, one = ne.process_nested(cfg, params, ne.nested_init_state(cfg, params), sig2)
+    half = NB_NESTED // 2 * BLOCK
+    st, a = ne.process_nested(cfg, params, ne.nested_init_state(cfg, params), sig2[:, :half])
+    _, b2 = ne.process_nested(cfg, params, st, sig2[:, half:])
+    d, r = rel_err(torch.cat([a, b2], dim=-1).cpu(), one.cpu())
+    emit(phase="entry_point", entry="process_nested (state carried across two calls)", storage="int8",
+         max_abs_err=d, rel_err=r, tol=1e-6, against="one call")
+    assert r < 1e-6, f"process_nested across two calls differs from one call: {r}"
+    del params, one, a, b2, st
+    torch.cuda.empty_cache()
+    read_window("hybrid_stream", ("fdl_mac", "nested_mac"))
+
+    # ---- 8. times: kernel route vs the plain torch route
     nbt, nbp = 256, 32
     sig_t = sig[:, : nbt * BLOCK].contiguous()
     sig_p = sig[:, : nbp * BLOCK].contiguous()
@@ -378,20 +604,83 @@ def main() -> int:
         del v, st_k, st_p
         torch.cuda.empty_cache()
 
-    # ---- 7. kernels summary and the final line
+    # nested (10 chunks) and hybrid (4 chunks): µs per block, channel-samples/s
+    engine_times = {}
+    for name, (build, init, run, s_e, _) in engines.items():
+        nb_t = {"nested": NB_NESTED, "hybrid": 4 * S_HYBRID}[name]
+        x = sig2[:, : nb_t * BLOCK]
+        engine_times[name] = {}
+        for storage in STORAGES:
+            cfg_k = cv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage=storage)
+            cfg_p = dataclasses.replace(cfg_k, mac_backend="torch")
+            params = build(cfg_k, parts, s_e, device=dev)
+            st_k, st_p = init(cfg_k, params), init(cfg_p, params)
+            s_k = median_s(lambda: run(cfg_k, params, st_k, x), 3) / nb_t
+            s_p = median_s(lambda: run(cfg_p, params, st_p, x), 3) / nb_t
+            row = {"kernel_us_per_block": 1e6 * s_k, "plain_us_per_block": 1e6 * s_p,
+                   "kernel_samples_per_s": CHANNELS * BLOCK / s_k,
+                   "plain_samples_per_s": CHANNELS * BLOCK / s_p}
+            engine_times[name][storage] = row
+            emit(phase="times", entry=f"process_{name}", storage=storage, chunk_blocks=s_e, blocks=nb_t,
+                 fused_head="head_dcny" in st_k if name == "hybrid" else None,
+                 plain_route="mac_backend='torch' (cuFFT + tensor-op MACs)", **row, **card)
+            del params, st_k, st_p
+            torch.cuda.empty_cache()
+
+    # HybridStream: per-callback latency, host clock around each callback
+    # ending in a synchronize; the chunk-boundary callbacks carry the tail
+    # refresh (meta-FFT, B5, inverse). Deadline: one block, 10 667 us.
+    stream_lat = {}
+    x = sig2[:, : NB_HYBRID * BLOCK]
+    for storage in ("split", "int8"):
+        cfg = cv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage=storage)
+        stream = hy.HybridStream(cfg, hy.hybrid_filter_params(cfg, parts, S_HYBRID, device=dev))
+        blocks = [x[:, i * BLOCK : (i + 1) * BLOCK].contiguous() for i in range(NB_HYBRID)]
+        for blk in blocks[: 2 * S_HYBRID]:  # warm-up: two chunks
+            stream(blk)
+        stream.reset()
+        lat = []
+        for blk in blocks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream(blk)
+            torch.cuda.synchronize()
+            lat.append(1e6 * (time.perf_counter() - t0))
+        lat = np.asarray(lat)
+        boundary = (np.arange(NB_HYBRID) % S_HYBRID) == S_HYBRID - 1
+
+        def stats(v):
+            return {"p50_us": float(np.percentile(v, 50)), "p99_us": float(np.percentile(v, 99)),
+                    "max_us": float(v.max()), "n": int(v.size)}
+
+        stream_lat[storage] = {"block": stats(lat[~boundary]), "chunk_boundary": stats(lat[boundary])}
+        emit(phase="times", entry="HybridStream.__call__", storage=storage, deadline_us=1e6 * BLOCK / SR,
+             callbacks_over_deadline=int((lat > 1e6 * BLOCK / SR).sum()), **stream_lat[storage], **card)
+        del stream, blocks
+
+    # ---- 9. kernels summary and the final line
     sources = {
         "fdl_mac": ("neojax_torch/csrc/fdl_mac.cu", "neojax/kernels/fdl_mac.py:111"),
         "fused_block_step": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
         "fused_stream": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
+        "nested_mac": ("neojax_torch/csrc/nested_mac.cu", "neojax/kernels/nested_mac.py:82"),
     }
+    by_storage = dict(summary)
+    by_storage["fdl_mac"] = summary["fdl_mac"] | {"hybrid_head": summary["fdl_mac_head"]}
+    by_storage["fused_stream"] = summary["fused_stream"] | {"acc_add_hybrid_head": summary["fused_stream_acc_add"]}
+    heads = {name: summary[name]["split"] for name in ("fdl_mac", "fused_block_step", "fused_stream")}
+    heads["nested_mac"] = summary["nested_mac"]["nested"]["split"]
     rows = []
     for name, (src, repl) in sources.items():
-        head = summary[name]["split"]
+        head = heads[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                     "launches": counts[name], "max_abs_err": head["max_abs_err"],
-                     "ms": head["ms"], "plain_ms": head["plain_ms"], "storage": "split",
-                     "by_storage": summary[name]})
-    emit(phase="summary", snr_db_vs_f64=snrs, times=times, total_s=time.perf_counter() - t_start, **card)
+                     "launches": sum(w[name] for w in windows.values()),
+                     "launches_by_path": {path: w[name] for path, w in windows.items()},
+                     "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+                     "storage": "split", "by_storage": by_storage[name]})
+    emit(phase="summary", snr_db_vs_f64=snrs, engine_snr_db_vs_f64=engine_snrs, times=times,
+         engine_times=engine_times, hybrid_stream_latency=stream_lat,
+         total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,6 @@
-"""neojax_torch.conv — the uniformly-partitioned FDL convolver (UPOLS/UPOLA)."""
+"""neojax_torch.conv — the uniformly-partitioned FDL convolver (UPOLS/UPOLA),
+the nested (two-level FDL) throughput engine and the hybrid real-time
+engine."""
 
 from neojax_torch.conv.convolver import (
     Convolver,
@@ -17,6 +19,13 @@ from neojax_torch.conv.convolver import (
     upola_convolver_v2,
     upols_convolver,
 )
+from neojax_torch.conv.hybrid import (
+    HybridStream,
+    hybrid_filter_params,
+    hybrid_init_state,
+    process_hybrid,
+)
+from neojax_torch.conv.nested import nested_filter_params, nested_init_state, process_nested
 from neojax_torch.conv.overlap import stream_blocks, unstream_blocks
 from neojax_torch.conv.partition import num_partitions, uniform_partition
 from neojax_torch.conv.sparse import sparsity_mask
@@ -38,6 +47,13 @@ __all__ = [
     "split_upola_convolver",
     "sparse_upols_convolver",
     "sparse_upola_convolver",
+    "nested_filter_params",
+    "nested_init_state",
+    "process_nested",
+    "hybrid_filter_params",
+    "hybrid_init_state",
+    "process_hybrid",
+    "HybridStream",
     "stream_blocks",
     "unstream_blocks",
     "uniform_partition",

@@ -12,8 +12,12 @@
 //   4. ring-row insert at pos, in place (+ scales[pos, c])
 //   5. MAC over P against the rotated filter rows filt_rim[P-1-pos + p];
 //      slot pos is read back after the barrier, so it holds the NEW row and
-//      scale
-//   6. lane 0 := the exact DC/Nyquist values (dcfix)
+//      scale. B3 may seed the accumulator from acc_add[i] (the hybrid
+//      engine's chunk-rate tail sum, linearity of the partition sum); the
+//      seed is taken before the MAC, as in the Pallas kernel
+//   6. lane 0 := the exact DC/Nyquist values (dcfix), after the MAC, so it
+//      also overwrites the seed's lane 0 (the hybrid folds the tail's exact
+//      DC/Nyquist into dcfix; the im-plane lane 0 holds Nyquist.re)
 //   7. inverse packed DFT of the accumulator (rounded to the matrix dtype):
 //      all N samples (B2) or only the UPOLS tail half (B3)
 //
@@ -62,7 +66,7 @@ struct Shared {
 template <typename T, typename M>
 __device__ __forceinline__ void channel_block(
     Shared& sh, const float* __restrict__ frame_src, T* fdl, const M* __restrict__ rim,
-    float* scales, float dc_fix, float ny_fix,
+    float* scales, float dc_fix, float ny_fix, const float* __restrict__ seed,
     const M* __restrict__ fwd, size_t fwd_plane, size_t fwd_row,
     const M* __restrict__ inv, size_t inv_plane, size_t inv_row,
     float* __restrict__ out, int n_out, int P, int C, int B, int Cf, int c, int pos) {
@@ -130,7 +134,8 @@ __device__ __forceinline__ void channel_block(
   }
   __syncthreads();  // the new row and scale are visible to the whole CTA
 
-  // 5 + 6. rotated-filter MAC over P, then the lane-0 DC/Nyquist overwrite
+  // 5 + 6. rotated-filter MAC over P (seeded from acc_add when given), then
+  // the lane-0 DC/Nyquist overwrite
   const size_t frow = static_cast<size_t>(Cf) * w;
   const M* frot = rim + static_cast<size_t>(P - 1 - pos) * frow +
                   static_cast<size_t>(Cf == 1 ? 0 : c) * w;
@@ -139,7 +144,9 @@ __device__ __forceinline__ void channel_block(
     const T* xi = xr + plane;
     const M* fr = frot + k;
     const M* fi = fr + B;
-    float ar = 0.0f, ai = 0.0f;
+    // seed [2, C, B]: plane 0 re, plane 1 im
+    float ar = seed ? seed[static_cast<size_t>(c) * B + k] : 0.0f;
+    float ai = seed ? seed[static_cast<size_t>(C + c) * B + k] : 0.0f;
 #pragma unroll 4
     for (int p = 0; p < P; ++p) {
       float r = to_f32(xr[p * row]);
@@ -195,7 +202,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_step_kernel(
   __shared__ Shared sh;
   const int c = blockIdx.x;
   const size_t n = 2 * static_cast<size_t>(B);
-  channel_block<T, M>(sh, frame + c * n, fdl, rim, scales, dcfix[c], dcfix[C + c],
+  channel_block<T, M>(sh, frame + c * n, fdl, rim, scales, dcfix[c], dcfix[C + c], nullptr,
                       cs, n * B, B, ab, B * n, n, y + c * n, static_cast<int>(n),
                       P, C, B, Cf, c, pos);
 }
@@ -203,7 +210,8 @@ __global__ void __launch_bounds__(kThreads) fused_block_step_kernel(
 template <typename T, typename M>
 __global__ void __launch_bounds__(kThreads) fused_stream_kernel(
     const float* __restrict__ sigpad, T* fdl, const M* __restrict__ rim, float* scales,
-    const float* __restrict__ dcfix_all, const M* __restrict__ cs, const M* __restrict__ abt,
+    const float* __restrict__ dcfix_all, const float* __restrict__ acc_add,
+    const M* __restrict__ cs, const M* __restrict__ abt,
     float* __restrict__ out, int P, int C, int B, int Cf, int nb, int pos0) {
   __shared__ Shared sh;
   const int c = blockIdx.x;
@@ -213,7 +221,8 @@ __global__ void __launch_bounds__(kThreads) fused_stream_kernel(
   for (int i = 0; i < nb; ++i) {
     const int pos = (pos0 + i) % P;
     const float* dcf = dcfix_all + static_cast<size_t>(i) * 2 * C;
-    channel_block<T, M>(sh, sig + i * bb, fdl, rim, scales, dcf[c], dcf[C + c],
+    const float* seed = acc_add ? acc_add + static_cast<size_t>(i) * 2 * C * bb : nullptr;
+    channel_block<T, M>(sh, sig + i * bb, fdl, rim, scales, dcf[c], dcf[C + c], seed,
                         cs, bb, 2 * bb, abt, bb * bb, bb, o + i * bb, B,
                         P, C, B, Cf, c, pos);
   }
@@ -237,13 +246,13 @@ int launch_step(const void* frame, void* fdl, const void* rim, void* scales, con
 
 template <typename T, typename M>
 int launch_stream(const void* sigpad, void* fdl, const void* rim, void* scales,
-                  const void* dcfix_all, const void* cs, const void* abt, void* out,
-                  int P, int C, int B, int Cf, int nb, int pos0, cudaStream_t s) {
+                  const void* dcfix_all, const void* acc_add, const void* cs, const void* abt,
+                  void* out, int P, int C, int B, int Cf, int nb, int pos0, cudaStream_t s) {
   fused_stream_kernel<T, M><<<C, kThreads, 0, s>>>(
       static_cast<const float*>(sigpad), static_cast<T*>(fdl), static_cast<const M*>(rim),
       static_cast<float*>(scales), static_cast<const float*>(dcfix_all),
-      static_cast<const M*>(cs), static_cast<const M*>(abt), static_cast<float*>(out),
-      P, C, B, Cf, nb, pos0);
+      static_cast<const float*>(acc_add), static_cast<const M*>(cs),
+      static_cast<const M*>(abt), static_cast<float*>(out), P, C, B, Cf, nb, pos0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,25 +281,26 @@ extern "C" int neo_fused_block_step(int storage, const void* frame, void* fdl, c
 }
 
 extern "C" int neo_fused_stream(int storage, const void* sigpad, void* fdl, const void* rim,
-                                void* scales, const void* dcfix_all, const void* cs,
-                                const void* abt, void* out, int P, int C, int B, int Cf, int nb,
-                                int pos0, void* stream) {
+                                void* scales, const void* dcfix_all, const void* acc_add,
+                                const void* cs, const void* abt, void* out, int P, int C, int B,
+                                int Cf, int nb, int pos0, void* stream) {
   if (bad_shape(P, C, B, Cf) || nb < 1 || pos0 < 0 || pos0 >= P)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case neo::kSplit:
-      return launch_stream<float, float>(sigpad, fdl, rim, scales, dcfix_all, cs, abt, out,
-                                         P, C, B, Cf, nb, pos0, s);
+      return launch_stream<float, float>(sigpad, fdl, rim, scales, dcfix_all, acc_add, cs, abt,
+                                         out, P, C, B, Cf, nb, pos0, s);
     case neo::kBf16:
-      return launch_stream<__nv_bfloat16, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all, cs,
-                                                         abt, out, P, C, B, Cf, nb, pos0, s);
+      return launch_stream<__nv_bfloat16, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all,
+                                                         acc_add, cs, abt, out, P, C, B, Cf, nb,
+                                                         pos0, s);
     case neo::kInt16:
-      return launch_stream<int16_t, float>(sigpad, fdl, rim, scales, dcfix_all, cs, abt, out,
-                                           P, C, B, Cf, nb, pos0, s);
+      return launch_stream<int16_t, float>(sigpad, fdl, rim, scales, dcfix_all, acc_add, cs, abt,
+                                           out, P, C, B, Cf, nb, pos0, s);
     case neo::kInt8:
-      return launch_stream<int8_t, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all, cs, abt,
-                                                  out, P, C, B, Cf, nb, pos0, s);
+      return launch_stream<int8_t, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all, acc_add,
+                                                  cs, abt, out, P, C, B, Cf, nb, pos0, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

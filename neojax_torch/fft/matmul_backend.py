@@ -1,4 +1,4 @@
-"""Packed-DFT matrices for the fused kernels, and the packed split transforms.
+"""Packed-DFT matrices for the fused kernels, and the split transforms.
 
 The fused per-block kernels (``neojax_torch.kernels.fused_step``) evaluate
 the block's forward and inverse real DFT as GEMVs against dense matrices in
@@ -7,9 +7,19 @@ lanes, lane 0 of the re-plane holds DC.re and lane 0 of the im-plane holds
 Nyquist.re (both imaginary parts vanish for real input). The matrices are
 built in float64 numpy and cast once per (size, dtype, device).
 
-Outside the kernels the same packed layout comes from ``torch.fft``
-(:func:`rfft_packed_split` / :func:`irfft_packed_split`), so no float32
-``torch.matmul`` — and no TF32 — is on the port's CUDA path.
+Outside the kernels the transforms run on ``torch.fft`` (cuFFT on the
+card, in float32): the packed split layout (:func:`rfft_packed_split` /
+:func:`irfft_packed_split`), the non-packed K = B+1 bin layout of the
+nested and hybrid engines (:func:`rfft_split` / :func:`irfft_split`, the
+JAX package's ``rfft_split_cat`` / ``irfft_split_cat``) and the nested
+engine's meta C2C transforms (:func:`meta_fft` / :func:`meta_ifft_tail`,
+which replace the packed GEMMs of ``neojax.conv.nested._meta_gemm_mats``).
+So no float32 ``torch.matmul`` — and no TF32 — is on the port's CUDA path.
+
+Precision. The JAX engines pick an MXU precision per transform
+(``_fft_precisions``). Here ``HIGHEST`` and ``HIGH`` are float32 FFTs,
+and ``DEFAULT`` (the bf16 rung, one bf16 MXU pass) rounds the transform's
+operand to bf16 first and computes in float32 (:func:`round_operand`).
 """
 
 from __future__ import annotations
@@ -25,7 +35,16 @@ __all__ = [
     "packed_stream_mats",
     "rfft_packed_split",
     "irfft_packed_split",
+    "PRECISIONS",
+    "round_operand",
+    "rfft_split",
+    "irfft_split",
+    "meta_fft",
+    "meta_ifft_tail",
 ]
+
+# The JAX package's lax.Precision names, lower-cased.
+PRECISIONS = ("default", "high", "highest")
 
 
 @functools.lru_cache(maxsize=32)
@@ -133,3 +152,48 @@ def irfft_packed_split(re: torch.Tensor, im: torch.Tensor, n: int) -> torch.Tens
         dim=-1,
     )
     return torch.fft.irfft(torch.complex(spec_re, spec_im), n=n, dim=-1)
+
+
+def round_operand(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """A transform operand as float32, rounded to bf16 first for the
+    ``"default"`` precision (the bf16 rung's one-pass MXU product)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    if precision == "default":
+        x = x.to(torch.bfloat16)
+    return x.to(torch.float32)
+
+
+def rfft_split(x: torch.Tensor, n: int):
+    """Real [..., n] -> (re, im), each [..., n//2 + 1] float32 (strided
+    views of one complex result), unnormalized forward
+    (``rfft_split_cat``)."""
+    spec = torch.fft.rfft(x.to(torch.float32), n=n, dim=-1)
+    return spec.real, spec.imag
+
+
+def irfft_split(re: torch.Tensor, im: torch.Tensor, n: int) -> torch.Tensor:
+    """(re, im) [..., n//2 + 1] -> real [..., n], normalized (1/n)
+    (``irfft_split_cat``). The imaginary parts of DC and Nyquist do not
+    enter, as in the JAX package's matrix form (its sine rows vanish
+    there); they are zeroed so no backend has to ignore them."""
+    im = im.to(torch.float32).clone()
+    im[..., 0] = 0.0
+    im[..., -1] = 0.0
+    return torch.fft.irfft(torch.complex(re.to(torch.float32), im), n=n, dim=-1)
+
+
+def meta_fft(re: torch.Tensor, im: torch.Tensor):
+    """Unnormalized forward C2C DFT over the last axis (the nested
+    engine's 2S-frame meta window): X[k] = sum_t x[t] exp(-2 pi i t k / 2S).
+    Returns (re, im) float32."""
+    x = torch.fft.fft(torch.complex(re.to(torch.float32), im.to(torch.float32)), dim=-1)
+    return x.real, x.imag
+
+
+def meta_ifft_tail(re: torch.Tensor, im: torch.Tensor):
+    """Normalized inverse C2C DFT over the last axis (length 2S), keeping
+    the OLS tail frames [S, 2S). Returns (re, im), each [..., S] float32."""
+    y = torch.fft.ifft(torch.complex(re.to(torch.float32), im.to(torch.float32)), dim=-1)
+    y = y[..., re.shape[-1] // 2 :]
+    return y.real, y.imag

@@ -1,17 +1,20 @@
-"""Hand-written CUDA kernels (``csrc/``) for the per-block convolver, each
-beside its plain PyTorch version: B1 ``fdl_mac.fdl_mac``, B2
-``fused_step.fused_block_step``, B3 ``fused_step.fused_stream``. Nothing is
-compiled at import time.
+"""Hand-written CUDA kernels (``csrc/``), each beside its plain PyTorch
+version: B1 ``fdl_mac.fdl_mac``, B2 ``fused_step.fused_block_step``, B3
+``fused_step.fused_stream`` (the per-block convolver and the hybrid head)
+and B5 ``nested_mac.nested_mac`` (the nested engine and the hybrid tail).
+Nothing is compiled at import time.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``fdl_mac.fdl_mac.launches``); the CPU route counts nothing."""
 
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
 from neojax_torch.kernels import fused_step as _fused_step_mod
+from neojax_torch.kernels import nested_mac as _nested_mac_mod
 
 
 def _wrappers():
-    return (_fdl_mac_mod.fdl_mac, _fused_step_mod.fused_block_step, _fused_step_mod.fused_stream)
+    return (_fdl_mac_mod.fdl_mac, _fused_step_mod.fused_block_step, _fused_step_mod.fused_stream,
+            _nested_mac_mod.nested_mac)
 
 
 def reset_launch_counts() -> None:

@@ -44,8 +44,11 @@ _SIGNATURES = {
     "neo_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # storage, frame, fdl, rim, scales, dcfix, cs, ab, y, P, C, B, Cf, pos, stream
     "neo_fused_block_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # storage, sigpad, fdl, rim, scales, dcfix_all, cs, abt, out, P, C, B, Cf, nb, pos0, stream
-    "neo_fused_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # storage, sigpad, fdl, rim, scales, dcfix_all, acc_add, cs, abt, out,
+    # P, C, B, Cf, nb, pos0, stream
+    "neo_fused_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # storage, planes, scales, filt_re, filt_im, acc_re, acc_im, P2, C, K, L, G, stream
+    "neo_nested_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

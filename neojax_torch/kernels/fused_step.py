@@ -7,8 +7,9 @@ block, for each channel:
 
     packed forward DFT (GEMV against ``cs``)  ->  [quantize +] ring-row
     insert at ``pos``  ->  rotated-filter MAC over P (the new row with its
-    new scale)  ->  lane-0 DC/Nyquist overwrite from ``dcfix``  ->  packed
-    inverse DFT (GEMV against ``ab`` / the tail-half ``abt``)
+    new scale; B3 may seed the sum from ``acc_add``)  ->  lane-0
+    DC/Nyquist overwrite from ``dcfix``  ->  packed inverse DFT (GEMV
+    against ``ab`` / the tail-half ``abt``)
 
 Layout contract (as the JAX package's): packed-512 spectra, B = N/2 lanes,
 re-plane lane 0 = DC.re, im-plane lane 0 = Nyquist.re; the filter arrives
@@ -97,9 +98,10 @@ def _check_common(tensors, name):
         raise ValueError(f"{name}: unsupported device {dev}")
 
 
-def _block_reference(frame, fdl, scales, rim, pos, dcfix, fwd, inv):
+def _block_reference(frame, fdl, scales, rim, pos, dcfix, fwd, inv, seed=None):
     """One block of the fused pipeline in plain PyTorch. fwd [N, 2B] and
-    inv [2B, n_out] in the matrix dtype; updates fdl/scales row ``pos``."""
+    inv [2B, n_out] in the matrix dtype; ``seed`` [2, C, B] f32 starts the
+    MAC sum (B3's ``acc_add``); updates fdl/scales row ``pos``."""
     p, b = fdl.shape[1], fdl.shape[3]
     spec = (frame.to(fwd.dtype).double() @ fwd.double()).to(torch.float32)  # [C, 2B]
     spec = torch.stack([spec[:, :b], spec[:, b:]])  # [2, C, B]
@@ -120,6 +122,9 @@ def _block_reference(frame, fdl, scales, rim, pos, dcfix, fwd, inv):
     fr, fi = rot[..., :b], rot[..., b:]
     acc_re = torch.sum(x[0] * fr - x[1] * fi, dim=0)
     acc_im = torch.sum(x[0] * fi + x[1] * fr, dim=0)
+    if seed is not None:
+        acc_re = acc_re + seed[0].double()
+        acc_im = acc_im + seed[1].double()
     acc_re[:, 0] = dcfix[0].double()
     acc_im[:, 0] = dcfix[1].double()
     accp = torch.cat([acc_re, acc_im], dim=-1).to(torch.float32).to(inv.dtype)
@@ -182,7 +187,8 @@ def fused_block_step(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None):
 fused_block_step.launches = 0
 
 
-def fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None):
+def fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
+                           acc_add=None):
     """Plain PyTorch B3 (a Python loop over blocks); same contract as
     :func:`fused_stream`."""
     c = sigpad.shape[0]
@@ -193,7 +199,8 @@ def fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scal
         frame = sigpad[:, i * b : i * b + 2 * b]
         pos = (int(pos0) + i) % p
         out[:, i * b : (i + 1) * b] = _block_reference(
-            frame, fdl, scales, filt_rim, pos, dcfix_all[i], cs, abt
+            frame, fdl, scales, filt_rim, pos, dcfix_all[i], cs, abt,
+            None if acc_add is None else acc_add[i],
         )
     return (out, fdl) if scales is None else (out, fdl, scales)
 
@@ -212,8 +219,11 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
     abt      : [2B, B] inverse matrix, last-B columns only (tail half)
     scales   : [P, C] f32 (int8/int16) — updated IN PLACE
     sched    : chunk-sparse schedule — not ported yet (ROADMAP A9, with B4)
-    acc_add  : per-step accumulator seed — not ported yet (ROADMAP A7,
-               the hybrid engine)
+    acc_add  : optional [nb, 2, C, B] f32 per-block accumulator SEED
+               (packed lanes; the MAC adds onto it, and the ``dcfix``
+               overwrite of lane 0 comes after, so lane 0 of the seed is
+               ignored). The hybrid engine's chunk-rate tail sum enters
+               its per-block head through it (linearity of the sum).
 
     Returns (out [C, nb*B] f32, fdl) or (out, fdl, scales).
     """
@@ -221,11 +231,6 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
         raise NotImplementedError(
             "fused_stream(sched=...): the chunk-sparse schedule comes with the "
             "sparse slice (ROADMAP A9, kernel B4)"
-        )
-    if acc_add is not None:
-        raise NotImplementedError(
-            "fused_stream(acc_add=...): the accumulator seed comes with the "
-            "hybrid engine (ROADMAP A7)"
         )
     if sigpad.ndim != 2 or sigpad.dtype != torch.float32:
         raise ValueError(f"sigpad must be float32 [C, (nb+1)*B], got {sigpad.dtype} {tuple(sigpad.shape)}")
@@ -239,15 +244,22 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
         raise ValueError(f"cs/abt must be {mdt} [{n}, {2 * b}] / [{2 * b}, {b}]")
     if dcfix_all.dtype != torch.float32 or tuple(dcfix_all.shape) != (nb, 2, c):
         raise ValueError(f"dcfix_all must be float32 [{nb}, 2, {c}]")
+    if acc_add is not None and (acc_add.dtype != torch.float32
+                                or tuple(acc_add.shape) != (nb, 2, c, b)):
+        raise ValueError(f"acc_add must be float32 [{nb}, 2, {c}, {b}]")
     pos0 = int(pos0) % p
-    tensors = [sigpad, fdl, filt_rim, dcfix_all, cs, abt] + ([] if scales is None else [scales])
+    tensors = [sigpad, fdl, filt_rim, dcfix_all, cs, abt] + [
+        t for t in (scales, acc_add) if t is not None
+    ]
     _check_common(tensors, "fused_stream")
     if sigpad.device.type == "cpu":
-        return fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales)
+        return fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales,
+                                      acc_add)
     out = torch.empty((c, nb * b), dtype=torch.float32, device=sigpad.device)
     code = _build.load().neo_fused_stream(
         STORAGE_CODES[fdl.dtype], sigpad.data_ptr(), fdl.data_ptr(), filt_rim.data_ptr(),
         0 if scales is None else scales.data_ptr(), dcfix_all.data_ptr(),
+        0 if acc_add is None else acc_add.data_ptr(),
         cs.data_ptr(), abt.data_ptr(), out.data_ptr(),
         p, c, b, filt_rim.shape[1], nb, pos0, _build.stream_of(sigpad),
     )

@@ -290,4 +290,7 @@ def test_package_never_imports_jax():
             offenders += [f"{path.name}:{node.lineno}:{n}" for n in names
                           if n.split(".")[0] in ("jax", "jaxlib", "neojax")]
     assert len(files) > 10
+    scanned = {path.relative_to(root.parent).as_posix() for path in files}
+    assert {"neojax_torch/conv/nested.py", "neojax_torch/conv/hybrid.py",
+            "neojax_torch/kernels/nested_mac.py", "chip_smoke.py"} <= scanned
     assert offenders == []

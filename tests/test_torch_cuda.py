@@ -1,7 +1,10 @@
 """neojax_torch's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes the headline smoke (``chip_smoke.py``) does not cover: odd
 P, C and K, per-channel fused filters, the largest fused block (1024), ring
-wraps, and the convolver's CUDA route against its CPU route.
+wraps, B1 at the hybrid head's non-packed K = B+1, B5 (the nested meta MAC)
+at every storage and group count, B3 with its ``acc_add`` seed, and the
+convolver's, nested engine's and hybrid engine's CUDA routes against their
+CPU routes.
 
 Marked ``cuda``: every test skips without a CUDA device (decided in the
 ``cuda`` fixture, never at import). The file imports no JAX, so on a card
@@ -21,6 +24,7 @@ from neojax_torch.conv import convolver as cv
 from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels import fdl_mac as mac
 from neojax_torch.kernels import fused_step as fs
+from neojax_torch.kernels import nested_mac as nm
 
 _TOL = {"split": 2e-5, "bf16": 5e-3, "int16": 5e-4, "int8": 2e-2}
 _DT = {"split": torch.float32, "bf16": torch.bfloat16, "int16": torch.int16, "int8": torch.int8}
@@ -126,6 +130,93 @@ def test_fused_stream_kernel_matches_plain(cuda, rng, storage, cf):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+def test_fdl_mac_kernel_unpacked_head_bins(cuda, rng, storage):
+    """The hybrid's unfused head: P = S partitions, K = B + 1 bins."""
+    p, c, k = 16, 3, 65
+    ring, scales = _ring(rng, storage, p, c, k, cuda)
+    fr = torch.from_numpy(rng.standard_normal((p, 1, k)).astype(np.float32)).to(cuda)
+    fi = torch.from_numpy(rng.standard_normal((p, 1, k)).astype(np.float32)).to(cuda)
+    got = mac.fdl_mac(ring, fr, fi, scales)
+    want = mac.fdl_mac_reference(ring, fr, fi, scales)
+    assert _rel(torch.cat(got), torch.cat(want)) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,g", [("split", None), ("bf16", None), ("int16", 1), ("int16", 5),
+                                       ("int16", 10), ("int8", 1), ("int8", 5), ("int8", 10)])
+def test_nested_mac_kernel_matches_plain(cuda, rng, storage, g):
+    p2, c, k, l = 5, 3, 33, 10  # C*K*L not a multiple of the CTA width
+    if storage in _INT_MAX:
+        m = _INT_MAX[storage]
+        planes = torch.from_numpy(rng.integers(-m, m + 1, (2, p2, c, k, l))).to(cuda, _DT[storage])
+        scales = torch.from_numpy(rng.uniform(0.5, 4.0, (p2, c, k, g)).astype(np.float32)).to(cuda)
+    else:
+        planes = torch.from_numpy(rng.standard_normal((2, p2, c, k, l)).astype(np.float32)).to(cuda, _DT[storage])
+        scales = None
+    tiled = torch.from_numpy(rng.standard_normal((2, 2 * p2, 1, k, l)).astype(np.float32)).to(cuda)
+    for pos in (0, p2 - 1):  # the rotated view of a tiled filter, as the engine passes it
+        fr = tiled[0, p2 - 1 - pos : 2 * p2 - 1 - pos, 0]
+        fi = tiled[1, p2 - 1 - pos : 2 * p2 - 1 - pos, 0]
+        before = nm.nested_mac.launches
+        got = nm.nested_mac(planes, scales, fr, fi)
+        torch.cuda.synchronize()
+        assert nm.nested_mac.launches == before + 1
+        want = nm.nested_mac_reference(planes, scales, fr, fi)
+        assert _rel(torch.cat(got), torch.cat(want)) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+def test_fused_stream_acc_add_matches_plain(cuda, rng, storage):
+    p, c, b, nb, pos0 = 6, 3, 64, 8, 4
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    ring, scales = _ring(rng, storage, p, c, b, cuda)
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, 1, 2 * b))).astype(np.float32)).to(cuda, mdt)
+    cs, abt = mb.packed_stream_mats(2 * b, mdt, cuda)
+    sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(cuda)
+    dcfix = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(cuda)
+    seed = torch.from_numpy((5 * rng.standard_normal((nb, 2, c, b))).astype(np.float32)).to(cuda)
+    k_ring, p_ring = ring.clone(), ring.clone()
+    k_s = None if scales is None else scales.clone()
+    p_s = None if scales is None else scales.clone()
+    ko = fs.fused_stream(sigpad, k_ring, rim, pos0, dcfix, cs, abt, k_s, acc_add=seed)[0]
+    po = fs.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix, cs, abt, p_s, acc_add=seed)[0]
+    torch.cuda.synchronize()
+    assert _rel(ko, po) < _TOL[storage]
+    _same_ring(storage, k_ring, p_ring, k_s, p_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+def test_nested_and_hybrid_cuda_route_match_cpu_route(cuda, rng, storage):
+    from neojax_torch.conv import hybrid as hy
+    from neojax_torch.conv import nested as ne
+
+    b, p, c, s = 64, 19, 3, 4
+    parts = ((rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    sig = rng.uniform(-1, 1, (c, 5 * s * b - 9)).astype(np.float32)
+    cfg = cv.PartitionedConfig(b, p, c, storage=storage)
+    for build, init, run in ((ne.nested_filter_params, ne.nested_init_state, ne.process_nested),
+                             (hy.hybrid_filter_params, hy.hybrid_init_state, hy.process_hybrid)):
+        outs = []
+        for dev in ("cpu", cuda):
+            params = build(cfg, parts, s, device=dev)
+            outs.append(run(cfg, params, init(cfg, params), torch.from_numpy(sig).to(dev))[1])
+        assert outs[1].device.type == "cuda"
+        assert _rel(outs[1], outs[0]) < max(_TOL[storage], 1e-5)
+    params = hy.hybrid_filter_params(cfg, parts, s, device=cuda)
+    stream = hy.HybridStream(cfg, params)
+    unfused = {k: v for k, v in params.items() if k != "head_packed"}
+    _, ref = hy.process_hybrid(cfg, unfused, hy.hybrid_init_state(cfg, unfused),
+                               torch.from_numpy(sig[:, : 2 * s * b]).to(cuda))
+    got = torch.cat([stream(torch.from_numpy(sig[:, i * b : (i + 1) * b]).to(cuda))
+                     for i in range(2 * s)], dim=-1)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["split", "int8"])
 @pytest.mark.parametrize("scheme", ["upols", "upola"])
 @pytest.mark.parametrize("fused", [None, False])
@@ -153,3 +244,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         mac.fdl_mac(ring.float(), f.cpu(), f)
     c = conv.Convolver(device=cuda)
     assert c._storage == "split"
+    planes = torch.zeros((2, 2, 2, 3, 4), dtype=torch.int8, device=cuda)
+    f = torch.zeros((2, 3, 4), device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        nm.nested_mac(planes, None, f, f)
+    with pytest.raises(ValueError, match="one device"):
+        nm.nested_mac(planes.float(), None, f.cpu(), f)

@@ -1,5 +1,6 @@
 """neojax_torch fused kernels B2/B3 (plain route, CPU) vs neojax's Pallas
-``fused_block_step`` / ``fused_stream`` in interpret mode.
+``fused_block_step`` / ``fused_stream`` in interpret mode, B3 also with its
+``acc_add`` accumulator seed.
 
 The same seeded numpy inputs go to both packages. The JAX shared filter is
 the 8-copy ``shift8_filter`` form; the port's is one ``[2P, 1, 2B]`` copy.
@@ -138,6 +139,48 @@ def test_fused_stream_matches_neojax(rng, storage, shared):
     _check_ring(storage, t_ring, j_ring, None if t_scl is None else t_scl.numpy(), j_scl)
 
 
+@pytest.mark.parametrize("storage", ["split", "bf16", "int16", "int8"])
+def test_fused_stream_acc_add_matches_neojax(rng, storage):
+    """B3 with its accumulator seed (the hybrid head's tail sum) against
+    neojax's ``fused_stream(acc_add=...)`` in interpret mode; five blocks
+    from pos0 = P-2, so the ring wraps. The seed's lane 0 is overwritten
+    by ``dcfix`` after the MAC in both."""
+    nb, pos0 = 5, P - 2
+    jdt, tdt = _STORE[storage][1], _STORE[storage][2]
+    jm, tm = _mat_dtypes(storage)
+    ring, scales, rim = _inputs(rng, storage, 1)
+    sigpad = rng.uniform(-1, 1, (C, (nb + 1) * B)).astype(np.float32)
+    dcfix = rng.standard_normal((nb, 2, C)).astype(np.float32)
+    acc_add = (5 * rng.standard_normal((nb, 2, C, B))).astype(np.float32)
+    j_cs, j_abt = jmb.packed_stream_mats(2 * B, jnp.float32)
+    cs, abt = np.array(j_cs), np.array(j_abt)
+
+    j_args = [jnp.asarray(sigpad), jnp.asarray(ring).astype(jdt),
+              jnp.asarray(jfs.shift8_filter(rim[:, 0])).astype(jm), pos0, jnp.asarray(dcfix),
+              jnp.asarray(cs).astype(jm), jnp.asarray(abt).astype(jm)]
+    t_ring = torch.tensor(ring).to(tdt)
+    t_scl = None if scales is None else torch.from_numpy(scales.copy())
+    j_scl_in = None if scales is None else jnp.asarray(
+        np.pad(scales, ((0, 0), (0, 128 - C)), constant_values=1.0))
+    res = jfs.fused_stream(*j_args, j_scl_in, None, jnp.asarray(acc_add), shared_filter=True,
+                           interpret=True)
+    t_res = tfs.fused_stream(
+        torch.from_numpy(sigpad), t_ring, torch.from_numpy(rim).to(tm), pos0,
+        torch.from_numpy(dcfix), torch.from_numpy(cs).to(tm), torch.from_numpy(abt).to(tm), t_scl,
+        acc_add=torch.from_numpy(acc_add),
+    )
+    assert _rel(t_res[0].numpy(), np.asarray(res[0])) < _TOL[storage]
+    _check_ring(storage, t_ring, res[1], None if t_scl is None else t_scl.numpy(),
+                None if scales is None else np.asarray(res[2])[:, :C])
+    # the seed moves the output: without it the result differs
+    plain = tfs.fused_stream_reference(
+        torch.from_numpy(sigpad), torch.tensor(ring).to(tdt), torch.from_numpy(rim).to(tm), pos0,
+        torch.from_numpy(dcfix), torch.from_numpy(cs).to(tm), torch.from_numpy(abt).to(tm),
+        None if scales is None else torch.from_numpy(scales.copy()),
+    )[0]
+    assert _rel(plain.numpy(), t_res[0].numpy()) > 10 * _TOL[storage]
+
+
 def test_fused_stream_rejects_unported_inputs():
     ring = torch.zeros((2, P, C, B))
     rim = torch.zeros((2 * P, 1, 2 * B))
@@ -145,7 +188,7 @@ def test_fused_stream_rejects_unported_inputs():
             torch.zeros((2 * B, 2 * B)), torch.zeros((2 * B, B)))
     with pytest.raises(NotImplementedError, match="A9"):
         tfs.fused_stream(*args, sched=(np.zeros(1), np.zeros(1)))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tfs.fused_stream(*args, acc_add=torch.zeros((1, 2, C, B)))
+    with pytest.raises(ValueError, match="acc_add"):  # ported; its shape is checked
+        tfs.fused_stream(*args, acc_add=torch.zeros((1, 2, C, B + 1)))
     with pytest.raises(TypeError):
         tfs.fused_stream(*args[:2], rim.to(torch.bfloat16), *args[3:])
