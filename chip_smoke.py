@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive neojax_torch's engines end to end on one CUDA card: the per-block
-convolver, the nested (two-level FDL) engine and the hybrid real-time
-engine.
+convolver (dense and sparse), the nested (two-level FDL) engine and the
+hybrid real-time engine.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 NVIDIA Hopper card (the kernels are built for sm_90a) and nvcc; it exits
@@ -13,6 +13,9 @@ partitions; the per-block convolver pads them to P = 960), block B = 512,
 transform N = 1024. The nested engine runs at S = 128 blocks a chunk
 (meta ring [2, 8, 64, 513, 256]), the hybrid at S = 64 (head ring of 64
 partitions, tail meta ring [2, 14, 64, 513, 128]), as ``bench.py:192-225``.
+The sparse convolver runs two keep-masks of that IR: ``band30``, the first
+30 % of the 960 partitions (``bench.py:298-299``), and ``perc30``, the
+A-weighted ``conv.perceptual_mask`` at -30 dB over the 938 real partitions.
 
 Phases, each printing one JSON object per line:
   1. device and environment (plus the raw nvidia-smi name/power-limit line)
@@ -24,6 +27,12 @@ Phases, each printing one JSON object per line:
      storages, two ring positions), B3 with ``acc_add`` on the hybrid head
      (P = 64, split and int16, from 5 rows before the wrap) and B1 on the
      unfused head's K = 513 bins (P = 64, split and int16)
+ 3c. the sparse kernels at the headline shapes, all four storages and both
+     masks: B4 on the packed K = 512 ring (shared and per-channel filter,
+     three positions) and on a non-packed K = 513 ring (split, int16), B2
+     with the chunk schedule at three positions and B3 with it over 64
+     blocks from P-5, each against its plain version and against the dense
+     kernel on the same masked filter (B4 against B1)
   4. the main path, UPOLS ``Convolver.process`` per storage, SNR against an
      f64 FFT-convolution oracle in steady state (blocks 1152-1167, 4
      channels), gated on the storage's class (split 90, int16 74, bf16 40
@@ -32,6 +41,11 @@ Phases, each printing one JSON object per line:
   5. the other entry points (split and int8): ``__call__`` on exact blocks
      (B2), the re-blocking FIFO + ``flush``, UPOLA ``process`` (B2 per
      block) and ``fused=False`` (B1), each against ``process``
+ 5b. the sparse main path, ``sparse_upols_convolver(sparsity=mask).process``
+     over 1168 blocks per storage and mask, SNR against an f64 UPOLS oracle
+     over the masked spectra, gated as phase 4; then its other entry points
+     (split and int8, band30): ``__call__`` (B2 + schedule), ``fused=False``
+     (B4, K = 512) and ``packed=False`` (B4, K = 513) against ``process``
   6. the nested main path, ``process_nested`` per storage over 1280
      blocks, and the hybrid main path, ``process_hybrid`` over 1216
      blocks, each with the SNR of phase 4 gated on the class of all four
@@ -44,12 +58,14 @@ Phases, each printing one JSON object per line:
      ``process_hybrid`` per storage, kernel route against the plain torch
      route (``mac_backend="torch"``: cuFFT transforms + tensor-op MAC), and
      ``HybridStream``'s per-callback latency (chunk-boundary callbacks
-     apart)
+     apart); sparse ``process`` per storage and mask beside the dense
+     ``process`` on the unmasked filter and the plain torch route
   9. the kernels summary, then the final ``{"ok": true, ...}`` line
 
-Launch counters are zeroed right before each main path (phases 4+5, the
-nested and the hybrid halves of 6, and 7) and read right after it; each
-kernel of that path must have launched in its window.
+Launch counters are zeroed right before each main path (phases 4+5, 5b,
+the nested and the hybrid halves of 6, and 7) and read right after it; each
+kernel of that path must have launched in its window (B2 and B3 with the
+chunk schedule counted apart).
 """
 
 from __future__ import annotations
@@ -137,6 +153,7 @@ def main() -> int:
     from neojax_torch.kernels import fdl_mac as mac_mod
     from neojax_torch.kernels import fused_step as fs_mod
     from neojax_torch.kernels import nested_mac as nm_mod
+    from neojax_torch.kernels import sparse_mac as sm_mod
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -379,10 +396,169 @@ def main() -> int:
         del ring, hring, k_ring, p_ring
     torch.cuda.empty_cache()
 
-    # ---- 4. the main path: UPOLS process per storage
+    # ---- 3c. the sparse kernels at the headline shapes, both masks
     ir = conv.normalize_impulse(torch.from_numpy(make_ir().astype(np.float32))).numpy()
     parts = conv.uniform_partition(ir, BLOCK)
     assert parts.shape == (1, P_REAL, BLOCK + 1)
+    parts_pad = np.concatenate([parts, np.zeros((1, P - P_REAL, k), parts.dtype)], axis=1)
+    masks = {"band30": np.zeros((P, k), bool)}
+    masks["band30"][: int(P * 0.3)] = True  # bench.py:298-299
+    masks["perc30"] = np.concatenate(
+        [conv.perceptual_mask(parts[0], SR, threshold_db=-30.0), np.zeros((P - P_REAL, k), bool)])
+    mask_stats = {}
+    for mname, mask in masks.items():
+        prm = cv.filter_params(cv.PartitionedConfig(BLOCK, P, c, storage="bf16"), parts_pad, sparsity=mask)
+        cflags = prm["sp_c_flags"].numpy()
+        pcf = fs_mod.fused_chunk_rows(torch.bfloat16, P, c, b)
+        mask_stats[mname] = {
+            "bins_kept": float(mask.mean()),
+            "chunk_density_bf16": float(cflags.sum(1).mean() / (P // pcf)),
+            "chunk_rows_bf16": pcf, "chunk_entries_per_row": int(cflags.shape[1]),
+            "tile_density_bf16": float(prm["sp_flags"].numpy().sum(1).mean()
+                                       / ((P // mac_mod.choose_chunks(torch.bfloat16, P, c, b)[1]) * 2)),
+        }
+        emit(phase="sparse_masks", mask=mname, **mask_stats[mname])
+
+    sp_sum = {"sparse_fdl_mac": {}, "fused_block_step_sched": {}, "fused_stream_sched": {}}
+    gen = torch.Generator(dev).manual_seed(11)
+    for storage in STORAGES:
+        sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
+        mdt = fs_mod.MATRIX_DTYPES[sdt]
+        for mname, mask in masks.items():
+            key = f"{storage}/{mname}"
+            prm = cv.filter_params(cv.PartitionedConfig(BLOCK, P, c, storage=storage), parts_pad,
+                                   sparsity=mask, device=dev)
+            ring, scales = ring_inputs(storage)
+
+            # B4 on the packed K = 512 ring: the IR's shared masked filter and
+            # a random per-channel masked filter, against its plain version
+            # and against B1 on the same masked filter
+            k_tile, pc = mac_mod.choose_chunks(sdt, P, c, b)
+            tables = (prm["sp_k_idx"], prm["sp_p_idx"], prm["sp_flags"])
+            m_dev = torch.from_numpy(mask[:, :b]).to(dev)[:, None, :]
+            rnd = [torch.randn((P, c, b), device=dev, generator=gen).mul_(0.05).mul_(m_dev) for _ in range(2)]
+            filters = {"shared": (prm["filt_re"], prm["filt_im"]),
+                       "per_channel": tuple(torch.cat([f.flip(0)] * 2) for f in rnd)}
+            row = {"k_tile": k_tile, "p_chunk": pc}
+            for form, (tre, tim) in filters.items():
+                worst, vs_dense = (0.0, 0.0), 0.0
+                for pos in (0, P // 2 + 1, P - 1):
+                    fr, fi = tre[P - 1 - pos : 2 * P - 1 - pos], tim[P - 1 - pos : 2 * P - 1 - pos]
+                    got = sm_mod.sparse_fdl_mac(ring, fr, fi, pos, *tables, scales, p_chunk=pc, k_tile=k_tile)
+                    want = sm_mod.sparse_fdl_mac_reference(ring, fr, fi, pos, *tables, scales, p_chunk=pc,
+                                                           k_tile=k_tile)
+                    dense = mac_mod.fdl_mac(ring, fr, fi, scales)
+                    torch.cuda.synchronize()
+                    d, r = rel_err(torch.cat(got).cpu(), torch.cat(want).cpu())
+                    assert r < TOL[storage], f"sparse_fdl_mac {key} {form} pos={pos}: rel err {r}"
+                    worst = max(worst, (d, r), key=lambda x: x[1])
+                    vs_dense = max(vs_dense, rel_err(torch.cat(got).cpu(), torch.cat(dense).cpu())[0])
+                row[form] = {"max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_fdl_mac": vs_dense,
+                             "ms": cuda_ms(lambda: sm_mod.sparse_fdl_mac(ring, fr, fi, pos, *tables, scales,
+                                                                         p_chunk=pc, k_tile=k_tile), 20),
+                             "fdl_mac_ms": cuda_ms(lambda: mac_mod.fdl_mac(ring, fr, fi, scales), 20),
+                             "plain_ms": cuda_ms(lambda: sm_mod.sparse_fdl_mac_reference(
+                                 ring, fr, fi, pos, *tables, scales, p_chunk=pc, k_tile=k_tile), 3)}
+            del rnd, filters
+            # B4 on a non-packed K = 513 ring (a ragged third k-tile)
+            if storage in ("split", "int16"):
+                prm_u = cv.filter_params(cv.PartitionedConfig(BLOCK, P, c, storage=storage, packed=False),
+                                         parts_pad, sparsity=mask, device=dev)
+                if storage in INT_MAX:
+                    ring_u = torch.randint(-32767, 32768, (2, P, c, k), device=dev, generator=gen).to(sdt)
+                else:
+                    ring_u = torch.randn((2, P, c, k), device=dev, generator=gen).mul_(10)
+                kt_u, pc_u = mac_mod.choose_chunks(sdt, P, c, k)
+                tables_u = (prm_u["sp_k_idx"], prm_u["sp_p_idx"], prm_u["sp_flags"])
+                worst, vs_dense = (0.0, 0.0), 0.0
+                for pos in (0, P // 2 + 1, P - 1):
+                    fr = prm_u["filt_re"][P - 1 - pos : 2 * P - 1 - pos]
+                    fi = prm_u["filt_im"][P - 1 - pos : 2 * P - 1 - pos]
+                    got = sm_mod.sparse_fdl_mac(ring_u, fr, fi, pos, *tables_u, scales, p_chunk=pc_u, k_tile=kt_u)
+                    want = sm_mod.sparse_fdl_mac_reference(ring_u, fr, fi, pos, *tables_u, scales, p_chunk=pc_u,
+                                                           k_tile=kt_u)
+                    dense = mac_mod.fdl_mac(ring_u, fr, fi, scales)
+                    torch.cuda.synchronize()
+                    d, r = rel_err(torch.cat(got).cpu(), torch.cat(want).cpu())
+                    assert r < TOL[storage], f"sparse_fdl_mac K={k} {key} pos={pos}: rel err {r}"
+                    worst = max(worst, (d, r), key=lambda x: x[1])
+                    vs_dense = max(vs_dense, rel_err(torch.cat(got).cpu(), torch.cat(dense).cpu())[0])
+                row["unpacked_k513"] = {
+                    "max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_fdl_mac": vs_dense,
+                    "k_tile": kt_u, "p_chunk": pc_u,
+                    "ms": cuda_ms(lambda: sm_mod.sparse_fdl_mac(ring_u, fr, fi, pos, *tables_u, scales,
+                                                                p_chunk=pc_u, k_tile=kt_u), 20),
+                    "fdl_mac_ms": cuda_ms(lambda: mac_mod.fdl_mac(ring_u, fr, fi, scales), 20)}
+                del prm_u, ring_u
+            sp_sum["sparse_fdl_mac"][key] = row
+            emit(phase="kernel_vs_plain", kernel="sparse_fdl_mac", storage=storage, mask=mname,
+                 tol=TOL[storage], positions=[0, P // 2 + 1, P - 1], **row, **card)
+
+            # B2 with the chunk schedule at three positions, against its
+            # plain version and against the dense B2 on the same masked filter
+            sched = (prm["sp_c_idx"], prm["sp_c_flags"])
+            rim = prm["filt_rim"]
+            cs, ab = mb.packed_mats(n, mdt, dev)
+            worst, vs_dense = (0.0, 0.0), 0.0
+            for pos in (0, P // 2 + 1, P - 1):
+                frame = torch.from_numpy(rng.uniform(-1, 1, (c, n)).astype(np.float32)).to(dev)
+                dcfix = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32)).to(dev)
+                rings = [ring.clone() for _ in range(3)]
+                scl = [None if scales is None else scales.clone() for _ in range(3)]
+                ky = fs_mod.fused_block_step(frame, rings[0], rim, pos, dcfix, cs, ab, scl[0], sched)[0]
+                py = fs_mod.fused_block_step_reference(frame, rings[1], rim, pos, dcfix, cs, ab, scl[1], sched)[0]
+                dy = fs_mod.fused_block_step(frame, rings[2], rim, pos, dcfix, cs, ab, scl[2])[0]
+                torch.cuda.synchronize()
+                d, r = rel_err(ky.cpu(), py.cpu())
+                assert r < TOL[storage], f"fused_block_step sched {key} pos={pos}: rel err {r}"
+                check_ring(storage, rings[0], rings[1], scl[0], scl[1], f"fused_block_step sched {key}")
+                assert torch.equal(rings[0], rings[2]), f"fused_block_step sched {key}: ring differs from dense"
+                worst = max(worst, (d, r), key=lambda x: x[1])
+                vs_dense = max(vs_dense, rel_err(ky.cpu(), dy.cpu())[0])
+            k_ring = rings[0]
+            k_scl = scl[0]
+            sp_sum["fused_block_step_sched"][key] = {
+                "max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_dense_kernel": vs_dense,
+                "ms": cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl, sched), 20),
+                "dense_ms": cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl), 20),
+                "plain_ms": cuda_ms(lambda: fs_mod.fused_block_step_reference(frame, k_ring, rim, 3, dcfix, cs, ab,
+                                                                              k_scl, sched), 3)}
+            emit(phase="kernel_vs_plain", kernel="fused_block_step", sched=True, storage=storage, mask=mname,
+                 tol=TOL[storage], positions=[0, P // 2 + 1, P - 1], **sp_sum["fused_block_step_sched"][key],
+                 **card)
+            del rings, scl
+
+            # B3 with the chunk schedule over 64 blocks from P-5 (wraps)
+            nb, pos0 = 64, P - 5
+            cs2, abt = mb.packed_stream_mats(n, mdt, dev)
+            sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(dev)
+            dcfix_all = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(dev)
+            rings = [ring.clone() for _ in range(3)]
+            scl = [None if scales is None else scales.clone() for _ in range(3)]
+            ko = fs_mod.fused_stream(sigpad, rings[0], rim, pos0, dcfix_all, cs2, abt, scl[0], sched)[0]
+            po = fs_mod.fused_stream_reference(sigpad, rings[1], rim, pos0, dcfix_all, cs2, abt, scl[1], sched)[0]
+            do = fs_mod.fused_stream(sigpad, rings[2], rim, pos0, dcfix_all, cs2, abt, scl[2])[0]
+            torch.cuda.synchronize()
+            d, r = rel_err(ko.cpu(), po.cpu())
+            assert r < TOL[storage], f"fused_stream sched {key}: rel err {r}"
+            check_ring(storage, rings[0], rings[1], scl[0], scl[1], f"fused_stream sched {key}")
+            assert torch.equal(rings[0], rings[2]), f"fused_stream sched {key}: ring differs from dense"
+            k_ring, k_scl = rings[0], scl[0]
+            s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl,
+                                                       sched), 3)
+            d_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl), 3)
+            sp_sum["fused_stream_sched"][key] = {
+                "max_abs_err": d, "rel_err": r, "max_abs_diff_vs_dense_kernel": rel_err(ko.cpu(), do.cpu())[0],
+                "ms": s_ms, "dense_ms": d_ms, "blocks": nb, "us_per_block": 1e3 * s_ms / nb,
+                "dense_us_per_block": 1e3 * d_ms / nb,
+                "plain_ms": cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, k_ring, rim, pos0, dcfix_all,
+                                                                          cs2, abt, k_scl, sched), 1)}
+            emit(phase="kernel_vs_plain", kernel="fused_stream", sched=True, storage=storage, mask=mname,
+                 tol=TOL[storage], pos0=pos0, **sp_sum["fused_stream_sched"][key], **card)
+            del ring, scales, rings, scl, prm, k_ring
+            torch.cuda.empty_cache()
+
+    # ---- 4. the main path: UPOLS process per storage
     sig_np = np.random.default_rng(1).uniform(-1, 1, (CHANNELS, NB_MAIN * BLOCK)).astype(np.float32)
     sig = torch.from_numpy(sig_np).to(dev)
 
@@ -487,6 +663,79 @@ def main() -> int:
             assert counts[name] > 0, f"{name} was not launched on the {path} path"
 
     read_window("perblock", ("fdl_mac", "fused_block_step", "fused_stream"))
+
+    # ---- 5b. the sparse main path: masked process per storage and mask,
+    # SNR against an f64 UPOLS oracle over the masked spectra
+    def masked_oracle(mask):
+        """out_i = irfft(sum_p X_{i-p} H_p)[B:] over the SNR window, f64:
+        X_j = rfft([block j-1 | block j], N), H_p the masked spectra."""
+        h = parts[0].astype(np.complex128) * mask[:P_REAL]  # [P_REAL, K]
+        j0 = SNR_START - P_REAL + 1
+        x = np.concatenate([np.zeros((SNR_CH, BLOCK)), sig_np[:SNR_CH].astype(np.float64)], axis=1)
+        frames = np.stack([x[:, j * BLOCK : (j + 2) * BLOCK] for j in range(j0, SNR_START + SNR_BLOCKS)], 1)
+        spec = np.fft.rfft(frames, n)  # [SNR_CH, blocks, K]
+        outs = []
+        for i in range(SNR_START, SNR_START + SNR_BLOCKS):
+            y = np.einsum("cpk,pk->ck", spec[:, i - j0 - np.arange(P_REAL)], h)
+            outs.append(np.fft.irfft(y, n)[:, BLOCK:])
+        return np.concatenate(outs, axis=1)
+
+    kernels.reset_launch_counts()
+    sparse_snrs = {}
+    for mname, mask in masks.items():
+        oracle_m = masked_oracle(mask)
+        sparse_snrs[mname] = {}
+        for storage in STORAGES:
+            before = fs_mod.fused_stream.sched_launches
+            cvl = conv.sparse_upols_convolver(sparsity=mask, storage=storage, device=dev)
+            cvl.filter(parts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cvl.process(sig)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            assert tuple(out.shape) == (CHANNELS, t_len) and bool(torch.isfinite(out).all())
+            assert fs_mod.fused_stream.sched_launches > before, "sparse process did not run fused_stream + sched"
+            assert cvl.config.channels == CHANNELS and "sp_c_idx" in cvl.params
+            snr = snr_db(window(out.cpu().numpy(), SNR_START), oracle_m)
+            sparse_snrs[mname][storage] = snr
+            cls = SNR_CLASS_DB.get(storage)
+            emit(phase="main_path", entry="sparse_upols_convolver.process", mask=mname, storage=storage,
+                 channels=CHANNELS, partitions=P, block=BLOCK, blocks=NB_MAIN, snr_db_vs_masked_f64=snr,
+                 snr_class_db=cls, first_call_s=dt, **card)
+            if cls is not None:
+                assert snr >= cls, f"sparse {mname} {storage}: SNR {snr:.1f} dB below its {cls} dB class"
+            del cvl, out
+        torch.cuda.empty_cache()
+
+    # the sparse convolver's other entry points (band30), each against process
+    for storage in ("split", "int8"):
+        mask = masks["band30"]
+
+        def fresh_sparse():
+            v = conv.sparse_upols_convolver(sparsity=mask, storage=storage, device=dev)
+            v.filter(parts)
+            return v
+
+        ref_c = fresh_sparse()
+        ref = ref_c.process(sig5)
+        results = {}
+        a = fresh_sparse()
+        blocks = torch.cat([a(sig5[:, i * BLOCK : (i + 1) * BLOCK]) for i in range(nb5)], dim=-1)
+        results["__call__"] = rel_err(blocks.cpu(), ref.cpu())
+        cfg_u = dataclasses.replace(ref_c.config, fused=False)
+        _, out_u = cv.process(cfg_u, ref_c.params, cv.init_state(cfg_u, dev), sig5)
+        results["fused=False"] = rel_err(out_u.cpu(), ref.cpu())
+        cfg_np = cv.PartitionedConfig(BLOCK, P, CHANNELS, storage=storage, packed=False)
+        prm_np = cv.filter_params(cfg_np, parts_pad, sparsity=mask, device=dev)
+        _, out_np = cv.process(cfg_np, prm_np, cv.init_state(cfg_np, dev), sig5)
+        results["packed=False"] = rel_err(out_np.cpu(), ref.cpu())
+        for name, (d, r) in results.items():
+            emit(phase="entry_point", entry=f"sparse {name}", mask="band30", storage=storage, max_abs_err=d,
+                 rel_err=r, tol=TOL[storage], against="sparse process")
+            assert r < TOL[storage], f"sparse {name} ({storage}) disagrees with process: {r}"
+        del ref_c, a, prm_np
+    read_window("sparse", ("fused_stream_sched", "fused_block_step_sched", "sparse_fdl_mac"))
 
     # ---- 6. the nested and hybrid main paths, SNR per storage
     sig2_np = np.random.default_rng(2).uniform(-1, 1, (CHANNELS, NB_NESTED * BLOCK)).astype(np.float32)
@@ -604,6 +853,35 @@ def main() -> int:
         del v, st_k, st_p
         torch.cuda.empty_cache()
 
+    # sparse process per storage and mask beside the dense process on the
+    # unmasked filter (kernel routes), and the plain torch route with the mask
+    sparse_times = {}
+    for storage in STORAGES:
+        routes = {"dense": None, **masks}
+        sparse_times[storage] = {}
+        for name, mask in routes.items():
+            v = conv.sparse_upols_convolver(sparsity=mask, storage=storage, device=dev) if mask is not None \
+                else conv.Convolver(storage=storage, device=dev)
+            v.filter(parts)
+            v.process(sig[:, :BLOCK])  # binds the 64 channels (and rebuilds the schedule)
+            cfg_k = v.config
+            st_k = cv.init_state(cfg_k, dev)
+            row = {"kernel_us_per_block": 1e6 * median_s(lambda: cv.process(cfg_k, v.params, st_k, sig_t), 5) / nbt}
+            if mask is not None:
+                cfg_p = dataclasses.replace(cfg_k, mac_backend="torch")
+                st_p = cv.init_state(cfg_p, dev)
+                row["plain_us_per_block"] = 1e6 * median_s(lambda: cv.process(cfg_p, v.params, st_p, sig_p), 3) / nbp
+                del st_p
+            sparse_times[storage][name] = row
+            del v, st_k
+            torch.cuda.empty_cache()
+        for name in masks:
+            sparse_times[storage][name]["vs_dense"] = (sparse_times[storage][name]["kernel_us_per_block"]
+                                                       / sparse_times[storage]["dense"]["kernel_us_per_block"])
+        emit(phase="times", entry="sparse process", storage=storage, kernel_blocks=nbt, plain_blocks=nbp,
+             plain_route="mac_backend='torch' (cuFFT + tensor-op MAC over the masked filter)",
+             **sparse_times[storage], **card)
+
     # nested (10 chunks) and hybrid (4 chunks): µs per block, channel-samples/s
     engine_times = {}
     for name, (build, init, run, s_e, _) in engines.items():
@@ -664,12 +942,19 @@ def main() -> int:
         "fused_block_step": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
         "fused_stream": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
         "nested_mac": ("neojax_torch/csrc/nested_mac.cu", "neojax/kernels/nested_mac.py:82"),
+        "sparse_fdl_mac": ("neojax_torch/csrc/sparse_mac.cu", "neojax/kernels/sparse_mac.py:246"),
+        "fused_block_step_sched": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
+        "fused_stream_sched": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
     }
     by_storage = dict(summary)
     by_storage["fdl_mac"] = summary["fdl_mac"] | {"hybrid_head": summary["fdl_mac_head"]}
     by_storage["fused_stream"] = summary["fused_stream"] | {"acc_add_hybrid_head": summary["fused_stream_acc_add"]}
     heads = {name: summary[name]["split"] for name in ("fdl_mac", "fused_block_step", "fused_stream")}
     heads["nested_mac"] = summary["nested_mac"]["nested"]["split"]
+    heads["sparse_fdl_mac"] = sp_sum["sparse_fdl_mac"]["split/band30"]["shared"]
+    heads["fused_block_step_sched"] = sp_sum["fused_block_step_sched"]["split/band30"]
+    heads["fused_stream_sched"] = sp_sum["fused_stream_sched"]["split/band30"]
+    by_storage.update(sp_sum)
     rows = []
     for name, (src, repl) in sources.items():
         head = heads[name]
@@ -677,8 +962,11 @@ def main() -> int:
                      "launches": sum(w[name] for w in windows.values()),
                      "launches_by_path": {path: w[name] for path, w in windows.items()},
                      "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
-                     "storage": "split", "by_storage": by_storage[name]})
-    emit(phase="summary", snr_db_vs_f64=snrs, engine_snr_db_vs_f64=engine_snrs, times=times,
+                     "storage": "split", "mask": "band30" if name in sp_sum else None,
+                     "by_storage": by_storage[name]})
+    emit(phase="summary", snr_db_vs_f64=snrs, engine_snr_db_vs_f64=engine_snrs,
+         sparse_snr_db_vs_masked_f64=sparse_snrs, sparse_times=sparse_times, sparse_masks=mask_stats,
+         times=times,
          engine_times=engine_times, hybrid_stream_latency=stream_lat,
          total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)

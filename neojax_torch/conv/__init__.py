@@ -28,7 +28,7 @@ from neojax_torch.conv.hybrid import (
 from neojax_torch.conv.nested import nested_filter_params, nested_init_state, process_nested
 from neojax_torch.conv.overlap import stream_blocks, unstream_blocks
 from neojax_torch.conv.partition import num_partitions, uniform_partition
-from neojax_torch.conv.sparse import sparsity_mask
+from neojax_torch.conv.sparse import perceptual_mask, perceptual_weights, sparsity_mask
 from neojax_torch.ops.normalize import normalize_impulse
 
 __all__ = [
@@ -59,5 +59,7 @@ __all__ = [
     "uniform_partition",
     "num_partitions",
     "sparsity_mask",
+    "perceptual_weights",
+    "perceptual_mask",
     "normalize_impulse",
 ]

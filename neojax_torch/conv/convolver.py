@@ -31,6 +31,13 @@ Routes. On a packed split-plane ring with block <= 1024 and the kernel MAC
 ``kernels.fdl_mac`` (B1) or, with ``mac_backend="torch"``, plain tensor
 ops. Each kernel wrapper launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch version for CPU tensors.
+
+Sparse filters (a sparsity mask, the ``sparse_*`` aliases): the dropped
+bins are zeroed and ``filter_params`` tabulates the active tiles of every
+ring rotation, as neojax does (``sp_*`` params, ``kernels.sparse_mac``).
+B2/B3 then visit only the active partition chunks (and lane prefixes), and
+the unfused MAC runs B4 (``kernels.sparse_fdl_mac``) over the active
+(k-tile, p-chunk) pairs instead of B1.
 """
 
 from __future__ import annotations
@@ -47,8 +54,20 @@ from neojax_torch.conv.overlap import stream_blocks, unstream_blocks
 from neojax_torch.conv.sparse import sparsity_mask
 from neojax_torch.fft import api as fft_api
 from neojax_torch.fft import matmul_backend
-from neojax_torch.kernels.fdl_mac import fdl_mac
-from neojax_torch.kernels.fused_step import MATRIX_DTYPES, MAX_BLOCK, fused_block_step, fused_stream
+from neojax_torch.kernels.fdl_mac import choose_chunks, fdl_mac
+from neojax_torch.kernels.fused_step import (
+    MATRIX_DTYPES,
+    MAX_BLOCK,
+    fused_block_step,
+    fused_chunk_rows,
+    fused_stream,
+)
+from neojax_torch.kernels.sparse_mac import (
+    build_chunk_schedule,
+    build_sparse_schedule,
+    lane_widths,
+    sparse_fdl_mac,
+)
 
 __all__ = [
     "PartitionedConfig",
@@ -163,9 +182,9 @@ def filter_params(config: PartitionedConfig, partitions, sparsity: Any = None,
     Filter preparation runs host-side in numpy; only the final tensors move
     to ``device``. ``sparsity``: optional predicate ``(row, col, value) ->
     bool`` or a boolean keep-mask broadcastable to the filter; dropped bins
-    are zeroed and the mask is kept as ``params["mask"]``. The kernels then
-    run their dense schedule, which is exact because masked bins are zero
-    (skipping the zero tiles comes with kernel B4, ROADMAP A9).
+    are zeroed and the mask is kept as ``params["mask"]``. Ring configs of a
+    split-plane storage also get the tile schedules of
+    :func:`_schedule_params` (neojax's ``sp_*`` keys).
     """
     filt = _canon_partitions(config, _host(partitions)).astype(np.complex64)
 
@@ -184,7 +203,7 @@ def filter_params(config: PartitionedConfig, partitions, sparsity: Any = None,
             if mask.shape[0] < filt.shape[0]:
                 pad = np.zeros((filt.shape[0] - mask.shape[0],) + mask.shape[1:], bool)
                 mask = np.concatenate([mask, pad], axis=0)
-            mask = np.broadcast_to(mask, filt.shape)
+            mask = np.broadcast_to(mask, filt.shape).copy()
         filt = np.where(mask, filt, 0).astype(np.complex64)
 
     def put(a, dtype=None):
@@ -221,7 +240,51 @@ def filter_params(config: PartitionedConfig, partitions, sparsity: Any = None,
         params["filt_im"] = put(fi)
     if mask is not None:
         params["mask"] = put(mask)
+        params.update(_schedule_params(config, mask, device))
     return params
+
+
+def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -> dict:
+    """The sparse schedules of a [P, C', K] keep-mask, with neojax's keys
+    and geometry (``neojax/conv/convolver.py:233-270``), so the tables
+    equal neojax's:
+
+    - ring configs of a split-plane storage: B4's (k-tile, p-chunk) tables
+      ``sp_k_idx``/``sp_p_idx``/``sp_flags`` int32 [P, L] and the lane mask
+      ``sp_lane`` bool [K] (K = B packed, B + 1 otherwise), at
+      ``choose_chunks``' geometry;
+    - packed configs also: the fused kernels' chunk tables ``sp_c_idx``
+      (chunk | width code << 16) and ``sp_c_flags``, at
+      ``fused_chunk_rows``' geometry.
+
+    The geometry depends on the channel count, so a Convolver rebuilds
+    these when it binds a mono filter to more channels.
+    """
+    if config.storage == "dense" or config.layout != "ring":
+        return {}
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    sdt = fdl_lib.STORAGE_DTYPES[config.storage]
+    p = mask.shape[0]
+    k_sched = config.block_size if config.use_packed else config.num_bins
+    k_tile, pc = choose_chunks(sdt, p, config.channels, k_sched)
+    sched = build_sparse_schedule(mask[:, :, :k_sched], pc, k_tile)
+    out = {
+        "sp_k_idx": put(sched["k_idx"], torch.int32),
+        "sp_p_idx": put(sched["p_idx"], torch.int32),
+        "sp_flags": put(sched["flags"], torch.int32),
+        "sp_lane": put(sched["lane_mask"], torch.bool),
+    }
+    if config.use_packed:
+        pcf = fused_chunk_rows(sdt, p, config.channels, config.block_size)
+        csched = build_chunk_schedule(mask, pcf, lanes=config.block_size)
+        # every width code must be one the kernels decode (B >> code)
+        assert int(np.max(csched["c_idx"] >> 16)) < len(lane_widths(config.block_size))
+        out["sp_c_idx"] = put(csched["c_idx"], torch.int32)
+        out["sp_c_flags"] = put(csched["flags"], torch.int32)
+    return out
 
 
 def init_state(config: PartitionedConfig, device=None) -> dict:
@@ -245,7 +308,9 @@ def _use_kernel_mac(config: PartitionedConfig) -> bool:
     return config.storage != "dense" and config.mac_backend == "kernel"
 
 
-def _use_fused(config: PartitionedConfig) -> bool:
+def _use_fused(config: PartitionedConfig, params: dict) -> bool:
+    if "sp_k_idx" in params and "sp_c_idx" not in params:
+        return False  # masked non-packed ring configs run B4 per block
     if config.fused is not None:
         return config.fused
     return (
@@ -333,7 +398,8 @@ def _fused_step(config: PartitionedConfig, params: dict, state: dict, frame: tor
     wrapper updates the exact DC/Nyquist side-carry (two frame sums: the
     packed forward matrix's lane-0 columns are all-ones / alternating sign)
     and reduces it against the rotated side filter, in float64, for the
-    kernel's lane-0 overwrite.
+    kernel's lane-0 overwrite. A sparse filter's chunk tables go to the
+    kernel whole; it reads row ``pos``.
     """
     n = config.transform_size
     p = config.num_partitions
@@ -351,14 +417,22 @@ def _fused_step(config: PartitionedConfig, params: dict, state: dict, frame: tor
     cs, ab = matmul_backend.packed_mats(n, MATRIX_DTYPES[planes.dtype], frame.device)
     res = fused_block_step(
         frame.contiguous(), planes, params["filt_rim"], pos, dcfix, cs, ab,
-        None if scales is None else scales[..., 0],
+        None if scales is None else scales[..., 0], _chunk_sched(params),
     )
     return res[0], {"fdl": fdl, "dcny": dcny}
 
 
+def _chunk_sched(params: dict):
+    """The fused kernels' ``sched``: the full chunk tables, or None."""
+    if "sp_c_idx" not in params:
+        return None
+    return params["sp_c_idx"], params["sp_c_flags"]
+
+
 def _split_mac(config: PartitionedConfig, params: dict, new_fdl, pos):
     """The split-plane partition MAC-reduce of one block: rotated filter
-    slice + the B1 kernel (or plain tensor ops). Returns (acc_re, acc_im)."""
+    slice + the B1 kernel, B4 over a sparse filter's tile schedule, or
+    plain tensor ops (``mac_backend="torch"``). Returns (acc_re, acc_im)."""
     p = config.num_partitions
     if config.layout == "ring":
         filt_re = fdl_lib.rotated_filter(params["filt_re"], pos, p)
@@ -369,7 +443,17 @@ def _split_mac(config: PartitionedConfig, params: dict, new_fdl, pos):
     if not _use_kernel_mac(config):
         return fdl_lib.fdl_mac_split(new_fdl, filt_re, filt_im)
     planes, scales = new_fdl if isinstance(new_fdl, tuple) else (new_fdl, None)
-    return fdl_mac(planes, filt_re, filt_im, None if scales is None else scales[..., 0])
+    scl = None if scales is None else scales[..., 0]
+    if config.layout == "ring" and "sp_k_idx" in params:
+        k_tile, pc = choose_chunks(planes.dtype, p, config.channels, planes.shape[-1])
+        acc_re, acc_im = sparse_fdl_mac(
+            planes, filt_re, filt_im, pos, params["sp_k_idx"], params["sp_p_idx"],
+            params["sp_flags"], scl, p_chunk=pc, k_tile=k_tile,
+        )
+        # as neojax: zero the lanes of tiles no rotation visits
+        lane = params["sp_lane"]
+        return torch.where(lane, acc_re, 0.0), torch.where(lane, acc_im, 0.0)
+    return fdl_mac(planes, filt_re, filt_im, scl)
 
 
 def step(config: PartitionedConfig, params: dict, state: dict, block: torch.Tensor):
@@ -387,7 +471,7 @@ def step(config: PartitionedConfig, params: dict, state: dict, block: torch.Tens
     frame = _frame(config, state, block)
     new_tail = block if config.scheme == "upols" else None
 
-    if _use_fused(config):
+    if _use_fused(config, params):
         y, update = _fused_step(config, params, state, frame)
     else:
         update, _ = _spectrum_and_push(config, state, frame)
@@ -461,7 +545,9 @@ def _dcfix_sequence(config: PartitionedConfig, params: dict, dcny: torch.Tensor,
 
 def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
                           signal: torch.Tensor):
-    """Whole-stream fused path: ONE launch of B3 for the entire UPOLS scan."""
+    """Whole-stream fused path: ONE launch of B3 for the entire UPOLS scan
+    (with a sparse filter's chunk tables, whole: B3 reads row
+    ``(pos0 + i) % P`` for block i)."""
     b = config.block_size
     p = config.num_partitions
     n = config.transform_size
@@ -478,7 +564,7 @@ def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
     cs, abt = matmul_backend.packed_stream_mats(n, MATRIX_DTYPES[planes.dtype], signal.device)
     res = fused_stream(
         sigpad, planes, params["filt_rim"], pos0, dcfix_all, cs, abt,
-        None if scales is None else scales[..., 0],
+        None if scales is None else scales[..., 0], _chunk_sched(params),
     )
 
     new_state = dict(state)
@@ -500,7 +586,7 @@ def process(config: PartitionedConfig, params: dict, state: dict, signal: torch.
         config.scheme == "upols"
         and config.layout == "ring"
         and signal.shape[-1] > 0
-        and _use_fused(config)
+        and _use_fused(config, params)
     ):
         state, out = _process_fused_stream(config, params, state, signal)
     else:
@@ -610,6 +696,9 @@ class Convolver:
             raise RuntimeError("cannot change channel count mid-stream; reset() first")
         self.config = dataclasses.replace(self.config, channels=channels)
         self.state = init_state(self.config, self.device)
+        if "mask" in self.params:
+            # the schedules' chunk geometry depends on the channel count
+            self.params.update(_schedule_params(self.config, _host(self.params["mask"]), self.device))
 
     def _as_signal(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -723,14 +812,16 @@ def split_upola_convolver(device=None) -> Convolver:
     return Convolver("upola", "split", device=device)
 
 
-def sparse_upols_convolver(sparsity: Any = None, device=None) -> Convolver:
+def sparse_upols_convolver(sparsity: Any = None, device=None, storage: str | None = None) -> Convolver:
     """UPOLS over a sparse (predicate-thinned) filter: a sparsity predicate
-    ``(row, col, value) -> bool`` (or boolean keep-mask) must be supplied,
-    here or later to ``filter(..., sparsity=)`` (``sparse_filter.hpp:25-38``).
-    Dropped bins are zeroed in the filter."""
-    return Convolver("upols", sparsity=sparsity, require_sparsity=True, device=device)
+    ``(row, col, value) -> bool`` (or boolean keep-mask, e.g.
+    ``conv.perceptual_mask``) must be supplied, here or later to
+    ``filter(..., sparsity=)`` (``sparse_filter.hpp:25-38``). Dropped bins
+    are zeroed in the filter, and the kernels skip the tiles they empty.
+    ``storage`` as :class:`Convolver`'s (None: by device)."""
+    return Convolver("upols", storage, sparsity=sparsity, require_sparsity=True, device=device)
 
 
-def sparse_upola_convolver(sparsity: Any = None, device=None) -> Convolver:
+def sparse_upola_convolver(sparsity: Any = None, device=None, storage: str | None = None) -> Convolver:
     """UPOLA twin of :func:`sparse_upols_convolver` (``sparse_convolver.hpp:21``)."""
-    return Convolver("upola", sparsity=sparsity, require_sparsity=True, device=device)
+    return Convolver("upola", storage, sparsity=sparsity, require_sparsity=True, device=device)

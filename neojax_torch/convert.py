@@ -2,15 +2,17 @@
 for the per-block convolver, the nested engine and the hybrid engine.
 
 Both packages use the same dict keys and shapes, so the conversion is a
-dtype/device move plus three layout differences:
+dtype/device move plus two layout differences:
 
 - ``filt_rim8 [8, 2P, 2B]`` (the JAX package's eight pre-shifted copies of
   the shared fused filter, a TPU alignment workaround) becomes
   ``filt_rim [2P, 1, 2B]``: copy 0, rows ``[:2P]``;
-- the ``sp_*`` sparse-schedule tables are dropped (the kernels here run a
-  dense schedule over the zeroed bins; ``mask`` is kept);
 - ring positions (``pos``, ``head_pos``, ``meta_pos``) and
   ``HybridStream``'s block phase ``r`` are Python ints here.
+
+A sparse filter's ``mask`` and ``sp_*`` schedule tables carry over as they
+are (int32 tables, bool ``mask`` and ``sp_lane``): the port builds the same
+tables and its kernels read them.
 
 Inputs are numpy arrays (``np.asarray`` of the JAX arrays). bfloat16 arrays
 may arrive as numpy's ``bfloat16`` extension dtype or as float32 holding
@@ -57,8 +59,8 @@ def params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) 
     params = {}
     for key, value in params_np.items():
         if key.startswith("sp_"):
-            continue
-        if key == "filt_rim8":
+            params[key] = _tensor(value, device, torch.bool if key == "sp_lane" else torch.int32)
+        elif key == "filt_rim8":
             p2 = 2 * config.num_partitions
             rim = np.asarray(value)[0, :p2][:, None, :]  # [2P, 1, 2B]
             params["filt_rim"] = _tensor(rim, device)
@@ -89,8 +91,8 @@ def nested_state_from_neojax(config: PartitionedConfig, state_np: dict, device=N
 
 def hybrid_params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) -> dict:
     """neojax ``hybrid_filter_params`` output (as numpy) -> this package's:
-    ``head_packed`` as the convolver's params (``filt_rim8`` -> ``filt_rim``,
-    no ``sp_*``), ``tail`` as the nested engine's."""
+    ``head_packed`` as the convolver's params (``filt_rim8`` -> ``filt_rim``;
+    the head has no mask), ``tail`` as the nested engine's."""
     s = np.asarray(params_np["head_re"]).shape[0] // 2
     params = {}
     for key, value in params_np.items():

@@ -14,7 +14,12 @@
 //      slot pos is read back after the barrier, so it holds the NEW row and
 //      scale. B3 may seed the accumulator from acc_add[i] (the hybrid
 //      engine's chunk-rate tail sum, linearity of the partition sum); the
-//      seed is taken before the MAC, as in the Pallas kernel
+//      seed is taken before the MAC, as in the Pallas kernel. With a chunk
+//      schedule (sparse filters) the MAC visits only the chunks of the
+//      current position's row, each over its live lane prefix; the row and
+//      scale are inserted whether or not their chunk is visited
+//      (the TPU kernels' pre-paired rows and counts only fed their SMEM
+//      prefetch, so the full tables are passed and indexed here)
 //   6. lane 0 := the exact DC/Nyquist values (dcfix), after the MAC, so it
 //      also overwrites the seed's lane 0 (the hybrid folds the tail's exact
 //      DC/Nyquist into dcfix; the im-plane lane 0 holds Nyquist.re)
@@ -38,7 +43,10 @@
 //   - B3 fills only C CTAs (64 of the 132 SMs at the headline config);
 //   - every CTA re-reads the 4 MB f32 forward DFT matrix from L2 every block;
 //     batching the channels into one tensor-core product removes that.
-// Shared memory is static (about 25 KB at B <= 1024).
+// Shared memory is static (about 25 KB at B <= 1024). The launch bounds
+// name one CTA per SM (the grid is C CTAs, fewer than the SMs): without
+// the minimum, ptxas held these kernels to 64 registers and spilled once the
+// schedule loop was added; with it they take 86-96 and do not spill.
 #include "common.cuh"
 
 namespace {
@@ -49,6 +57,15 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 1024;
 constexpr int kPer = 2 * kMaxB / kThreads;  // outputs per thread of a 2B-wide loop
+
+// The chunk schedule (build_chunk_schedule): the full [P, L] int32 tables
+// c_idx (chunk | width code << 16) and flags, or c == nullptr for the dense
+// loop; pc rows a chunk; codes >= n_codes mean full width.
+struct Sched {
+  const int* c;
+  const int* f;
+  int L, pc, n_codes;
+};
 
 struct Shared {
   float frame[2 * kMaxB];  // N frame samples, matrix-dtype rounded
@@ -69,7 +86,8 @@ __device__ __forceinline__ void channel_block(
     float* scales, float dc_fix, float ny_fix, const float* __restrict__ seed,
     const M* __restrict__ fwd, size_t fwd_plane, size_t fwd_row,
     const M* __restrict__ inv, size_t inv_plane, size_t inv_row,
-    float* __restrict__ out, int n_out, int P, int C, int B, int Cf, int c, int pos) {
+    float* __restrict__ out, int n_out, int P, int C, int B, int Cf, int c, int pos,
+    const Sched& sd) {
   constexpr bool kQuant = Traits<T>::kQuant;
   constexpr float kIntMax = Traits<T>::kIntMax;
   constexpr float kInvMax = 1.0f / Traits<T>::kIntMax;
@@ -135,7 +153,11 @@ __device__ __forceinline__ void channel_block(
   __syncthreads();  // the new row and scale are visible to the whole CTA
 
   // 5 + 6. rotated-filter MAC over P (seeded from acc_add when given), then
-  // the lane-0 DC/Nyquist overwrite
+  // the lane-0 DC/Nyquist overwrite. With a chunk schedule (row pos of the
+  // [P, L] tables, read here) only the flag-1 chunks are summed, each
+  // over its first B >> code lanes, rows ascending as in the dense loop; a
+  // code outside lane_widths(B) falls back to the full width (exact: the
+  // masked filter bins are zero).
   const size_t frow = static_cast<size_t>(Cf) * w;
   const M* frot = rim + static_cast<size_t>(P - 1 - pos) * frow +
                   static_cast<size_t>(Cf == 1 ? 0 : c) * w;
@@ -147,19 +169,35 @@ __device__ __forceinline__ void channel_block(
     // seed [2, C, B]: plane 0 re, plane 1 im
     float ar = seed ? seed[static_cast<size_t>(c) * B + k] : 0.0f;
     float ai = seed ? seed[static_cast<size_t>(C + c) * B + k] : 0.0f;
+    auto mac_rows = [&](int p0, int p1) {
 #pragma unroll 4
-    for (int p = 0; p < P; ++p) {
-      float r = to_f32(xr[p * row]);
-      float i = to_f32(xi[p * row]);
-      if (kQuant) {
-        const float s = scales[static_cast<size_t>(p) * C + c] * kInvMax;
-        r *= s;
-        i *= s;
+      for (int p = p0; p < p1; ++p) {
+        float r = to_f32(xr[p * row]);
+        float i = to_f32(xi[p * row]);
+        if (kQuant) {
+          const float s = scales[static_cast<size_t>(p) * C + c] * kInvMax;
+          r *= s;
+          i *= s;
+        }
+        const float a = to_f32(fr[p * frow]);
+        const float b = to_f32(fi[p * frow]);
+        ar += r * a - i * b;
+        ai += r * b + i * a;
       }
-      const float a = to_f32(fr[p * frow]);
-      const float b = to_f32(fi[p * frow]);
-      ar += r * a - i * b;
-      ai += r * b + i * a;
+    };
+    if (sd.c) {
+      const int* c_row = sd.c + static_cast<size_t>(pos) * sd.L;
+      const int* f_row = sd.f + static_cast<size_t>(pos) * sd.L;
+      for (int j = 0; j < sd.L; ++j) {
+        if (f_row[j] != 1) continue;
+        const int v = c_row[j];
+        const int code = v >> 16;
+        if (k >= (code < sd.n_codes ? B >> code : B)) continue;
+        const int p0 = (v & 0xFFFF) * sd.pc;
+        mac_rows(p0, p0 + sd.pc);
+      }
+    } else {
+      mac_rows(0, P);
     }
     if (k == 0) {
       ar = dc_fix;
@@ -195,24 +233,24 @@ __device__ __forceinline__ void channel_block(
 }
 
 template <typename T, typename M>
-__global__ void __launch_bounds__(kThreads) fused_block_step_kernel(
+__global__ void __launch_bounds__(kThreads, 1) fused_block_step_kernel(
     const float* __restrict__ frame, T* fdl, const M* __restrict__ rim, float* scales,
     const float* __restrict__ dcfix, const M* __restrict__ cs, const M* __restrict__ ab,
-    float* __restrict__ y, int P, int C, int B, int Cf, int pos) {
+    float* __restrict__ y, Sched sd, int P, int C, int B, int Cf, int pos) {
   __shared__ Shared sh;
   const int c = blockIdx.x;
   const size_t n = 2 * static_cast<size_t>(B);
   channel_block<T, M>(sh, frame + c * n, fdl, rim, scales, dcfix[c], dcfix[C + c], nullptr,
                       cs, n * B, B, ab, B * n, n, y + c * n, static_cast<int>(n),
-                      P, C, B, Cf, c, pos);
+                      P, C, B, Cf, c, pos, sd);
 }
 
 template <typename T, typename M>
-__global__ void __launch_bounds__(kThreads) fused_stream_kernel(
+__global__ void __launch_bounds__(kThreads, 1) fused_stream_kernel(
     const float* __restrict__ sigpad, T* fdl, const M* __restrict__ rim, float* scales,
     const float* __restrict__ dcfix_all, const float* __restrict__ acc_add,
     const M* __restrict__ cs, const M* __restrict__ abt,
-    float* __restrict__ out, int P, int C, int B, int Cf, int nb, int pos0) {
+    float* __restrict__ out, Sched sd, int P, int C, int B, int Cf, int nb, int pos0) {
   __shared__ Shared sh;
   const int c = blockIdx.x;
   const size_t bb = static_cast<size_t>(B);
@@ -224,22 +262,23 @@ __global__ void __launch_bounds__(kThreads) fused_stream_kernel(
     const float* seed = acc_add ? acc_add + static_cast<size_t>(i) * 2 * C * bb : nullptr;
     channel_block<T, M>(sh, sig + i * bb, fdl, rim, scales, dcf[c], dcf[C + c], seed,
                         cs, bb, 2 * bb, abt, bb * bb, bb, o + i * bb, B,
-                        P, C, B, Cf, c, pos);
+                        P, C, B, Cf, c, pos, sd);
   }
 }
 
-bool bad_shape(int P, int C, int B, int Cf) {
-  return P < 1 || C < 1 || B < 2 || B > kMaxB || (B & 1) || (Cf != 1 && Cf != C);
+bool bad_shape(int P, int C, int B, int Cf, const Sched& sd) {
+  return P < 1 || C < 1 || B < 2 || B > kMaxB || (B & 1) || (Cf != 1 && Cf != C) ||
+         (sd.c != nullptr) != (sd.f != nullptr) || (sd.c && (sd.L < 1 || sd.pc < 1 || P % sd.pc));
 }
 
 template <typename T, typename M>
 int launch_step(const void* frame, void* fdl, const void* rim, void* scales, const void* dcfix,
-                const void* cs, const void* ab, void* y, int P, int C, int B, int Cf, int pos,
-                cudaStream_t s) {
+                const void* cs, const void* ab, void* y, const Sched& sd, int P, int C, int B,
+                int Cf, int pos, cudaStream_t s) {
   fused_block_step_kernel<T, M><<<C, kThreads, 0, s>>>(
       static_cast<const float*>(frame), static_cast<T*>(fdl), static_cast<const M*>(rim),
       static_cast<float*>(scales), static_cast<const float*>(dcfix),
-      static_cast<const M*>(cs), static_cast<const M*>(ab), static_cast<float*>(y),
+      static_cast<const M*>(cs), static_cast<const M*>(ab), static_cast<float*>(y), sd,
       P, C, B, Cf, pos);
   return static_cast<int>(cudaGetLastError());
 }
@@ -247,33 +286,42 @@ int launch_step(const void* frame, void* fdl, const void* rim, void* scales, con
 template <typename T, typename M>
 int launch_stream(const void* sigpad, void* fdl, const void* rim, void* scales,
                   const void* dcfix_all, const void* acc_add, const void* cs, const void* abt,
-                  void* out, int P, int C, int B, int Cf, int nb, int pos0, cudaStream_t s) {
+                  void* out, const Sched& sd, int P, int C, int B, int Cf, int nb, int pos0,
+                  cudaStream_t s) {
   fused_stream_kernel<T, M><<<C, kThreads, 0, s>>>(
       static_cast<const float*>(sigpad), static_cast<T*>(fdl), static_cast<const M*>(rim),
       static_cast<float*>(scales), static_cast<const float*>(dcfix_all),
       static_cast<const float*>(acc_add), static_cast<const M*>(cs),
-      static_cast<const M*>(abt), static_cast<float*>(out), P, C, B, Cf, nb, pos0);
+      static_cast<const M*>(abt), static_cast<float*>(out), sd, P, C, B, Cf, nb, pos0);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// c_idx / c_flags: the full [P, L] int32 chunk-schedule tables on the
+// device, or null for the dense schedule; pc rows a chunk; n_codes =
+// len(lane_widths(B)).
 extern "C" int neo_fused_block_step(int storage, const void* frame, void* fdl, const void* rim,
                                     void* scales, const void* dcfix, const void* cs,
-                                    const void* ab, void* y, int P, int C, int B, int Cf,
-                                    int pos, void* stream) {
-  if (bad_shape(P, C, B, Cf) || pos < 0 || pos >= P) return static_cast<int>(cudaErrorInvalidValue);
+                                    const void* ab, void* y, const void* c_idx,
+                                    const void* c_flags, int P, int C, int B, int Cf, int pos,
+                                    int L, int pc, int n_codes, void* stream) {
+  const Sched sd{static_cast<const int*>(c_idx), static_cast<const int*>(c_flags), L, pc, n_codes};
+  if (bad_shape(P, C, B, Cf, sd) || pos < 0 || pos >= P)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case neo::kSplit:
-      return launch_step<float, float>(frame, fdl, rim, scales, dcfix, cs, ab, y, P, C, B, Cf, pos, s);
+      return launch_step<float, float>(frame, fdl, rim, scales, dcfix, cs, ab, y, sd,
+                                       P, C, B, Cf, pos, s);
     case neo::kBf16:
       return launch_step<__nv_bfloat16, __nv_bfloat16>(frame, fdl, rim, scales, dcfix, cs, ab, y,
-                                                       P, C, B, Cf, pos, s);
+                                                       sd, P, C, B, Cf, pos, s);
     case neo::kInt16:
-      return launch_step<int16_t, float>(frame, fdl, rim, scales, dcfix, cs, ab, y, P, C, B, Cf, pos, s);
+      return launch_step<int16_t, float>(frame, fdl, rim, scales, dcfix, cs, ab, y, sd,
+                                         P, C, B, Cf, pos, s);
     case neo::kInt8:
-      return launch_step<int8_t, __nv_bfloat16>(frame, fdl, rim, scales, dcfix, cs, ab, y,
+      return launch_step<int8_t, __nv_bfloat16>(frame, fdl, rim, scales, dcfix, cs, ab, y, sd,
                                                 P, C, B, Cf, pos, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -282,25 +330,27 @@ extern "C" int neo_fused_block_step(int storage, const void* frame, void* fdl, c
 
 extern "C" int neo_fused_stream(int storage, const void* sigpad, void* fdl, const void* rim,
                                 void* scales, const void* dcfix_all, const void* acc_add,
-                                const void* cs, const void* abt, void* out, int P, int C, int B,
-                                int Cf, int nb, int pos0, void* stream) {
-  if (bad_shape(P, C, B, Cf) || nb < 1 || pos0 < 0 || pos0 >= P)
+                                const void* cs, const void* abt, void* out, const void* c_idx,
+                                const void* c_flags, int P, int C, int B, int Cf, int nb,
+                                int pos0, int L, int pc, int n_codes, void* stream) {
+  const Sched sd{static_cast<const int*>(c_idx), static_cast<const int*>(c_flags), L, pc, n_codes};
+  if (bad_shape(P, C, B, Cf, sd) || nb < 1 || pos0 < 0 || pos0 >= P)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case neo::kSplit:
       return launch_stream<float, float>(sigpad, fdl, rim, scales, dcfix_all, acc_add, cs, abt,
-                                         out, P, C, B, Cf, nb, pos0, s);
+                                         out, sd, P, C, B, Cf, nb, pos0, s);
     case neo::kBf16:
       return launch_stream<__nv_bfloat16, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all,
-                                                         acc_add, cs, abt, out, P, C, B, Cf, nb,
-                                                         pos0, s);
+                                                         acc_add, cs, abt, out, sd, P, C, B, Cf,
+                                                         nb, pos0, s);
     case neo::kInt16:
       return launch_stream<int16_t, float>(sigpad, fdl, rim, scales, dcfix_all, acc_add, cs, abt,
-                                           out, P, C, B, Cf, nb, pos0, s);
+                                           out, sd, P, C, B, Cf, nb, pos0, s);
     case neo::kInt8:
       return launch_stream<int8_t, __nv_bfloat16>(sigpad, fdl, rim, scales, dcfix_all, acc_add,
-                                                  cs, abt, out, P, C, B, Cf, nb, pos0, s);
+                                                  cs, abt, out, sd, P, C, B, Cf, nb, pos0, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

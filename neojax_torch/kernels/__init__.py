@@ -1,29 +1,43 @@
 """Hand-written CUDA kernels (``csrc/``), each beside its plain PyTorch
 version: B1 ``fdl_mac.fdl_mac``, B2 ``fused_step.fused_block_step``, B3
-``fused_step.fused_stream`` (the per-block convolver and the hybrid head)
-and B5 ``nested_mac.nested_mac`` (the nested engine and the hybrid tail).
-Nothing is compiled at import time.
+``fused_step.fused_stream`` (the per-block convolver and the hybrid head;
+both with the sparse chunk schedule), B4 ``sparse_mac.sparse_fdl_mac`` (the
+unfused sparse MAC) and B5 ``nested_mac.nested_mac`` (the nested engine and
+the hybrid tail). Nothing is compiled at import time.
 
 Each wrapper counts its kernel launches in a plain int attribute
-(``fdl_mac.fdl_mac.launches``); the CPU route counts nothing."""
+(``fdl_mac.fdl_mac.launches``); B2 and B3 also count, in
+``sched_launches``, the launches that ran a chunk schedule. The CPU route
+counts nothing."""
 
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
 from neojax_torch.kernels import fused_step as _fused_step_mod
 from neojax_torch.kernels import nested_mac as _nested_mac_mod
+from neojax_torch.kernels import sparse_mac as _sparse_mac_mod
 
 
 def _wrappers():
     return (_fdl_mac_mod.fdl_mac, _fused_step_mod.fused_block_step, _fused_step_mod.fused_stream,
-            _nested_mac_mod.nested_mac)
+            _sparse_mac_mod.sparse_fdl_mac, _nested_mac_mod.nested_mac)
+
+
+def _sched_wrappers():
+    return (_fused_step_mod.fused_block_step, _fused_step_mod.fused_stream)
 
 
 def reset_launch_counts() -> None:
     for k in _wrappers():
         k.launches = 0
+    for k in _sched_wrappers():
+        k.sched_launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in _wrappers()}
+    """{wrapper name: launches}, plus ``<name>_sched`` for B2 and B3's
+    scheduled launches."""
+    counts = {k.__name__: k.launches for k in _wrappers()}
+    counts.update({f"{k.__name__}_sched": k.sched_launches for k in _sched_wrappers()})
+    return counts
 
 
 __all__ = ["reset_launch_counts", "launch_counts"]

@@ -3,7 +3,9 @@ plain C interface, bound with ``ctypes``.
 
 Sources are ``neojax_torch/csrc/*.cu`` and ``*.cuh`` only. The library is
 built at first use into ``neojax_torch/_build/`` (git-ignored), named by a
-hash of the sources and flags, so an edit to any source rebuilds it. Each C
+hash of the sources and flags, so an edit to any source rebuilds it. Every
+``.cu`` is compiled by its own nvcc process, all started together, and the
+objects are then linked into one library. Each C
 entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
 
@@ -30,7 +32,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -42,11 +44,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # storage, fdl, filt_re, filt_im, scales, acc_re, acc_im, P, C, K, Cf, stream
     "neo_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # storage, frame, fdl, rim, scales, dcfix, cs, ab, y, P, C, B, Cf, pos, stream
-    "neo_fused_block_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # storage, frame, fdl, rim, scales, dcfix, cs, ab, y, c_idx, c_flags,
+    # P, C, B, Cf, pos, L, pc, n_codes, stream
+    "neo_fused_block_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # storage, sigpad, fdl, rim, scales, dcfix_all, acc_add, cs, abt, out,
-    # P, C, B, Cf, nb, pos0, stream
-    "neo_fused_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # c_idx, c_flags, P, C, B, Cf, nb, pos0, L, pc, n_codes, stream
+    "neo_fused_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # storage, fdl, filt_re, filt_im, scales, k_row, p_row, f_row, acc_re,
+    # acc_im, P, C, K, Cf, L, pc, k_tile, stream
+    "neo_sparse_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
     # storage, planes, scales, filt_re, filt_im, acc_re, acc_im, P2, C, K, L, G, stream
     "neo_nested_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -86,23 +95,33 @@ def _nvcc() -> str:
 
 
 def _compile(out: Path) -> str:
-    """nvcc every .cu into ``out``; returns nvcc's log (ptxas -v included)."""
+    """nvcc every .cu into ``out``: one compile process per source, started
+    together, then one link. Returns nvcc's log (ptxas -v included)."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-    try:
+    nvcc = _nvcc()
+    cus = [s for s in _sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in cus]
+        jobs = []
+        for src, obj in zip(cus, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:  # wait for every compile, failed or not
+            so, se = proc.communicate()
+            log.append(so + se)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{se}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return res.stdout + res.stderr
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
+    return "".join(log) + res.stdout + res.stderr
 
 
 def load() -> ctypes.CDLL:

@@ -29,11 +29,32 @@ import torch
 
 from neojax_torch.kernels import _build
 
-__all__ = ["fdl_mac", "fdl_mac_reference", "STORAGE_CODES"]
+__all__ = ["fdl_mac", "fdl_mac_reference", "choose_chunks", "STORAGE_CODES"]
 
 # storage dtype -> the C entry points' storage code
 STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
 _INT_MAX = {torch.int8: 127.0, torch.int16: 32767.0}
+
+# The tile geometry of the tile-sparse schedule (``kernels.sparse_mac``),
+# as neojax chooses it for its TPU MAC grid, so that both packages build the
+# same schedule tables. B1 itself needs no tiling; B4 takes the geometry as
+# arguments and works at any.
+_K_TILE = 256
+_VMEM_BUDGET = 8 * 1024 * 1024
+
+
+def choose_chunks(dtype: torch.dtype, p: int, c: int, k: int) -> tuple[int, int]:
+    """(k_tile, p_chunk) of ``neojax.kernels.fdl_mac.choose_chunks``: the
+    lane tile, and the largest divisor of P whose double-buffered ring
+    block fits the VMEM budget."""
+    k_tile = min(_K_TILE, k)
+    cap = max(1, min(p, _VMEM_BUDGET // max(1, 2 * c * k_tile * dtype.itemsize * 2)))
+    pc = 1
+    for d in range(cap, 0, -1):
+        if p % d == 0:
+            pc = d
+            break
+    return k_tile, pc
 
 
 def _check_args(fdl, filt_re, filt_im, scales):

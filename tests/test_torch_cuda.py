@@ -2,9 +2,11 @@
 card, at shapes the headline smoke (``chip_smoke.py``) does not cover: odd
 P, C and K, per-channel fused filters, the largest fused block (1024), ring
 wraps, B1 at the hybrid head's non-packed K = B+1, B5 (the nested meta MAC)
-at every storage and group count, B3 with its ``acc_add`` seed, and the
-convolver's, nested engine's and hybrid engine's CUDA routes against their
-CPU routes.
+at every storage and group count, B3 with its ``acc_add`` seed, B4 (the
+tile-sparse MAC) and B2/B3 with the sparse chunk schedule — each also
+against the dense kernel on the same masked filter — and the convolver's
+(dense and sparse), nested engine's and hybrid engine's CUDA routes against
+their CPU routes.
 
 Marked ``cuda``: every test skips without a CUDA device (decided in the
 ``cuda`` fixture, never at import). The file imports no JAX, so on a card
@@ -25,6 +27,7 @@ from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels import fdl_mac as mac
 from neojax_torch.kernels import fused_step as fs
 from neojax_torch.kernels import nested_mac as nm
+from neojax_torch.kernels import sparse_mac as sm
 
 _TOL = {"split": 2e-5, "bf16": 5e-3, "int16": 5e-4, "int8": 2e-2}
 _DT = {"split": torch.float32, "bf16": torch.bfloat16, "int16": torch.int16, "int8": torch.int8}
@@ -250,3 +253,142 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         nm.nested_mac(planes, None, f, f)
     with pytest.raises(ValueError, match="one device"):
         nm.nested_mac(planes.float(), None, f.cpu(), f)
+
+
+def _lane_band_mask(p, k, keep):
+    """The first ``keep`` of the partitions, each with a cutoff falling with
+    the partition (chunks and lane widths both skip)."""
+    mask = np.zeros((p, k), bool)
+    for i in range(int(p * keep)):
+        mask[i, : max(8, int(k * (1.0 - i / p)))] = True
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+@pytest.mark.parametrize("k,pc,kt", [(130, 4, 128), (512, 8, 256), (513, 2, 256), (200, 16, 64)])
+def test_sparse_fdl_mac_kernel_matches_plain_and_dense(cuda, rng, storage, cf, k, pc, kt):
+    """B4 against its plain version, and against B1 on the masked filter
+    (every skipped product is an exact zero); lanes of unvisited tiles 0."""
+    p, c = 16, 3
+    mask = _lane_band_mask(p, k, 0.6)
+    sched = sm.build_sparse_schedule(mask, pc, kt)
+    tables = [torch.from_numpy(sched[key]).to(cuda) for key in ("k_idx", "p_idx", "flags")]
+    ring, scales = _ring(rng, storage, p, c, k, cuda)
+    m = torch.from_numpy(mask).to(cuda)[:, None, :]
+    fr = torch.from_numpy(rng.standard_normal((p, cf, k)).astype(np.float32)).to(cuda) * m
+    fi = torch.from_numpy(rng.standard_normal((p, cf, k)).astype(np.float32)).to(cuda) * m
+    tr, ti = torch.cat([fr.flip(0)] * 2), torch.cat([fi.flip(0)] * 2)
+    for pos in (0, 5, p - 1):
+        rr, ri = tr[p - 1 - pos : 2 * p - 1 - pos], ti[p - 1 - pos : 2 * p - 1 - pos]
+        before = sm.sparse_fdl_mac.launches
+        got = sm.sparse_fdl_mac(ring, rr, ri, pos, *tables, scales, p_chunk=pc, k_tile=kt)
+        torch.cuda.synchronize()
+        assert sm.sparse_fdl_mac.launches == before + 1
+        want = sm.sparse_fdl_mac_reference(ring, rr, ri, pos, *tables, scales, p_chunk=pc, k_tile=kt)
+        assert _rel(torch.cat(got), torch.cat(want)) < 2e-6
+        dense = mac.fdl_mac(ring, rr, ri, scales)
+        assert torch.equal(torch.cat(got), torch.cat(dense))
+
+
+def _sparse_fused_inputs(cuda, rng, storage, cf, p, c, b):
+    parts = ((rng.standard_normal((cf, p, b + 1)) + 1j * rng.standard_normal((cf, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    cfg = cv.PartitionedConfig(b, p, c, storage=storage)
+    params = cv.filter_params(cfg, parts, sparsity=_lane_band_mask(p, b + 1, 0.5), device=cuda)
+    ring, scales = _ring(rng, storage, p, c, b, cuda)
+    return params, ring, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+@pytest.mark.parametrize("p", [24, 20])
+def test_fused_block_step_sched_matches_plain_and_dense(cuda, rng, monkeypatch, storage, cf, p):
+    """B2 with the chunk schedule (8-row chunks at P = 24, 1-row at P = 20;
+    two lane widths at B = 256): within TOL of its plain version, and equal
+    to the dense B2 on the same masked filter."""
+    monkeypatch.setattr(fs, "_CHUNK_TARGET", 1)
+    c, b = 3, 256
+    params, ring, scales = _sparse_fused_inputs(cuda, rng, storage, cf, p, c, b)
+    sched = (params["sp_c_idx"], params["sp_c_flags"])
+    assert int((params["sp_c_flags"] == 1).sum(1).min()) < p // fs.fused_chunk_rows(ring.dtype, p, c, b)
+    cs, ab = mb.packed_mats(2 * b, fs.MATRIX_DTYPES[_DT[storage]], cuda)
+    for pos in (0, 7, p - 1):
+        frame = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * b)).astype(np.float32)).to(cuda)
+        dcfix = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32)).to(cuda)
+        rings = [ring.clone() for _ in range(3)]
+        scl = [None if scales is None else scales.clone() for _ in range(3)]
+        before = fs.fused_block_step.sched_launches
+        ky = fs.fused_block_step(frame, rings[0], params["filt_rim"], pos, dcfix, cs, ab, scl[0], sched)[0]
+        py = fs.fused_block_step_reference(frame, rings[1], params["filt_rim"], pos, dcfix, cs, ab, scl[1],
+                                           sched)[0]
+        dy = fs.fused_block_step(frame, rings[2], params["filt_rim"], pos, dcfix, cs, ab, scl[2])[0]
+        torch.cuda.synchronize()
+        assert fs.fused_block_step.sched_launches == before + 1
+        assert _rel(ky, py) < _TOL[storage]
+        _same_ring(storage, rings[0], rings[1], scl[0], scl[1])
+        assert torch.equal(ky, dy) and torch.equal(rings[0], rings[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+def test_fused_stream_sched_matches_plain_and_dense(cuda, rng, monkeypatch, storage, cf):
+    monkeypatch.setattr(fs, "_CHUNK_TARGET", 1)
+    p, c, b, nb, pos0 = 24, 3, 256, 30, 20  # wraps the ring
+    params, ring, scales = _sparse_fused_inputs(cuda, rng, storage, cf, p, c, b)
+    sched = (params["sp_c_idx"], params["sp_c_flags"])
+    cs, abt = mb.packed_stream_mats(2 * b, fs.MATRIX_DTYPES[_DT[storage]], cuda)
+    sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(cuda)
+    dcfix = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(cuda)
+    rings = [ring.clone() for _ in range(3)]
+    scl = [None if scales is None else scales.clone() for _ in range(3)]
+    ko = fs.fused_stream(sigpad, rings[0], params["filt_rim"], pos0, dcfix, cs, abt, scl[0], sched)[0]
+    po = fs.fused_stream_reference(sigpad, rings[1], params["filt_rim"], pos0, dcfix, cs, abt, scl[1],
+                                   sched)[0]
+    do = fs.fused_stream(sigpad, rings[2], params["filt_rim"], pos0, dcfix, cs, abt, scl[2])[0]
+    torch.cuda.synchronize()
+    assert _rel(ko, po) < _TOL[storage]
+    _same_ring(storage, rings[0], rings[1], scl[0], scl[1])
+    assert torch.equal(ko, do) and torch.equal(rings[0], rings[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("route", ["fused", "call", "unfused", "unpacked"])
+def test_sparse_convolver_cuda_route_matches_cpu_route(cuda, rng, monkeypatch, storage, route):
+    """The masked convolver on the card against its CPU route: ``process``
+    (B3 + schedule), ``__call__``-style steps (B2 + schedule), ``fused=False``
+    (B4, K = B) and ``packed=False`` (B4, K = B + 1); each route's sparse
+    kernel launches."""
+    from neojax_torch import kernels
+
+    monkeypatch.setattr(fs, "_CHUNK_TARGET", 1)
+    b, p, c = 64, 24, 3
+    parts = ((rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    mask = _lane_band_mask(p, b + 1, 0.4)
+    sig = rng.uniform(-1, 1, (c, 30 * b)).astype(np.float32)
+    kw = {"fused": dict(), "call": dict(), "unfused": dict(fused=False), "unpacked": dict(packed=False)}[route]
+    outs = []
+    for dev in ("cpu", cuda):
+        cfg = cv.PartitionedConfig(b, p, c, storage=storage, **kw)
+        params = cv.filter_params(cfg, parts, sparsity=mask, device=dev)
+        state = cv.init_state(cfg, dev)
+        x = torch.from_numpy(sig).to(dev)
+        kernels.reset_launch_counts()
+        if route == "call":
+            ys = []
+            for i in range(30):
+                state, y = cv.step(cfg, params, state, x[:, i * b : (i + 1) * b])
+                ys.append(y)
+            outs.append(torch.cat(ys, dim=-1))
+        else:
+            outs.append(cv.process(cfg, params, state, x)[1])
+    counts = kernels.launch_counts()
+    want = {"fused": "fused_stream_sched", "call": "fused_block_step_sched"}.get(route, "sparse_fdl_mac")
+    assert counts[want] > 0 and counts["fdl_mac"] == 0
+    assert _rel(outs[1], outs[0]) < max(_TOL[storage], 1e-5)
+
