@@ -54,6 +54,19 @@ Phases, each printing one JSON object per line:
      1216 blocks (split, int8) against ``process_hybrid`` with the unfused
      and the fused head, and ``process_nested`` with its state carried
      across two calls against one call
+  7b. probes: T1 (``probe_ring_read``, bf16 and split) at the
+     [2, 960, 64, 512] ring, both outputs, and T2 (``probe_stream``, its
+     three modes, f32 and bf16 matrices) over 64 blocks, each against its
+     plain version; then the measurement path (the tools' own row
+     functions, ``neojax_torch.tools.roofline_cal`` / ``fused_probe``, at
+     64 and 256 iterations or blocks: T1, B1, T2, dense B3, B3 with an
+     all-zero chunk schedule, B3 at P = 32) in its own launch window; a
+     ``torch.profiler`` trace of one ``process`` call (``bench.profile``);
+     and for every kernel its bytes and operations
+     (``bench.headline``), its bound on the card (the larger of bytes over
+     the HBM rate and operations over the f32 rate), its share of the
+     bound, and the time of one PyTorch call computing the same function
+     where there is one (``library_ms``)
   8. times: per-block ``process``, ``process_nested`` and
      ``process_hybrid`` per storage, kernel route against the plain torch
      route (``mac_backend="torch"``: cuFFT transforms + tensor-op MAC), and
@@ -63,9 +76,9 @@ Phases, each printing one JSON object per line:
   9. the kernels summary, then the final ``{"ok": true, ...}`` line
 
 Launch counters are zeroed right before each main path (phases 4+5, 5b,
-the nested and the hybrid halves of 6, and 7) and read right after it; each
-kernel of that path must have launched in its window (B2 and B3 with the
-chunk schedule counted apart).
+the nested and the hybrid halves of 6, 7, and 7b's measurement path) and
+read right after it; each kernel of that path must have launched in its
+window (B2 and B3 with the chunk schedule counted apart).
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -114,14 +128,6 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def make_ir() -> np.ndarray:
-    """bench.py's IR: 10 s of exponentially decaying noise, seeded."""
-    rng = np.random.default_rng(0)
-    n = P_REAL * BLOCK
-    t = np.arange(n)
-    return rng.standard_normal(n) * (0.05 * np.exp(-t / (n / 4)))
-
-
 def snr_db(out: np.ndarray, ref: np.ndarray) -> float:
     err = np.asarray(out, np.float64) - ref
     den = float(np.sum(err**2))
@@ -154,6 +160,10 @@ def main() -> int:
     from neojax_torch.kernels import fused_step as fs_mod
     from neojax_torch.kernels import nested_mac as nm_mod
     from neojax_torch.kernels import sparse_mac as sm_mod
+    from neojax_torch.kernels import probes as pr_mod
+    from neojax_torch.bench import harness, headline
+    from neojax_torch.bench import profile as bench_profile
+    from neojax_torch.tools import fused_probe, roofline_cal
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -397,7 +407,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3c. the sparse kernels at the headline shapes, both masks
-    ir = conv.normalize_impulse(torch.from_numpy(make_ir().astype(np.float32))).numpy()
+    ir = conv.normalize_impulse(torch.from_numpy(headline.make_ir(P_REAL, BLOCK).astype(np.float32))).numpy()
     parts = conv.uniform_partition(ir, BLOCK)
     assert parts.shape == (1, P_REAL, BLOCK + 1)
     parts_pad = np.concatenate([parts, np.zeros((1, P - P_REAL, k), parts.dtype)], axis=1)
@@ -407,7 +417,8 @@ def main() -> int:
         [conv.perceptual_mask(parts[0], SR, threshold_db=-30.0), np.zeros((P - P_REAL, k), bool)])
     mask_stats = {}
     for mname, mask in masks.items():
-        prm = cv.filter_params(cv.PartitionedConfig(BLOCK, P, c, storage="bf16"), parts_pad, sparsity=mask)
+        prm = cv.filter_params(cv.PartitionedConfig(BLOCK, P, c, storage="bf16"), parts_pad, sparsity=mask,
+                               device="cpu")
         cflags = prm["sp_c_flags"].numpy()
         pcf = fs_mod.fused_chunk_rows(torch.bfloat16, P, c, b)
         mask_stats[mname] = {
@@ -818,6 +829,182 @@ def main() -> int:
     torch.cuda.empty_cache()
     read_window("hybrid_stream", ("fdl_mac", "nested_mac"))
 
+    # ---- 7b. probes T1 and T2 against their plain versions, the measurement
+    # path in its own launch window, a profiler trace, and every kernel's bound
+    peak_b, peak_f = harness.hbm_peak_bytes_per_sec(), harness.f32_peak_flops_per_sec()
+    no_peaks = None if peak_b and peak_f else f"the harness has no data-sheet peaks for {card['card']}"
+    emit(phase="probes", peaks={"hbm_bytes_per_s": peak_b, "f32_flops_per_s": peak_f, "note": no_peaks})
+    probe_sum = {"probe_ring_read": {}, "probe_stream": {}}
+    for storage in ("split", "bf16"):
+        sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
+        ring = torch.from_numpy((10 * rng.standard_normal((2, P, c, b))).astype(np.float32)).to(dev, sdt)
+        tiled = torch.from_numpy((0.05 * rng.standard_normal((2 * P, b))).astype(np.float32)).to(dev)
+        fr = tiled[P - 8 : 2 * P - 8]  # the rotated filter of ring position 7
+        _, pc = mac_mod.choose_chunks(sdt, P, c, b)
+        got = pr_mod.probe_ring_read(ring, fr, pc)
+        want = pr_mod.probe_ring_read_reference(ring, fr, pc)
+        torch.cuda.synchronize()
+        errs = [rel_err(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+        for (_, r), out_name in zip(errs, ("out0", "out1")):
+            assert r < TOL[storage], f"probe_ring_read {storage} {out_name}: rel err {r}"
+        fr1 = fr[:, None]
+        row = {"max_abs_err": max(e[0] for e in errs), "rel_err": max(e[1] for e in errs), "p_chunk": pc,
+               "ms": cuda_ms(lambda: pr_mod.probe_ring_read(ring, fr, pc), 20),
+               "plain_ms": cuda_ms(lambda: pr_mod.probe_ring_read_reference(ring, fr, pc), 3),
+               "fdl_mac_ms_same_shape": cuda_ms(lambda: mac_mod.fdl_mac(ring, fr1, fr1), 20)}
+        probe_sum["probe_ring_read"][storage] = row
+        emit(phase="probes", kernel="probe_ring_read", storage=storage, ring=list(ring.shape),
+             tol=TOL[storage], **row, **card)
+        del ring, got, want
+    nb = 64
+    sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(dev)
+    for mname, mdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cs2, abt = mb.packed_stream_mats(n, mdt, dev)
+        tol = TOL["split" if mdt == torch.float32 else "bf16"]
+        for mode in pr_mod.PROBE_MODES:
+            got = pr_mod.probe_stream(sigpad, cs2, abt, mode)
+            want = pr_mod.probe_stream_reference(sigpad, cs2, abt, mode)
+            torch.cuda.synchronize()
+            if mode == "empty":
+                d = r = float(got.abs().max())
+                assert d == 0.0, f"probe_stream empty/{mname} wrote {d}"
+            else:
+                d, r = rel_err(got.cpu(), want.cpu())
+                assert r < tol, f"probe_stream {mode}/{mname}: rel err {r}"
+            row = {"max_abs_err": d, "rel_err": r, "blocks": nb,
+                   "ms": cuda_ms(lambda: pr_mod.probe_stream(sigpad, cs2, abt, mode), 5),
+                   "plain_ms": cuda_ms(lambda: pr_mod.probe_stream_reference(sigpad, cs2, abt, mode), 2)}
+            row["us_per_block"] = 1e3 * row["ms"] / nb
+            probe_sum["probe_stream"][f"{mode}/{mname}"] = row
+            emit(phase="probes", kernel="probe_stream", mode=mode, matrices=mname, tol=tol, **row, **card)
+    del sigpad, got, want
+    torch.cuda.empty_cache()
+
+    # the measurement path: the tools' own rows at 64 and 256 iterations/blocks
+    kernels.reset_launch_counts()
+    short = (64, 256)
+    meas = {}
+    for storage in ("split", "bf16"):
+        meas[f"dma_only/{storage}"] = roofline_cal.dma_only_row(storage, short)
+        meas[f"mac_kernel/{storage}"] = roofline_cal.mac_kernel_row(storage, short)
+    for mode, mats in (("empty", ("float32",)), ("win_fwd", ("float32", "bfloat16")),
+                       ("win_fwd_inv", ("float32", "bfloat16"))):
+        for mat in mats:
+            meas[f"{mode}/{mat}"] = {"us_per_block": fused_probe.probe_row(mode, mat, short)}
+    for key, (p_row, zero) in (("b3/split/P960", (P, False)), ("b3_zero_sched/split/P960", (P, True)),
+                               ("b3/split/P32", (32, False))):
+        meas[key] = {"us_per_block": fused_probe.b3_row("split", p_row, short, zero_sched=zero)}
+    torch.cuda.empty_cache()
+    for key, row in meas.items():
+        emit(phase="measurement", row=key, lengths=list(short), **row, **card)
+    read_window("measurement", ("probe_ring_read", "probe_stream", "fdl_mac", "fused_stream",
+                                "fused_stream_sched"))
+
+    # a torch.profiler trace of one process call (bench.profile.trace)
+    v = conv.Convolver(storage="split", device=dev)
+    v.filter(parts)
+    v.process(sig[:, :BLOCK])  # binds the 64 channels
+    x = sig[:, : 64 * BLOCK].contiguous()
+    with tempfile.TemporaryDirectory() as tmp:
+        with bench_profile.trace(tmp) as prof:
+            v.process(x)
+            torch.cuda.synchronize()
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    per_key = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        per_key[e.key] = float(us if us is not None else getattr(e, "self_cuda_time_total", 0.0))
+    dev_us = sum(per_key.values())
+    emit(phase="profile", entry="Convolver.process", storage="split", blocks=64, trace_bytes=trace_bytes,
+         device_time_us=dev_us, top=sorted(per_key.items(), key=lambda kv: -kv[1])[:4],
+         note=None if dev_us > 0 else "key_averages shows no device time; the times here are CUDA events",
+         **card)
+    del v, x, prof
+
+    # every kernel: bytes and operations, bound, share, one library call
+    gen = torch.Generator(dev).manual_seed(21)
+    lib = {}
+    ring = torch.randn((2, P, c, b), device=dev, generator=gen)
+    fr, fi = (torch.randn((P, 1, b), device=dev, generator=gen) for _ in range(2))
+    xc, fc = torch.complex(ring[0], ring[1]), torch.complex(fr[:, 0], fi[:, 0])
+    k_re, k_im = mac_mod.fdl_mac(ring, fr, fi)
+    ein = torch.einsum("pck,pk->ck", xc, fc)
+    lib["fdl_mac"] = {"library_ms": cuda_ms(lambda: torch.einsum("pck,pk->ck", xc, fc), 20),
+                      "library_call": "torch.einsum('pck,pk->ck') on complex64 (inputs built outside)",
+                      "library_rel_diff": rel_err(torch.cat([ein.real, ein.imag]).cpu(),
+                                                  torch.cat([k_re, k_im]).cpu())[1]}
+    m_dev = torch.from_numpy(masks["band30"][:, :b]).to(dev)
+    fcm = fc * m_dev
+    lib["sparse_fdl_mac"] = {"library_ms": cuda_ms(lambda: torch.einsum("pck,pk->ck", xc, fcm), 20),
+                             "library_call": "torch.einsum('pck,pk->ck') over the band30-masked filter "
+                                             "(dense: no sparse library call of this shape)"}
+    del ring, xc, fc, fcm, ein, k_re, k_im
+    p2n, kb = -(-P_REAL // S_NESTED), BLOCK + 1  # the nested meta ring [2, 8, 64, 513, 256]
+    planes = torch.randn((2, p2n, c, kb, 2 * S_NESTED), device=dev, generator=gen)
+    tre, tim = (torch.randn((p2n, kb, 2 * S_NESTED), device=dev, generator=gen) for _ in range(2))
+    pc_, tc_ = torch.complex(planes[0], planes[1]), torch.complex(tre, tim)
+    lib["nested_mac"] = {"library_ms": cuda_ms(lambda: torch.einsum("pckm,pkm->ckm", pc_, tc_), 10),
+                         "library_call": "torch.einsum('pckm,pkm->ckm') on complex64 (inputs built outside)"}
+    del planes, tre, tim, pc_, tc_
+    torch.cuda.empty_cache()
+    no_lib = "no single PyTorch call computes the fused block (DFT, ring insert, MAC, inverse DFT)"
+    for name in ("fused_block_step", "fused_stream", "fused_block_step_sched", "fused_stream_sched"):
+        lib[name] = {"library_ms": None, "library_note": no_lib}
+    lib["probe_ring_read"] = {"library_ms": None,
+                              "library_note": "a probe: no PyTorch call computes its two outputs"}
+    lib["probe_stream"] = {"library_ms": None,
+                           "library_note": "a probe: no single PyTorch call computes a window, packed DFT "
+                                           "and rounded tail-half inverse"}
+
+    prm_b30 = cv.filter_params(cv.PartitionedConfig(BLOCK, P, c, storage="split"), parts_pad,
+                               sparsity=masks["band30"], device="cpu")
+    k_tile, pc_t = mac_mod.choose_chunks(torch.float32, P, c, b)
+    live_b4, rows_b4 = headline.tile_live(prm_b30["sp_k_idx"][P - 1], prm_b30["sp_p_idx"][P - 1],
+                                          prm_b30["sp_flags"][P - 1], pc_t, k_tile, b)
+    pcf = fs_mod.fused_chunk_rows(torch.float32, P, c, b)
+    c_tabs = (prm_b30["sp_c_idx"].numpy(), prm_b30["sp_c_flags"].numpy())
+    live_b2 = headline.chunk_visits(*c_tabs, 3, 1, pcf, b)[2][0]
+    visits_b3 = headline.chunk_visits(*c_tabs, P - 5, 64, pcf, b)
+    works = {  # at the shapes the kernel ms were timed at (split; sparse: band30)
+        "fdl_mac": headline.fdl_mac_work("split", P, c, b),
+        "fused_block_step": headline.fused_block_step_work("split", P, c, b),
+        "fused_stream": headline.fused_stream_work("split", P, c, b, 64, pos0=P - 5),
+        "nested_mac": headline.nested_mac_work("split", p2n, c, kb, 2 * S_NESTED),
+        "sparse_fdl_mac": headline.sparse_fdl_mac_work("split", c, b, live_b4, rows_b4),
+        "fused_block_step_sched": headline.fused_block_step_work("split", P, c, b, live=live_b2),
+        "fused_stream_sched": headline.fused_stream_work("split", P, c, b, 64, pos0=P - 5, visits=visits_b3),
+        "probe_ring_read": headline.ring_read_work("split", P, c, b, probe_sum["probe_ring_read"]["split"]["p_chunk"]),
+        "probe_stream": headline.stream_probe_work(4, c, b, 64, "win_fwd_inv"),
+    }
+    kernel_ms = {
+        "fdl_mac": summary["fdl_mac"]["split"]["ms"],
+        "fused_block_step": summary["fused_block_step"]["split"]["ms"],
+        "fused_stream": summary["fused_stream"]["split"]["ms"],
+        "nested_mac": summary["nested_mac"]["nested"]["split"]["ms"],
+        "sparse_fdl_mac": sp_sum["sparse_fdl_mac"]["split/band30"]["shared"]["ms"],
+        "fused_block_step_sched": sp_sum["fused_block_step_sched"]["split/band30"]["ms"],
+        "fused_stream_sched": sp_sum["fused_stream_sched"]["split/band30"]["ms"],
+        "probe_ring_read": probe_sum["probe_ring_read"]["split"]["ms"],
+        "probe_stream": probe_sum["probe_stream"]["win_fwd_inv/float32"]["ms"],
+    }
+    bounds = {}
+    for name, work in works.items():
+        row = {"bytes": work.bytes, "flops": work.flops, "bound_ms": None, "bound_by": None,
+               "share_of_bound": None, "bound_note": no_peaks}
+        if no_peaks is None:
+            t, by = headline.bound(work, peak_b, peak_f)
+            row.update(bound_ms=1e3 * t, bound_by=by, share_of_bound=1e3 * t / kernel_ms[name])
+        bounds[name] = row | lib[name]
+    # B3 block by block: the ring read every block (bench.py's fused bytes model)
+    if no_peaks is None:
+        pb = headline.perblock_bytes(cv.PartitionedConfig(BLOCK, P, c, storage="split", fused=True), P,
+                                     fused=True)
+        t_blk = max(pb / peak_b, works["fused_stream"].flops / 64 / peak_f)
+        bounds["fused_stream"].update(block_by_block_bound_ms=64e3 * t_blk,
+                                      block_by_block_share=64e3 * t_blk / kernel_ms["fused_stream"])
+    for name, row in bounds.items():
+        emit(phase="bounds", kernel=name, ms=kernel_ms[name], **row, **card)
+
     # ---- 8. times: kernel route vs the plain torch route
     nbt, nbp = 256, 32
     sig_t = sig[:, : nbt * BLOCK].contiguous()
@@ -945,6 +1132,8 @@ def main() -> int:
         "sparse_fdl_mac": ("neojax_torch/csrc/sparse_mac.cu", "neojax/kernels/sparse_mac.py:246"),
         "fused_block_step_sched": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
         "fused_stream_sched": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
+        "probe_ring_read": ("neojax_torch/csrc/probes.cu", "tools/roofline_cal.py:143"),
+        "probe_stream": ("neojax_torch/csrc/probes.cu", "tools/fused_probe.py:116"),
     }
     by_storage = dict(summary)
     by_storage["fdl_mac"] = summary["fdl_mac"] | {"hybrid_head": summary["fdl_mac_head"]}
@@ -954,7 +1143,10 @@ def main() -> int:
     heads["sparse_fdl_mac"] = sp_sum["sparse_fdl_mac"]["split/band30"]["shared"]
     heads["fused_block_step_sched"] = sp_sum["fused_block_step_sched"]["split/band30"]
     heads["fused_stream_sched"] = sp_sum["fused_stream_sched"]["split/band30"]
+    heads["probe_ring_read"] = probe_sum["probe_ring_read"]["split"]
+    heads["probe_stream"] = probe_sum["probe_stream"]["win_fwd_inv/float32"]
     by_storage.update(sp_sum)
+    by_storage.update(probe_sum)
     rows = []
     for name, (src, repl) in sources.items():
         head = heads[name]
@@ -962,11 +1154,14 @@ def main() -> int:
                      "launches": sum(w[name] for w in windows.values()),
                      "launches_by_path": {path: w[name] for path, w in windows.items()},
                      "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+                     **bounds[name],
                      "storage": "split", "mask": "band30" if name in sp_sum else None,
                      "by_storage": by_storage[name]})
+    rows[-1]["mode"] = "win_fwd_inv, f32 matrices"  # probe_stream's head row
+    rows[-1]["replaces_also"] = "tools/fused_probe.py:65"
     emit(phase="summary", snr_db_vs_f64=snrs, engine_snr_db_vs_f64=engine_snrs,
          sparse_snr_db_vs_masked_f64=sparse_snrs, sparse_times=sparse_times, sparse_masks=mask_stats,
-         times=times,
+         times=times, measurement=meas,
          engine_times=engine_times, hybrid_stream_latency=stream_lat,
          total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv.overlap import stream_blocks, unstream_blocks
 from neojax_torch.conv.sparse import sparsity_mask
+from neojax_torch.core.device import resolve_device
 from neojax_torch.fft import api as fft_api
 from neojax_torch.fft import matmul_backend
 from neojax_torch.kernels.fdl_mac import choose_chunks, fdl_mac
@@ -184,8 +185,10 @@ def filter_params(config: PartitionedConfig, partitions, sparsity: Any = None,
     bool`` or a boolean keep-mask broadcastable to the filter; dropped bins
     are zeroed and the mask is kept as ``params["mask"]``. Ring configs of a
     split-plane storage also get the tile schedules of
-    :func:`_schedule_params` (neojax's ``sp_*`` keys).
+    :func:`_schedule_params` (neojax's ``sp_*`` keys). ``device`` None
+    means the card (``core.device.resolve_device``).
     """
+    device = resolve_device(device)
     filt = _canon_partitions(config, _host(partitions)).astype(np.complex64)
 
     mask = None
@@ -288,6 +291,8 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
 
 
 def init_state(config: PartitionedConfig, device=None) -> dict:
+    """Zero stream state on ``device`` (None: the card)."""
+    device = resolve_device(device)
     state = {
         "tail": torch.zeros((config.channels, config.block_size), dtype=torch.float32, device=device),
     }
@@ -605,7 +610,8 @@ def process(config: PartitionedConfig, params: dict, state: dict, signal: torch.
 class Convolver:
     """Stateful wrapper mirroring the reference's ergonomics
     (``convolver.filter(partitions); convolver(block)``) over the
-    functional core, on one ``device``."""
+    functional core, on one ``device`` (None: the card; ``"cpu"`` runs the
+    kernels' plain versions)."""
 
     def __init__(
         self,
@@ -615,7 +621,7 @@ class Convolver:
         require_sparsity: bool = False,
         device=None,
     ):
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         if storage is None:
             # complex64 is the CPU convenience; the split (planar re/im
             # float) storage is the kernels' native layout.

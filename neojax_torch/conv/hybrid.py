@@ -46,6 +46,7 @@ from neojax_torch.conv import convolver as cv
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv import nested as nested_lib
 from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host
+from neojax_torch.core.device import resolve_device
 from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels.fdl_mac import fdl_mac
 from neojax_torch.kernels.fused_step import MATRIX_DTYPES, MAX_BLOCK, fused_stream
@@ -96,8 +97,10 @@ def hybrid_filter_params(config: PartitionedConfig, partitions, chunk_blocks: in
     """Split the partitioned filter into head (< S) and tail (>= S) params.
 
     ``partitions``: [P, K], [1, P, K] or [C, P, K] complex spectra.
-    ``chunk_blocks`` (S): head depth = tail scheduling period.
+    ``chunk_blocks`` (S): head depth = tail scheduling period. ``device``
+    None means the card.
     """
+    device = resolve_device(device)
     s = chunk_blocks
     filt = _canon_partitions(config, _host(partitions)).astype(np.complex64)
     p = filt.shape[0]

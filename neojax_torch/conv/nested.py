@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host
+from neojax_torch.core.device import resolve_device
 from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels.nested_mac import nested_mac
 from neojax_torch.ops.quantize import int_max_for
@@ -68,8 +69,9 @@ def nested_filter_params(config: PartitionedConfig, partitions, chunk_blocks: in
     Shared ([1, P, K] / [P, K]) or per-channel ([C, P, K]) filters.
     ``mask``: optional boolean keep-mask ([P, K] or [C|1, P, K]); dropped
     bins are zeroed. The bf16 storage keeps a bf16 filter, as the JAX
-    package does.
+    package does. ``device`` None means the card.
     """
+    device = resolve_device(device)
     filt = _canon_partitions(config, _host(partitions)).astype(np.complex64)
     if mask is not None:
         m = np.asarray(_host(mask), bool)

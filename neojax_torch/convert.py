@@ -14,6 +14,10 @@ A sparse filter's ``mask`` and ``sp_*`` schedule tables carry over as they
 are (int32 tables, bool ``mask`` and ``sp_lane``): the port builds the same
 tables and its kernels read them.
 
+Like the other entry points, each ``*_from_neojax`` puts its tensors on the
+card unless given ``device`` (``"cpu"`` for the kernels' plain versions),
+and raises without a card rather than fall back to the CPU.
+
 Inputs are numpy arrays (``np.asarray`` of the JAX arrays). bfloat16 arrays
 may arrive as numpy's ``bfloat16`` extension dtype or as float32 holding
 bf16 values; :func:`state_to_numpy` returns bf16 planes as float32 (an exact
@@ -31,6 +35,7 @@ from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv import hybrid as hybrid_lib
 from neojax_torch.conv import nested as nested_lib
 from neojax_torch.conv.convolver import PartitionedConfig
+from neojax_torch.core.device import resolve_device
 
 __all__ = [
     "params_from_neojax",
@@ -56,6 +61,7 @@ def _tensor(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
 
 def params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) -> dict:
     """neojax ``filter_params`` output (as numpy) -> this package's params."""
+    device = resolve_device(device)
     params = {}
     for key, value in params_np.items():
         if key.startswith("sp_"):
@@ -72,12 +78,13 @@ def params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) 
 def state_from_neojax(config: PartitionedConfig, state_np: dict, device=None) -> dict:
     """neojax ``init_state``/``step``/``process`` state (as numpy) -> this
     package's state on ``device``."""
-    return _state_dict(state_np, device, {"fdl": fdl_lib.STORAGE_DTYPES[config.storage]})
+    return _state_dict(state_np, resolve_device(device), {"fdl": fdl_lib.STORAGE_DTYPES[config.storage]})
 
 
 def nested_params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) -> dict:
     """neojax ``nested_filter_params`` output (as numpy) -> this package's
     (the bf16 storage keeps a bf16 filter)."""
+    device = resolve_device(device)
     dtype = torch.bfloat16 if config.storage == "bf16" else torch.float32
     return {key: _tensor(value, device, dtype) for key, value in params_np.items()}
 
@@ -86,13 +93,14 @@ def nested_state_from_neojax(config: PartitionedConfig, state_np: dict, device=N
     """neojax ``nested_init_state``/``process_nested`` state (as numpy) ->
     this package's state on ``device``."""
     dtypes = {"fdl": nested_lib._storage_dtype(config), "prev": nested_lib._prev_dtype(config)}
-    return _state_dict(state_np, device, dtypes)
+    return _state_dict(state_np, resolve_device(device), dtypes)
 
 
 def hybrid_params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) -> dict:
     """neojax ``hybrid_filter_params`` output (as numpy) -> this package's:
     ``head_packed`` as the convolver's params (``filt_rim8`` -> ``filt_rim``;
     the head has no mask), ``tail`` as the nested engine's."""
+    device = resolve_device(device)
     s = np.asarray(params_np["head_re"]).shape[0] // 2
     params = {}
     for key, value in params_np.items():
@@ -117,7 +125,7 @@ def hybrid_state_from_neojax(config: PartitionedConfig, state_np: dict, device=N
         "meta_fdl": nested_lib._storage_dtype(config),
         "prev_spec": nested_lib._prev_dtype(config),
     }
-    state = _state_dict(state_np, device, dtypes)
+    state = _state_dict(state_np, resolve_device(device), dtypes)
     if isinstance(state["head_fdl"], tuple):
         planes, scales = state["head_fdl"]
         state["head_fdl"] = (planes, scales[:, : config.channels].contiguous())

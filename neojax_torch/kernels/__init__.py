@@ -2,8 +2,9 @@
 version: B1 ``fdl_mac.fdl_mac``, B2 ``fused_step.fused_block_step``, B3
 ``fused_step.fused_stream`` (the per-block convolver and the hybrid head;
 both with the sparse chunk schedule), B4 ``sparse_mac.sparse_fdl_mac`` (the
-unfused sparse MAC) and B5 ``nested_mac.nested_mac`` (the nested engine and
-the hybrid tail). Nothing is compiled at import time.
+unfused sparse MAC), B5 ``nested_mac.nested_mac`` (the nested engine and
+the hybrid tail), and the measurement probes T1 ``probes.probe_ring_read``
+and T2 ``probes.probe_stream``. Nothing is compiled at import time.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``fdl_mac.fdl_mac.launches``); B2 and B3 also count, in
@@ -13,12 +14,14 @@ counts nothing."""
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
 from neojax_torch.kernels import fused_step as _fused_step_mod
 from neojax_torch.kernels import nested_mac as _nested_mac_mod
+from neojax_torch.kernels import probes as _probes_mod
 from neojax_torch.kernels import sparse_mac as _sparse_mac_mod
 
 
 def _wrappers():
     return (_fdl_mac_mod.fdl_mac, _fused_step_mod.fused_block_step, _fused_step_mod.fused_stream,
-            _sparse_mac_mod.sparse_fdl_mac, _nested_mac_mod.nested_mac)
+            _sparse_mac_mod.sparse_fdl_mac, _nested_mac_mod.nested_mac,
+            _probes_mod.probe_ring_read, _probes_mod.probe_stream)
 
 
 def _sched_wrappers():

@@ -58,6 +58,10 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _P],
     # storage, planes, scales, filt_re, filt_im, acc_re, acc_im, P2, C, K, L, G, stream
     "neo_nested_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # storage, fdl, fr, out0, out1, P, C, K, pc, stream
+    "neo_probe_ring_read": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # mat_bf16, mode, sigpad, cs, abt, out, C, B, nb, stream
+    "neo_probe_stream": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

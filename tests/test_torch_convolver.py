@@ -70,8 +70,8 @@ def _jax_process(cfg, parts, sig):
 
 
 def _torch_process(cfg, parts, sig):
-    params = tcv.filter_params(cfg, parts)
-    _, out = tcv.process(cfg, params, tcv.init_state(cfg), torch.from_numpy(sig))
+    params = tcv.filter_params(cfg, parts, device="cpu")
+    _, out = tcv.process(cfg, params, tcv.init_state(cfg, device="cpu"), torch.from_numpy(sig))
     return out.numpy()
 
 
@@ -101,9 +101,9 @@ def test_process_matches_neojax_fused(fused_interpret, rng, storage, scheme):
 def _stream(scheme, storage, sig, sparsity=None):
     parts = tconv.uniform_partition(_load("in_ir.npy"), 128)
     if sparsity is None:
-        c = tconv.make_convolver(scheme, storage)
+        c = tconv.make_convolver(scheme, storage, device="cpu")
     else:
-        c = tconv.sparse_upols_convolver(sparsity=sparsity)
+        c = tconv.sparse_upols_convolver(sparsity=sparsity, device="cpu")
     c.filter(parts)
     return c.process(sig.astype(np.float32)).numpy()
 
@@ -140,11 +140,11 @@ def test_golden_quantized(storage, tol_ref, tol_exact):
 def test_fifo_flush_equals_delayed_process(rng, storage):
     parts = _parts(rng)
     sig = rng.uniform(-1, 1, (C, 5 * B + 7)).astype(np.float32)
-    ref_c = tconv.make_convolver("upols", storage)
+    ref_c = tconv.make_convolver("upols", storage, device="cpu")
     ref_c.filter(parts)
     ref = ref_c.process(sig).numpy()
 
-    c = tconv.make_convolver("upols", storage)
+    c = tconv.make_convolver("upols", storage, device="cpu")
     c.filter(parts)
     outs, off = [], 0
     for n in (5, 40, 1, 0, 64, 33, 7, 100):
@@ -165,10 +165,10 @@ def test_exact_blocks_equal_process(rng, storage):
     route) equals the whole-stream ``process`` (B3)."""
     parts = _parts(rng)
     sig = rng.uniform(-1, 1, (C, 6 * B)).astype(np.float32)
-    a = tconv.make_convolver("upols", storage)
+    a = tconv.make_convolver("upols", storage, device="cpu")
     a.filter(parts)
     blocks = np.concatenate([a(sig[:, i * B : (i + 1) * B]).numpy() for i in range(6)], axis=-1)
-    b = tconv.make_convolver("upols", storage)
+    b = tconv.make_convolver("upols", storage, device="cpu")
     b.filter(parts)
     assert _rel(blocks, b.process(sig).numpy()) < _TOL[storage]
     assert a.latency == 0
@@ -179,22 +179,22 @@ def test_upola_equals_upols_and_mono_binding(rng):
     sig = rng.uniform(-1, 1, (3, 5 * B)).astype(np.float32)
     outs = []
     for make in (tconv.split_upols_convolver, tconv.split_upola_convolver, tconv.upola_convolver_v2):
-        c = make()
+        c = make(device="cpu")
         c.filter(parts)  # mono filter, bound to 3 channels at first use
         outs.append(c.process(sig).numpy())
     assert outs[0].shape == sig.shape
     assert _rel(outs[1], outs[0]) < 2e-5 and _rel(outs[2], outs[0]) < 2e-5
-    mono = tconv.upols_convolver()
+    mono = tconv.upols_convolver(device="cpu")
     mono.filter(parts)
     assert mono.process(sig[0]).shape == (5 * B,)
 
 
 def test_convolver_errors(rng):
-    c = tconv.upols_convolver()
+    c = tconv.upols_convolver(device="cpu")
     with pytest.raises(RuntimeError):
         c.process(np.zeros((1, B), np.float32))
     with pytest.raises(ValueError):
-        tconv.sparse_upols_convolver().filter(_parts(rng))
+        tconv.sparse_upols_convolver(device="cpu").filter(_parts(rng))
     c.filter(_parts(rng, cf=2))
     with pytest.raises(ValueError):
         c.process(np.zeros((3, B), np.float32))
@@ -207,7 +207,7 @@ def test_convolver_errors(rng):
 
 
 def test_filter_pads_partitions_and_default_storage():
-    c = tconv.Convolver()
+    c = tconv.Convolver(device="cpu")
     assert c._storage == "dense"
     c.filter(np.zeros((1, 938, 513), np.complex64))
     assert c.config.num_partitions == 960
@@ -217,8 +217,8 @@ def test_filter_pads_partitions_and_default_storage():
 
 def test_process_updates_ring_in_place(rng):
     cfg = tcv.PartitionedConfig(B, P, C, storage="int8")
-    params = tcv.filter_params(cfg, _parts(rng))
-    state = tcv.init_state(cfg)
+    params = tcv.filter_params(cfg, _parts(rng), device="cpu")
+    state = tcv.init_state(cfg, device="cpu")
     planes, scales = state["fdl"]
     dcny = state["dcny"]
     new, _ = tcv.process(cfg, params, state, torch.from_numpy(rng.uniform(-1, 1, (C, 3 * B)).astype(np.float32)))
@@ -242,9 +242,9 @@ def test_convert_continues_a_neojax_stream(rng, storage, scheme):
     tcfg = tcv.PartitionedConfig(B, P, C, scheme=scheme, storage=storage)
     params_np = jax.tree_util.tree_map(np.asarray, jparams)
     state_np = jax.tree_util.tree_map(np.asarray, jstate)
-    tparams = convert.params_from_neojax(tcfg, params_np)
+    tparams = convert.params_from_neojax(tcfg, params_np, device="cpu")
     assert "filt_rim8" not in tparams and tparams["filt_rim"].shape == (2 * P, 1, 2 * B)
-    tstate = convert.state_from_neojax(tcfg, state_np)
+    tstate = convert.state_from_neojax(tcfg, state_np, device="cpu")
     assert tstate["pos"] == k
     tstate, tail = tcv.process(tcfg, tparams, tstate, torch.from_numpy(sig[:, k * B :]))
     got = np.concatenate([np.asarray(head), tail.numpy()], axis=-1)
@@ -257,10 +257,10 @@ def test_convert_continues_a_neojax_stream(rng, storage, scheme):
 
 def test_convert_round_trip_state(rng):
     cfg = tcv.PartitionedConfig(B, P, C, storage="bf16")
-    state = tcv.init_state(cfg)
+    state = tcv.init_state(cfg, device="cpu")
     state["fdl"].copy_(torch.from_numpy(rng.standard_normal((2, P, C, B)).astype(np.float32)))
     state["pos"] = 2
-    again = convert.state_from_neojax(cfg, convert.state_to_numpy(state))
+    again = convert.state_from_neojax(cfg, convert.state_to_numpy(state), device="cpu")
     assert again["pos"] == 2 and again["fdl"].dtype == torch.bfloat16
     assert torch.equal(again["fdl"], state["fdl"])
 

@@ -392,3 +392,40 @@ def test_sparse_convolver_cuda_route_matches_cpu_route(cuda, rng, monkeypatch, s
     assert counts[want] > 0 and counts["fdl_mac"] == 0
     assert _rel(outs[1], outs[0]) < max(_TOL[storage], 1e-5)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,c,k", [(24, 3, 200), (960, 2, 512), (5, 1, 7)])
+def test_probe_ring_read_kernel_matches_plain(cuda, rng, dt, p, c, k):
+    from neojax_torch.kernels import probes
+
+    fdl = torch.from_numpy(rng.standard_normal((2, p, c, k)).astype(np.float32)).to(cuda, dt)
+    fr = torch.from_numpy(rng.standard_normal((p, k)).astype(np.float32)).to(cuda)
+    _, pc = mac.choose_chunks(dt, p, c, k)
+    before = probes.probe_ring_read.launches
+    got = probes.probe_ring_read(fdl, fr, pc)
+    want = probes.probe_ring_read_reference(fdl, fr, pc)
+    torch.cuda.synchronize()
+    assert probes.probe_ring_read.launches == before + 1
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 2e-5  # f32 sums of exact (bf16 or f32) values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["empty", "win_fwd", "win_fwd_inv"])
+@pytest.mark.parametrize("c,b,nb", [(3, 64, 5), (2, 1024, 3)])
+def test_probe_stream_kernel_matches_plain(cuda, rng, dt, mode, c, b, nb):
+    from neojax_torch.kernels import probes
+
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(cuda)
+    cs, abt = mb.packed_stream_mats(2 * b, dt, cuda)
+    before = probes.probe_stream.launches
+    got = probes.probe_stream(sig, cs, abt, mode)
+    want = probes.probe_stream_reference(sig, cs, abt, mode)
+    torch.cuda.synchronize()
+    assert probes.probe_stream.launches == before + 1
+    if mode == "empty":
+        assert not got.any()
+    else:
+        assert _rel(got, want) < (_TOL["split"] if dt == torch.float32 else _TOL["bf16"])

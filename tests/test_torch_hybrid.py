@@ -85,7 +85,7 @@ def _jax_hybrid(storage, parts, sig, fused, mac_backend="xla"):
 
 def _torch_hybrid(storage, parts, sig, fused, **kw):
     cfg = tcv.PartitionedConfig(B, P, C, storage=storage, **kw)
-    params = thy.hybrid_filter_params(cfg, parts, S)
+    params = thy.hybrid_filter_params(cfg, parts, S, device="cpu")
     if not fused:
         params = _unfused(params)
     state = thy.hybrid_init_state(cfg, params)
@@ -148,7 +148,7 @@ def test_hybrid_head_only_and_state_carry(rng):
     parts = _parts(rng, p=3)
     sig = rng.uniform(-1, 1, (C, 3 * S * B)).astype(np.float32)
     cfg = tcv.PartitionedConfig(B, 3, C, storage="split")
-    params = thy.hybrid_filter_params(cfg, parts, S)
+    params = thy.hybrid_filter_params(cfg, parts, S, device="cpu")
     assert "tail" not in params
     state = thy.hybrid_init_state(cfg, params)
     assert "meta_fdl" not in state
@@ -159,7 +159,7 @@ def test_hybrid_head_only_and_state_carry(rng):
     assert _rel(out.numpy(), np.asarray(ref)) < _TOL["split"]
 
     cfg = tcv.PartitionedConfig(B, P, C, storage="int8")
-    params = thy.hybrid_filter_params(cfg, _parts(rng), S)
+    params = thy.hybrid_filter_params(cfg, _parts(rng), S, device="cpu")
     sig = rng.uniform(-1, 1, (C, 6 * S * B)).astype(np.float32)
     _, full = thy.process_hybrid(cfg, params, thy.hybrid_init_state(cfg, params), torch.from_numpy(sig))
     st = thy.hybrid_init_state(cfg, params)
@@ -175,7 +175,7 @@ def test_hybrid_stream_matches_process(rng, storage):
     parts = _parts(rng)
     sig = rng.uniform(-1, 1, (C, 5 * S * B)).astype(np.float32)
     cfg = tcv.PartitionedConfig(B, P, C, storage=storage)
-    params = thy.hybrid_filter_params(cfg, parts, S)
+    params = thy.hybrid_filter_params(cfg, parts, S, device="cpu")
     _, ref = thy.process_hybrid(cfg, _unfused(params), thy.hybrid_init_state(cfg, _unfused(params)),
                                 torch.from_numpy(sig))
     stream = thy.HybridStream(cfg, params)
@@ -195,7 +195,7 @@ def test_hybrid_stream_state_matches_neojax_layout(rng):
     jcfg = jcv.PartitionedConfig(B, P, C, storage="int8")
     jstream = jhy.HybridStream(jcfg, _unfused(jhy.hybrid_filter_params(jcfg, parts, S)))
     tcfg = tcv.PartitionedConfig(B, P, C, storage="int8")
-    tstream = thy.HybridStream(tcfg, thy.hybrid_filter_params(tcfg, parts, S))
+    tstream = thy.HybridStream(tcfg, thy.hybrid_filter_params(tcfg, parts, S, device="cpu"))
     for i in range(6):
         jo = np.asarray(jstream(sig[:, i * B : (i + 1) * B]))
         to = tstream(sig[:, i * B : (i + 1) * B]).numpy()
@@ -231,13 +231,14 @@ def test_convert_continues_a_neojax_hybrid_stream(rng, storage, fused):
         jfs._INTERPRET = False
         jax.clear_caches()
     tcfg = tcv.PartitionedConfig(B, P, C, storage=storage)
-    tparams = convert.hybrid_params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = convert.hybrid_params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams),
+                                               device="cpu")
     assert ("head_packed" in tparams) == fused
     if fused:
         assert "filt_rim8" not in tparams["head_packed"]
         assert tparams["head_packed"]["filt_rim"].shape == (2 * S, 1, 2 * B)
     state_np = jax.tree_util.tree_map(np.asarray, jstate)
-    tstate = convert.hybrid_state_from_neojax(tcfg, state_np)
+    tstate = convert.hybrid_state_from_neojax(tcfg, state_np, device="cpu")
     assert ("head_dcny" in tstate) == fused and tstate["meta_pos"] == k % 4
     tstate, tail = thy.process_hybrid(tcfg, tparams, tstate, torch.from_numpy(sig[:, k * S * B :]))
     got = np.concatenate([np.asarray(head), tail.numpy()], axis=-1)

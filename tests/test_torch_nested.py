@@ -62,7 +62,7 @@ def _jax_nested(jcfg, parts, sig, s=S, **kw):
 
 
 def _torch_nested(tcfg, parts, sig, s=S, **kw):
-    params = tnested.nested_filter_params(tcfg, parts, s, **kw)
+    params = tnested.nested_filter_params(tcfg, parts, s, **kw, device="cpu")
     state, out = tnested.process_nested(tcfg, params, tnested.nested_init_state(tcfg, params),
                                         torch.from_numpy(sig))
     return params, state, out.numpy()
@@ -175,7 +175,7 @@ def test_process_nested_state_carries_across_calls(rng):
     parts = _parts(rng)
     sig = rng.uniform(-1, 1, (C, 16 * B)).astype(np.float32)
     cfg = tcv.PartitionedConfig(B, P, C, storage="int8")
-    params = tnested.nested_filter_params(cfg, parts, S)
+    params = tnested.nested_filter_params(cfg, parts, S, device="cpu")
     _, full = tnested.process_nested(cfg, params, tnested.nested_init_state(cfg, params),
                                      torch.from_numpy(sig))
     st = tnested.nested_init_state(cfg, params)
@@ -210,9 +210,10 @@ def test_convert_continues_a_neojax_nested_stream(rng, storage):
     jstate, head = jnested.process_nested(jcfg, jparams, jnested.nested_init_state(jcfg, jparams),
                                           jnp.asarray(sig[:, : k * S * B]))
     tcfg = tcv.PartitionedConfig(B, P, C, storage=storage)
-    tparams = convert.nested_params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = convert.nested_params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams),
+                                               device="cpu")
     state_np = jax.tree_util.tree_map(np.asarray, jstate)
-    tstate = convert.nested_state_from_neojax(tcfg, state_np)
+    tstate = convert.nested_state_from_neojax(tcfg, state_np, device="cpu")
     assert tstate["pos"] == k and tstate["prev"].dtype == tnested._prev_dtype(tcfg)
     tstate, tail = tnested.process_nested(tcfg, tparams, tstate, torch.from_numpy(sig[:, k * S * B :]))
     got = np.concatenate([np.asarray(head), tail.numpy()], axis=-1)

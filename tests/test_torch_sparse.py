@@ -115,7 +115,7 @@ def test_filter_params_sp_tables_match_neojax(rng, storage, packed, cf):
     parts = _parts(rng, p, b, cf)
     mask = _lane_mask(p, b + 1) & (rng.random((cf, p, b + 1)) < 0.9)
     jp = jcv.filter_params(jcv.PartitionedConfig(b, p, c, storage=storage, packed=packed), parts, sparsity=mask)
-    tp = tcv.filter_params(tcv.PartitionedConfig(b, p, c, storage=storage, packed=packed), parts, sparsity=mask)
+    tp = tcv.filter_params(tcv.PartitionedConfig(b, p, c, storage=storage, packed=packed), parts, sparsity=mask, device="cpu")
     want_keys = _SP_KEYS | ({"sp_c_idx", "sp_c_flags"} if packed else set())
     assert {key for key in tp if key.startswith("sp_")} == want_keys
     assert {key for key in jp if key.startswith("sp_")} == want_keys
@@ -128,7 +128,7 @@ def test_dense_storage_and_shift_layout_get_no_schedule(rng):
     parts = _parts(rng, 8, 32)
     mask = _band_mask(8, 33)
     for cfg in (tcv.PartitionedConfig(32, 8, 2), tcv.PartitionedConfig(32, 8, 2, storage="split", layout="shift")):
-        params = tcv.filter_params(cfg, parts, sparsity=mask)
+        params = tcv.filter_params(cfg, parts, sparsity=mask, device="cpu")
         assert "mask" in params and not any(key.startswith("sp_") for key in params)
 
 
@@ -137,8 +137,8 @@ def _process_both(cfg_kw, parts, mask, sig):
     tcfg = tcv.PartitionedConfig(**cfg_kw)
     _, jout = jcv.process(jcfg, jcv.filter_params(jcfg, parts, sparsity=mask), jcv.init_state(jcfg),
                           jnp.asarray(sig))
-    tparams = tcv.filter_params(tcfg, parts, sparsity=mask)
-    _, tout = tcv.process(tcfg, tparams, tcv.init_state(tcfg), torch.from_numpy(sig))
+    tparams = tcv.filter_params(tcfg, parts, sparsity=mask, device="cpu")
+    _, tout = tcv.process(tcfg, tparams, tcv.init_state(tcfg, device="cpu"), torch.from_numpy(sig))
     return tout.numpy(), np.asarray(jout), tparams
 
 
@@ -193,8 +193,8 @@ def test_step_masked_matches_neojax_unfused(rng, monkeypatch, storage, packed):
     kw = dict(block_size=b, num_partitions=p, channels=c, storage=storage, fused=False, packed=packed)
     jcfg, tcfg = jcv.PartitionedConfig(**kw), tcv.PartitionedConfig(**kw)
     jparams = jcv.filter_params(jcfg, parts, sparsity=mask)
-    tparams = tcv.filter_params(tcfg, parts, sparsity=mask)
-    jstate, tstate = jcv.init_state(jcfg), tcv.init_state(tcfg)
+    tparams = tcv.filter_params(tcfg, parts, sparsity=mask, device="cpu")
+    jstate, tstate = jcv.init_state(jcfg), tcv.init_state(tcfg, device="cpu")
     outs_j, outs_t = [], []
     for i in range(20):
         blk = sig[:, i * b : (i + 1) * b]
@@ -209,7 +209,7 @@ def test_step_masked_matches_neojax_unfused(rng, monkeypatch, storage, packed):
 
 def test_unpacked_masked_ring_is_never_fused(rng):
     cfg = tcv.PartitionedConfig(64, 8, 2, storage="split", packed=False)
-    params = tcv.filter_params(cfg, _parts(rng, 8, 64), sparsity=_band_mask(8, 65))
+    params = tcv.filter_params(cfg, _parts(rng, 8, 64), sparsity=_band_mask(8, 65), device="cpu")
     assert "sp_k_idx" in params and "sp_c_idx" not in params
     assert not tcv._use_fused(cfg, params)
     assert tcv._use_fused(tcv.PartitionedConfig(64, 8, 2, storage="split"), {})
@@ -226,12 +226,12 @@ def test_convolver_rebuilds_the_schedule_for_its_channels(small_chunks, rng, sto
     mask = _band_mask(p, b + 1)
     sig = rng.uniform(-1, 1, (c, 12 * b)).astype(np.float32)
     tfs._CHUNK_TARGET = jfs._CHUNK_TARGET = 2 * 1 * b * 4 * 16  # C=1: 16 rows; C=4: 8 rows (f32)
-    conv = tconv.sparse_upols_convolver(sparsity=mask, storage=storage)
+    conv = tconv.sparse_upols_convolver(sparsity=mask, storage=storage, device="cpu")
     conv.filter(parts)
     assert conv.config.channels == 1
     out = conv.process(sig).numpy()
     assert conv.config.channels == c
-    want_params = tcv.filter_params(tcv.PartitionedConfig(b, p, c, storage=storage), parts, sparsity=mask)
+    want_params = tcv.filter_params(tcv.PartitionedConfig(b, p, c, storage=storage), parts, sparsity=mask, device="cpu")
     for key in ("sp_c_idx", "sp_c_flags", "sp_k_idx", "sp_p_idx", "sp_flags", "sp_lane"):
         assert torch.equal(conv.params[key], want_params[key]), key
     kw = dict(block_size=b, num_partitions=p, channels=c, storage=storage, fused=True)
@@ -244,7 +244,7 @@ def test_golden_sparse_upols_split():
     """``ref_sparse_upols_b128`` (every third bin dropped) through the split
     storage: B3 with the chunk schedule, within 1e-5 absolute."""
     parts = tconv.uniform_partition(np.load(os.path.join(GOLD, "in_ir.npy")), 128)
-    c = tconv.sparse_upols_convolver(sparsity=lambda row, col, value: (col % 3) != 0, storage="split")
+    c = tconv.sparse_upols_convolver(sparsity=lambda row, col, value: (col % 3) != 0, storage="split", device="cpu")
     c.filter(parts)
     assert c.config.storage == "split" and "sp_c_idx" in c.params
     out = c.process(np.load(os.path.join(GOLD, "in_sig.npy")).astype(np.float32)).numpy()
@@ -266,13 +266,13 @@ def test_convert_continues_a_masked_neojax_stream(small_chunks, rng, storage):
     jstate, head = jcv.process(jcfg, jparams, jcv.init_state(jcfg), jnp.asarray(sig[:, : k * b]))
 
     tcfg = tcv.PartitionedConfig(b, p, c, storage=storage, fused=True)
-    tparams = convert.params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams))
-    own = tcv.filter_params(tcfg, parts, sparsity=mask)
+    tparams = convert.params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    own = tcv.filter_params(tcfg, parts, sparsity=mask, device="cpu")
     assert {key for key in tparams if key.startswith("sp_")} == _SP_KEYS | {"sp_c_idx", "sp_c_flags"}
     for key in own:
         if key.startswith("sp_") or key == "mask":
             assert tparams[key].dtype == own[key].dtype and torch.equal(tparams[key], own[key]), key
-    tstate = convert.state_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jstate))
+    tstate = convert.state_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
     tstate, tail = tcv.process(tcfg, tparams, tstate, torch.from_numpy(sig[:, k * b :]))
     got = np.concatenate([np.asarray(head), tail.numpy()], axis=-1)
     assert _rel(got, np.asarray(full)) < _TOL[storage]
