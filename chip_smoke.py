@@ -26,7 +26,12 @@ Phases, each printing one JSON object per line:
      at the nested and hybrid shapes: B5 on both meta rings (all four
      storages, two ring positions), B3 with ``acc_add`` on the hybrid head
      (P = 64, split and int16, from 5 rows before the wrap) and B1 on the
-     unfused head's K = 513 bins (P = 64, split and int16)
+     unfused head's K = 513 bins (P = 64, split and int16). B2 and B3 run
+     as stage kernels (``kernels.fused_step.stage_wrappers``): each row of
+     theirs also prints its device time by stage (``stages_us``, from the
+     call's kernel timeline), and each stage kernel is held against its
+     plain version on B3's window of 64 blocks and B2's block
+     (``stage_vs_plain``; the schedule's width table in 3c)
  3c. the sparse kernels at the headline shapes, all four storages and both
      masks: B4 on the packed K = 512 ring (shared and per-channel filter,
      three positions) and on a non-packed K = 513 ring (split, int16), B2
@@ -78,7 +83,8 @@ Phases, each printing one JSON object per line:
 Launch counters are zeroed right before each main path (phases 4+5, 5b,
 the nested and the hybrid halves of 6, 7, and 7b's measurement path) and
 read right after it; each kernel of that path must have launched in its
-window (B2 and B3 with the chunk schedule counted apart).
+window (B2 and B3 with the chunk schedule counted apart, and each of their
+stage kernels by its own count).
 """
 
 from __future__ import annotations
@@ -204,10 +210,35 @@ def main() -> int:
         ev1.synchronize()
         return ev0.elapsed_time(ev1) / reps
 
+    # B2/B3 run as stage kernels: a call's device time by stage, from its
+    # kernel timeline (the transform kernels name forward and inverse apart)
+    stage_of = {"quantize_kernel": "quantize_rows", "writeback_kernel": "ring_writeback",
+                "stream_mac_kernel": "stream_mac", "step_mac_kernel": "step_mac",
+                "step_reduce_kernel": "step_reduce", "widths_kernel": "sched_widths"}
+
+    def stage_us(fn) -> dict:
+        """Device µs by stage of one call of fn: the median over three
+        profiled calls (a trace may miss a kernel)."""
+        fn()
+        per_call = []
+        for timeline in bench_profile.kernel_timeline(fn, 3):
+            call = {}
+            for name, us in timeline:
+                if "gemm_" in name or "split_sum" in name:
+                    label = "window_inverse" if "<true>" in name else "window_forward"
+                else:
+                    label = next((v for k, v in stage_of.items() if k in name), None)
+                if label:
+                    call[label] = call.get(label, 0.0) + us
+            per_call.append(call)
+        labels = {k for call in per_call for k in call}
+        return {k: float(np.median([call[k] for call in per_call if k in call])) for k in sorted(labels)}
+
     # ---- 3. each kernel against its plain version at the headline shapes
     rng = np.random.default_rng(7)
     c, b, n = CHANNELS, BLOCK, 2 * BLOCK
     summary = {"fdl_mac": {}, "fused_block_step": {}, "fused_stream": {}, "nested_mac": {}}
+    stages = {f.__name__: {} for f in fs_mod.stage_wrappers()}  # B2/B3's stage kernels
 
     def ring_inputs(storage):
         sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
@@ -274,7 +305,9 @@ def main() -> int:
         step_ms = cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl), 20)
         step_plain = cuda_ms(lambda: fs_mod.fused_block_step_reference(frame, p_ring, rim, 3, dcfix, cs, ab, p_scl), 3)
         summary["fused_block_step"][storage] = {"max_abs_err": worst[0], "rel_err": worst[1],
-                                                "ms": step_ms, "plain_ms": step_plain}
+                                                "ms": step_ms, "plain_ms": step_plain,
+                                                "stages_us": stage_us(lambda: fs_mod.fused_block_step(
+                                                    frame, k_ring, rim, 3, dcfix, cs, ab, k_scl))}
         emit(phase="kernel_vs_plain", kernel="fused_block_step", storage=storage, tol=TOL[storage],
              positions=[0, P // 2, P - 1], **summary["fused_block_step"][storage], **card)
 
@@ -294,10 +327,57 @@ def main() -> int:
         check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream {storage}")
         s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl), 3)
         s_plain = cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2, abt, p_scl), 1)
+        b3_stages = stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl))
         summary["fused_stream"][storage] = {"max_abs_err": d, "rel_err": r, "ms": s_ms, "plain_ms": s_plain,
-                                            "blocks": nb, "us_per_block": 1e3 * s_ms / nb}
+                                            "blocks": nb, "us_per_block": 1e3 * s_ms / nb, "stages_us": b3_stages}
         emit(phase="kernel_vs_plain", kernel="fused_stream", storage=storage, tol=TOL[storage],
              pos0=pos0, **summary["fused_stream"][storage], **card)
+
+        # the stage kernels on B3's window (the 64 blocks above) and B2's
+        # block, each against its plain version on the same inputs
+        w_spec = fs_mod.window_forward(sigpad, cs2, 0, nb)
+        w_x, w_scl = fs_mod.quantize_rows(w_spec, sdt)
+        w_acc = fs_mod.stream_mac(ring, scales, w_x, w_scl, rim, dcfix_all, pos0)
+        w_part = fs_mod.step_mac(ring, scales, rim, 3)
+        wb_ring = [ring.clone(), ring.clone()]
+        wb_scl = [None if scales is None else scales.clone() for _ in range(2)]
+        inv_out = [torch.zeros((c, nb * b), device=dev) for _ in range(2)]
+        stage_calls = {  # name: (kernel result, plain result)
+            "window_forward": (lambda: w_spec, lambda: fs_mod.window_forward_reference(sigpad, cs2, 0, nb)),
+            "quantize_rows": (lambda: w_x, lambda: fs_mod.quantize_rows_reference(w_spec, sdt)[0]),
+            "stream_mac": (lambda: w_acc, lambda: fs_mod.stream_mac_reference(ring, scales, w_x, w_scl, rim,
+                                                                                dcfix_all, pos0)),
+            "ring_writeback": (lambda: fs_mod.ring_writeback(w_x, w_scl, wb_ring[0], wb_scl[0], pos0),
+                               lambda: fs_mod.ring_writeback_reference(w_x, w_scl, wb_ring[1], wb_scl[1], pos0)),
+            "window_inverse": (lambda: fs_mod.window_inverse(w_acc, abt, inv_out[0], 0),
+                               lambda: fs_mod.window_inverse_reference(w_acc, abt, inv_out[1], 0)),
+            "step_mac": (lambda: w_part, lambda: fs_mod.step_mac_reference(ring, scales, rim, 3)),
+            "step_reduce": (lambda: fs_mod.step_reduce(w_part, dcfix, mdt),
+                            lambda: fs_mod.step_reduce_reference(w_part, dcfix, mdt)),
+        }
+        for name, (kernel_fn, plain_fn) in stage_calls.items():
+            got, want = kernel_fn(), plain_fn()
+            torch.cuda.synchronize()
+            if name == "ring_writeback":  # a pure copy: rings and scales equal exactly
+                assert torch.equal(got, want), f"{name} {storage}: rings differ"
+                assert wb_scl[0] is None or torch.equal(wb_scl[0], wb_scl[1]), f"{name} {storage}: scales differ"
+                d, r = 0.0, 0.0
+            elif name == "quantize_rows" and storage in INT_MAX:  # rint ties may flip by 1 LSB
+                lsb = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+                assert lsb <= 1, f"{name} {storage}: {lsb} LSB"
+                d, r = float(lsb), 0.0
+                assert rel_err(w_scl.cpu(), fs_mod.quantize_rows_reference(w_spec, sdt)[1].cpu())[1] < 1e-5
+            else:
+                d, r = rel_err(got.float().cpu(), want.float().cpu())
+                assert r < TOL[storage], f"{name} {storage}: rel err {r}"
+            stages[name][storage] = {"max_abs_err": d, "rel_err": r,
+                                     "plain_ms": cuda_ms(plain_fn, 1)}
+        b2_stages = summary["fused_block_step"][storage]["stages_us"]
+        for name in stage_calls:  # device ms of the stage within the B3 (B2) call timed above
+            stages[name][storage]["ms"] = (b2_stages if name.startswith("step_") else b3_stages)[name] / 1e3
+        emit(phase="stage_vs_plain", storage=storage, tol=TOL[storage], blocks=nb, pos0=pos0,
+             stages={k: v[storage] for k, v in stages.items() if storage in v}, **card)
+        del w_spec, w_x, w_acc, w_part, wb_ring, inv_out
         del ring, scales, k_ring, p_ring
         torch.cuda.empty_cache()
 
@@ -379,9 +459,11 @@ def main() -> int:
                                                    acc_add=seed), 3)
         s_plain = cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2,
                                                                 abt, p_scl, acc_add=seed), 1)
-        summary["fused_stream_acc_add"][storage] = {"max_abs_err": d, "rel_err": r, "ms": s_ms,
-                                                    "plain_ms": s_plain, "blocks": nb,
-                                                    "us_per_block": 1e3 * s_ms / nb}
+        summary["fused_stream_acc_add"][storage] = {
+            "max_abs_err": d, "rel_err": r, "ms": s_ms, "plain_ms": s_plain, "blocks": nb,
+            "us_per_block": 1e3 * s_ms / nb,
+            "stages_us": stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt,
+                                                              k_scl, acc_add=seed))}
         emit(phase="kernel_vs_plain", kernel="fused_stream", acc_add=True, storage=storage, partitions=ph,
              tol=TOL[storage], pos0=pos0, **summary["fused_stream_acc_add"][storage], **card)
 
@@ -530,6 +612,8 @@ def main() -> int:
             k_scl = scl[0]
             sp_sum["fused_block_step_sched"][key] = {
                 "max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_dense_kernel": vs_dense,
+                "stages_us": stage_us(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl,
+                                                                      sched)),
                 "ms": cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl, sched), 20),
                 "dense_ms": cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl), 20),
                 "plain_ms": cuda_ms(lambda: fs_mod.fused_block_step_reference(frame, k_ring, rim, 3, dcfix, cs, ab,
@@ -558,8 +642,19 @@ def main() -> int:
             s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl,
                                                        sched), 3)
             d_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl), 3)
+            # the schedule's width table against its plain version
+            pcf = fs_mod.fused_chunk_rows(sdt, P, c, b)
+            tab = fs_mod.sched_widths(sched, b, pcf)
+            assert torch.equal(tab, fs_mod.sched_widths_reference(sched, b, pcf)), f"sched_widths {key}"
+            b3s_stages = stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt,
+                                                              k_scl, sched))
+            stages["sched_widths"][key] = {
+                "max_abs_err": 0.0, "rel_err": 0.0, "ms": b3s_stages["sched_widths"] / 1e3,
+                "plain_ms": cuda_ms(lambda: fs_mod.sched_widths_reference(sched, b, pcf), 1),
+                "table": list(tab.shape)}
             sp_sum["fused_stream_sched"][key] = {
                 "max_abs_err": d, "rel_err": r, "max_abs_diff_vs_dense_kernel": rel_err(ko.cpu(), do.cpu())[0],
+                "stages_us": b3s_stages,
                 "ms": s_ms, "dense_ms": d_ms, "blocks": nb, "us_per_block": 1e3 * s_ms / nb,
                 "dense_us_per_block": 1e3 * d_ms / nb,
                 "plain_ms": cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, k_ring, rim, pos0, dcfix_all,
@@ -673,7 +768,10 @@ def main() -> int:
         for name in expect:
             assert counts[name] > 0, f"{name} was not launched on the {path} path"
 
-    read_window("perblock", ("fdl_mac", "fused_block_step", "fused_stream"))
+    b3_stage_names = ("window_forward", "quantize_rows", "stream_mac", "ring_writeback", "window_inverse")
+    b2_stage_names = ("window_forward", "quantize_rows", "ring_writeback", "step_mac", "step_reduce",
+                      "window_inverse")
+    read_window("perblock", ("fdl_mac", "fused_block_step", "fused_stream", *b3_stage_names, *b2_stage_names))
 
     # ---- 5b. the sparse main path: masked process per storage and mask,
     # SNR against an f64 UPOLS oracle over the masked spectra
@@ -746,7 +844,8 @@ def main() -> int:
                  rel_err=r, tol=TOL[storage], against="sparse process")
             assert r < TOL[storage], f"sparse {name} ({storage}) disagrees with process: {r}"
         del ref_c, a, prm_np
-    read_window("sparse", ("fused_stream_sched", "fused_block_step_sched", "sparse_fdl_mac"))
+    read_window("sparse", ("fused_stream_sched", "fused_block_step_sched", "sparse_fdl_mac", "sched_widths",
+                           *b3_stage_names, *b2_stage_names))
 
     # ---- 6. the nested and hybrid main paths, SNR per storage
     sig2_np = np.random.default_rng(2).uniform(-1, 1, (CHANNELS, NB_NESTED * BLOCK)).astype(np.float32)
@@ -793,7 +892,8 @@ def main() -> int:
                 outs_main[storage] = out
             del params, state, out
         torch.cuda.empty_cache()
-        read_window(name, ("nested_mac",) if name == "nested" else ("nested_mac", "fused_stream", "fdl_mac"))
+        read_window(name, ("nested_mac",) if name == "nested" else ("nested_mac", "fused_stream", "fdl_mac",
+                                                                    *b3_stage_names))
 
     # ---- 7. the hybrid's and nested's other entry points
     kernels.reset_launch_counts()
@@ -898,7 +998,7 @@ def main() -> int:
     for key, row in meas.items():
         emit(phase="measurement", row=key, lengths=list(short), **row, **card)
     read_window("measurement", ("probe_ring_read", "probe_stream", "fdl_mac", "fused_stream",
-                                "fused_stream_sched"))
+                                "fused_stream_sched", *b3_stage_names, "sched_widths"))
 
     # a torch.profiler trace of one process call (bench.profile.trace)
     v = conv.Convolver(storage="split", device=dev)
@@ -947,6 +1047,31 @@ def main() -> int:
                          "library_call": "torch.einsum('pckm,pkm->ckm') on complex64 (inputs built outside)"}
     del planes, tre, tim, pc_, tc_
     torch.cuda.empty_cache()
+    # the stage kernels' yardsticks at B3's window of 64 blocks (split, f32 matrices)
+    cs_l, abt_l = mb.packed_stream_mats(n, torch.float32, dev)
+    sig_l = torch.randn((c, 65 * b), device=dev, generator=gen)
+    frames = sig_l.unfold(1, n, b)[:, :64].transpose(0, 1).reshape(64 * c, n).contiguous()
+    acc_l = torch.randn((64 * c, n), device=dev, generator=gen)
+    lib["window_forward"] = {"library_ms": cuda_ms(lambda: torch.matmul(frames, cs_l), 20),
+                             "library_call": "torch.matmul of the window's frames [4096, 1024] (built outside) "
+                                             "and cs [1024, 1024], f32 (allow_tf32 False)"}
+    lib["window_inverse"] = {"library_ms": cuda_ms(lambda: torch.matmul(acc_l, abt_l), 20),
+                             "library_call": "torch.matmul of the accumulators [4096, 1024] and abt [1024, 512], f32"}
+    ring_l = torch.randn((2, P, c, b), device=dev, generator=gen)
+    x_l = torch.randn((2, 64, c, b), device=dev, generator=gen)
+    idx_l = (P - 5 + torch.arange(64, device=dev)) % P
+    lib["ring_writeback"] = {"library_ms": cuda_ms(lambda: ring_l.index_copy_(1, idx_l, x_l), 20),
+                             "library_call": "Tensor.index_copy_ of 64 staged rows into the ring's slots"}
+    lib["step_mac"] = {"library_ms": lib["fdl_mac"]["library_ms"],
+                       "library_call": "the B1 row's complex einsum: the same MAC over the same ring (one "
+                                       "sum; the kernel's P splits are summed by step_reduce)"}
+    del cs_l, abt_l, sig_l, frames, acc_l, ring_l, x_l
+    for name, note in (("quantize_rows", "a peak scale, rint and clamp per row are several calls"),
+                       ("stream_mac", "a causal complex convolution along time over a ring and the staged "
+                                      "rows, with per-row scales: no one call"),
+                       ("step_reduce", "sum, lane-0 overwrite and rounding are several calls"),
+                       ("sched_widths", "a scatter-max of the chunk tables: no one call")):
+        lib[name] = {"library_ms": None, "library_note": note}
     no_lib = "no single PyTorch call computes the fused block (DFT, ring insert, MAC, inverse DFT)"
     for name in ("fused_block_step", "fused_stream", "fused_block_step_sched", "fused_stream_sched"):
         lib[name] = {"library_ms": None, "library_note": no_lib}
@@ -975,6 +1100,15 @@ def main() -> int:
         "fused_stream_sched": headline.fused_stream_work("split", P, c, b, 64, pos0=P - 5, visits=visits_b3),
         "probe_ring_read": headline.ring_read_work("split", P, c, b, probe_sum["probe_ring_read"]["split"]["p_chunk"]),
         "probe_stream": headline.stream_probe_work(4, c, b, 64, "win_fwd_inv"),
+        # the stage kernels: B3's window of 64 blocks, B2's block (split; sched_widths: band30)
+        "window_forward": headline.transform_work(64 * c, n, c * 65 * b * 4, n),
+        "quantize_rows": headline.quantize_work("split", 64 * c, b),
+        "stream_mac": headline.stream_mac_work("split", P, c, b, 64),
+        "ring_writeback": headline.writeback_work("split", 64, c, b),
+        "window_inverse": headline.transform_work(64 * c, n, 64 * c * n * 4, b),
+        "step_mac": headline.step_mac_work("split", P, c, b, fs_mod._step_geometry_of(P, c, b, 4)[0]),
+        "step_reduce": headline.step_reduce_work(c, b, fs_mod._step_geometry_of(P, c, b, 4)[0]),
+        "sched_widths": headline.sched_widths_work(P, c_tabs[0].shape[1], P // pcf),
     }
     kernel_ms = {
         "fdl_mac": summary["fdl_mac"]["split"]["ms"],
@@ -986,6 +1120,8 @@ def main() -> int:
         "fused_stream_sched": sp_sum["fused_stream_sched"]["split/band30"]["ms"],
         "probe_ring_read": probe_sum["probe_ring_read"]["split"]["ms"],
         "probe_stream": probe_sum["probe_stream"]["win_fwd_inv/float32"]["ms"],
+        **{name: row["split"]["ms"] for name, row in stages.items() if name != "sched_widths"},
+        "sched_widths": stages["sched_widths"]["split/band30"]["ms"],
     }
     bounds = {}
     for name, work in works.items():
@@ -1134,6 +1270,15 @@ def main() -> int:
         "fused_stream_sched": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
         "probe_ring_read": ("neojax_torch/csrc/probes.cu", "tools/roofline_cal.py:143"),
         "probe_stream": ("neojax_torch/csrc/probes.cu", "tools/fused_probe.py:116"),
+        # B2/B3's stage kernels (B3's lines; B2 runs the shared ones too)
+        "window_forward": ("neojax_torch/csrc/transform.cu", "neojax/kernels/fused_step.py:791"),
+        "quantize_rows": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
+        "stream_mac": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
+        "ring_writeback": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
+        "window_inverse": ("neojax_torch/csrc/transform.cu", "neojax/kernels/fused_step.py:791"),
+        "sched_widths": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
+        "step_mac": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
+        "step_reduce": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
     }
     by_storage = dict(summary)
     by_storage["fdl_mac"] = summary["fdl_mac"] | {"hybrid_head": summary["fdl_mac_head"]}
@@ -1145,6 +1290,8 @@ def main() -> int:
     heads["fused_stream_sched"] = sp_sum["fused_stream_sched"]["split/band30"]
     heads["probe_ring_read"] = probe_sum["probe_ring_read"]["split"]
     heads["probe_stream"] = probe_sum["probe_stream"]["win_fwd_inv/float32"]
+    heads.update({name: row["split/band30" if name == "sched_widths" else "split"] for name, row in stages.items()})
+    by_storage.update(stages)
     by_storage.update(sp_sum)
     by_storage.update(probe_sum)
     rows = []
@@ -1155,13 +1302,19 @@ def main() -> int:
                      "launches_by_path": {path: w[name] for path, w in windows.items()},
                      "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
                      **bounds[name],
-                     "storage": "split", "mask": "band30" if name in sp_sum else None,
+                     "storage": "split", "mask": "band30" if name in sp_sum or name == "sched_widths" else None,
                      "by_storage": by_storage[name]})
-    rows[-1]["mode"] = "win_fwd_inv, f32 matrices"  # probe_stream's head row
-    rows[-1]["replaces_also"] = "tools/fused_probe.py:65"
+    for row in rows:
+        if row["name"] == "probe_stream":
+            row.update(mode="win_fwd_inv, f32 matrices", replaces_also="tools/fused_probe.py:65")
+        if row["name"] in stages:
+            if not row["name"].startswith("step_"):  # B2 runs these stages too
+                row["replaces_also"] = "neojax/kernels/fused_step.py:330"
+            row["shape"] = ("band30 chunk tables" if row["name"] == "sched_widths" else
+                            "B2's block" if row["name"].startswith("step_") else "B3's window of 64 blocks")
     emit(phase="summary", snr_db_vs_f64=snrs, engine_snr_db_vs_f64=engine_snrs,
          sparse_snr_db_vs_masked_f64=sparse_snrs, sparse_times=sparse_times, sparse_masks=mask_stats,
-         times=times, measurement=meas,
+         times=times, measurement=meas, stages=stages,
          engine_times=engine_times, hybrid_stream_latency=stream_lat,
          total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -58,6 +58,13 @@ __all__ = [
     "nested_mac_work",
     "ring_read_work",
     "stream_probe_work",
+    "transform_work",
+    "quantize_work",
+    "stream_mac_work",
+    "writeback_work",
+    "step_mac_work",
+    "step_reduce_work",
+    "sched_widths_work",
     "chunk_visits",
     "tile_live",
 ]
@@ -297,3 +304,63 @@ def stream_probe_work(mat_itemsize: int, c: int, b: int, nb: int, mode: str) -> 
     if mode == "win_fwd":
         return Work(nbytes, nb * c * (_rfft_flops(n) + b))
     return Work(nbytes + 2 * b * b * mat_itemsize, nb * c * 2 * _rfft_flops(n))
+
+
+# The stage kernels of B2 and B3 (``kernels.fused_step``). Each counts the
+# function of its own stage: a transform as the real FFT it computes (as
+# every DFT here, whatever the kernel multiplies by), the MACs as 8 a complex
+# multiply-add plus 2 a dequantized history element.
+
+
+def transform_work(rows: int, n: int, a_bytes: int, cols: int) -> Work:
+    """``window_forward`` / ``window_inverse``: one real FFT of n = 2B points
+    a row, its input read once (``a_bytes``: B3's forward reads its
+    overlapping frames once, the signal window) -> out [rows, cols] f32."""
+    return Work(a_bytes + rows * cols * 4, rows * _rfft_flops(n))
+
+
+def quantize_work(storage: str, rows: int, b: int) -> Work:
+    """``quantize_rows``: spectra [rows, 2B] f32 -> rows in the storage dtype
+    (+ a scale a row for the int storages)."""
+    q = storage in _QUANT
+    return Work(rows * 2 * b * (4 + ITEMSIZE[storage]) + (rows * 4 if q else 0), rows * 2 * b * 3 if q else 0)
+
+
+def stream_mac_work(storage: str, p: int, c: int, b: int, wc: int, cf: int = 1,
+                    live: int | None = None, seed: bool = False) -> Work:
+    """``stream_mac`` over a window of ``wc`` blocks: the P - 1 older ring
+    rows and the window's rows with their scales, the P filter rows, dcfix
+    (and the seed) -> acc [wc, C, 2B] f32. ``live``: the (tap, lane) pairs
+    the blocks sum, all ``wc * P * B`` dense."""
+    live = wc * p * b if live is None else live
+    q = storage in _QUANT
+    hist = (p - 1 + wc) * c
+    nbytes = (2 * hist * b * ITEMSIZE[storage] + (hist * 4 if q else 0) + p * cf * 2 * b * MAT_ITEMSIZE[storage]
+              + wc * 2 * c * 4 + (wc * 2 * c * b * 4 if seed else 0) + wc * c * 2 * b * 4)
+    return Work(nbytes, 8 * live * c + (2 * 2 * hist * b if q else 0))
+
+
+def writeback_work(storage: str, rows: int, c: int, b: int) -> Work:
+    """``ring_writeback``: ``rows`` staged rows read and written into the ring."""
+    q = storage in _QUANT
+    return Work(2 * (rows * 2 * c * b * ITEMSIZE[storage] + (rows * c * 4 if q else 0)), 0)
+
+
+def step_mac_work(storage: str, p: int, c: int, b: int, splits: int, cf: int = 1, live: int | None = None) -> Work:
+    """``step_mac``: the ring's live (slot, lane) pairs (all P x B dense) with
+    their scales and filter values -> partial sums [splits, 2, C, B] f32."""
+    live = p * b if live is None else live
+    q = storage in _QUANT
+    nbytes = (2 * live * c * ITEMSIZE[storage] + (p * c * 4 if q else 0) + 2 * live * cf * MAT_ITEMSIZE[storage]
+              + splits * 2 * c * b * 4)
+    return Work(nbytes, 8 * live * c + (2 * live * c if q else 0))
+
+
+def step_reduce_work(c: int, b: int, splits: int) -> Work:
+    """``step_reduce``: partial sums [splits, 2, C, B] and dcfix -> acc [C, 2B]."""
+    return Work(splits * 2 * c * b * 4 + 2 * c * 4 + c * 2 * b * 4, splits * 2 * c * b)
+
+
+def sched_widths_work(p: int, entries: int, chunks: int) -> Work:
+    """``sched_widths``: the [P, L] chunk tables -> the [P, chunks] widths."""
+    return Work(2 * p * entries * 4 + p * chunks * 4, 0)

@@ -14,11 +14,12 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 
 import torch
 
-__all__ = ["trace", "RunRecord", "emit_record"]
+__all__ = ["trace", "kernel_timeline", "RunRecord", "emit_record"]
 
 
 @contextlib.contextmanager
@@ -39,6 +40,32 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def kernel_timeline(fn, calls: int = 3) -> list[list[tuple[str, float]]]:
+    """The card kernels each of ``calls`` calls of ``fn`` runs, in launch
+    order: per call a list of (kernel name, device µs), read from one
+    Chrome trace in which a fill kernel marks where each call starts. A
+    trace on the card has been seen to miss a kernel now and then, so take
+    a statistic over the calls. Warm ``fn`` up first: the first call may
+    build and allocate."""
+    marker = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            for _ in range(calls):
+                marker.zero_()
+                fn()
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    out: list[list[tuple[str, float]]] = []
+    for e in sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"]):
+        if "FillFunctor" in e["name"]:
+            out.append([])
+        elif out:
+            out[-1].append((e["name"], float(e["dur"])))
+    return out
 
 
 @dataclasses.dataclass

@@ -14,25 +14,18 @@
 // chunk); out1 keeps the compiler from eliding a load and lets both be
 // checked. Bound: bytes (the ring, 252 MB f32 at [2, 960, 64, 512]).
 //
-// T2 neo_probe_stream replaces tools/fused_probe.py :: run_empty (body
-// k_empty) and run_tf (body k_tf): B3's grid (one CTA per channel looping
-// over nb blocks, B3's block size and launch bounds) and B3's own stage
-// code (fused_block.cuh), in three modes:
-//
-//   0 empty       : out block = 0
-//   1 win_fwd     : frame load + forward DFT; out = spec[:B] + spec[B:]
-//   2 win_fwd_inv : frame load + forward DFT, the spectrum rounded to the
-//                   matrix dtype, then B3's tail-half inverse
-//
-// on B3's matrix layout (cs [N, 2B], abt [2B, B]) in f32 or bf16. The
-// TPU's double-buffered window DMA and its semaphores have no counterpart:
-// B3 reads its frame straight from device memory, and so does T2.
-#include "fused_block.cuh"
+// T2 replaces tools/fused_probe.py :: run_empty (body k_empty) and run_tf
+// (body k_tf): B3's partial pipelines. Since B3 runs as stage kernels
+// (fused_step.cu, transform.cu), T2 runs B3's own stages up to a point
+// (kernels/probes.py :: probe_stream): "win_fwd" is B3's windowed forward
+// product followed by neo_probe_fold's fold, "win_fwd_inv" is the forward
+// and then B3's inverse product; "empty" is neo_probe_fold's zero fill of
+// the output, the floor of one launch.
+#include "common.cuh"
 
 namespace {
 
 using namespace neo;
-using namespace neo::fused;
 
 constexpr int kReadThreads = 128;  // B1's CTA width (fdl_mac.cu)
 
@@ -59,31 +52,25 @@ __global__ void __launch_bounds__(kReadThreads) ring_read_kernel(
   out1[static_cast<size_t>(c) * K + k] = a1;
 }
 
-template <typename M>
-__global__ void __launch_bounds__(kThreads, 1) stream_probe_kernel(
-    const float* __restrict__ sigpad, const M* __restrict__ cs, const M* __restrict__ abt,
-    float* __restrict__ out, int B, int nb, int mode) {
-  __shared__ Shared sh;
-  const int c = blockIdx.x;
-  const size_t bb = static_cast<size_t>(B);
-  const float* sig = sigpad + c * (static_cast<size_t>(nb) + 1) * bb;
-  float* o = out + c * static_cast<size_t>(nb) * bb;
-  for (int i = 0; i < nb; ++i) {
-    float* oi = o + i * bb;
+constexpr int kFoldThreads = 256;
+
+// mode 0: out [C, nb * B] = 0. mode 1: out[c, (i0 + i) * B + k] = spec[i, c, k]
+// + spec[i, c, B + k] for the wc blocks of a window's spectra [wc, C, 2B].
+__global__ void __launch_bounds__(kFoldThreads) fold_kernel(const float* __restrict__ spec,
+                                                            float* __restrict__ out, int C, int B,
+                                                            int nb, int wc, int i0, int mode) {
+  const size_t n = static_cast<size_t>(C) * (mode ? wc : nb) * B;
+  for (size_t e = blockIdx.x * static_cast<size_t>(kFoldThreads) + threadIdx.x; e < n;
+       e += static_cast<size_t>(gridDim.x) * kFoldThreads) {
     if (mode == 0) {
-      for (int t = threadIdx.x; t < B; t += kThreads) oi[t] = 0.0f;
+      out[e] = 0.0f;
       continue;
     }
-    load_frame<M>(sh, sig + i * bb, B);
-    forward_dft<M>(sh, cs, bb, 2 * bb, B);
-    if (mode == 1) {
-      for (int t = threadIdx.x; t < B; t += kThreads) oi[t] = sh.spec[t] + sh.spec[B + t];
-      __syncthreads();  // spec is rewritten by the next block
-      continue;
-    }
-    for (int j = threadIdx.x; j < 2 * B; j += kThreads) sh.acc[j] = round_to<M>(sh.spec[j]);
-    __syncthreads();
-    inverse_dft<M>(sh, abt, bb * bb, bb, oi, B, B);
+    const int k = static_cast<int>(e % B);
+    const size_t r = e / B;  // i * C + c
+    const int c = static_cast<int>(r % C), i = static_cast<int>(r / C);
+    const float* sp = spec + r * 2 * B;
+    out[(static_cast<size_t>(c) * nb + i0 + i) * B + k] = sp[k] + sp[B + k];
   }
 }
 
@@ -113,20 +100,17 @@ extern "C" int neo_probe_ring_read(int storage, const void* fdl, const void* fr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// mat_bf16: 0 f32 matrices, 1 bf16; mode 0 empty, 1 win_fwd, 2 win_fwd_inv.
-extern "C" int neo_probe_stream(int mat_bf16, int mode, const void* sigpad, const void* cs,
-                                const void* abt, void* out, int C, int B, int nb, void* stream) {
-  if (C < 1 || B < 2 || B > kMaxB || (B & 1) || nb < 1 || mode < 0 || mode > 2 ||
-      (mat_bf16 != 0 && mat_bf16 != 1))
+// mode 0: zero out [C, nb * B]; mode 1: fold spec [wc, C, 2B] into blocks
+// i0 .. i0 + wc - 1 of out.
+extern "C" int neo_probe_fold(int mode, const void* spec, void* out, int C, int B, int nb, int wc,
+                              int i0, void* stream) {
+  if (C < 1 || B < 1 || nb < 1 || (mode != 0 && mode != 1) ||
+      (mode == 1 && (wc < 1 || i0 < 0 || i0 + wc > nb || spec == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mat_bf16)
-    stream_probe_kernel<__nv_bfloat16><<<C, kThreads, 0, s>>>(
-        static_cast<const float*>(sigpad), static_cast<const __nv_bfloat16*>(cs),
-        static_cast<const __nv_bfloat16*>(abt), static_cast<float*>(out), B, nb, mode);
-  else
-    stream_probe_kernel<float><<<C, kThreads, 0, s>>>(
-        static_cast<const float*>(sigpad), static_cast<const float*>(cs),
-        static_cast<const float*>(abt), static_cast<float*>(out), B, nb, mode);
+  const size_t n = static_cast<size_t>(C) * (mode ? wc : nb) * B;
+  const size_t want = (n + kFoldThreads - 1) / kFoldThreads;
+  fold_kernel<<<static_cast<int>(want < 4096 ? want : 4096), kFoldThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(spec),
+                                                     static_cast<float*>(out), C, B, nb, wc, i0, mode);
   return static_cast<int>(cudaGetLastError());
 }

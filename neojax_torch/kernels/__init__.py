@@ -4,12 +4,16 @@ version: B1 ``fdl_mac.fdl_mac``, B2 ``fused_step.fused_block_step``, B3
 both with the sparse chunk schedule), B4 ``sparse_mac.sparse_fdl_mac`` (the
 unfused sparse MAC), B5 ``nested_mac.nested_mac`` (the nested engine and
 the hybrid tail), and the measurement probes T1 ``probes.probe_ring_read``
-and T2 ``probes.probe_stream``. Nothing is compiled at import time.
+and T2 ``probes.probe_stream``. B2 and B3 run as stage kernels
+(``fused_step.stage_wrappers()``: the windowed forward and inverse
+products, quantize, the time-batched MAC, the ring write-back, the
+schedule's width table, and B2's split MAC and its reduction). Nothing is
+compiled at import time.
 
 Each wrapper counts its kernel launches in a plain int attribute
-(``fdl_mac.fdl_mac.launches``); B2 and B3 also count, in
-``sched_launches``, the launches that ran a chunk schedule. The CPU route
-counts nothing."""
+(``fdl_mac.fdl_mac.launches``); ``fused_block_step`` and ``fused_stream``
+count the calls that ran their stage kernels, and, in ``sched_launches``,
+those that ran a chunk schedule. The CPU route counts nothing."""
 
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
 from neojax_torch.kernels import fused_step as _fused_step_mod
@@ -21,7 +25,7 @@ from neojax_torch.kernels import sparse_mac as _sparse_mac_mod
 def _wrappers():
     return (_fdl_mac_mod.fdl_mac, _fused_step_mod.fused_block_step, _fused_step_mod.fused_stream,
             _sparse_mac_mod.sparse_fdl_mac, _nested_mac_mod.nested_mac,
-            _probes_mod.probe_ring_read, _probes_mod.probe_stream)
+            _probes_mod.probe_ring_read, _probes_mod.probe_stream, *_fused_step_mod.stage_wrappers())
 
 
 def _sched_wrappers():

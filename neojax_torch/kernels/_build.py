@@ -38,20 +38,37 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # C signatures of the entry points (argtypes, in order). Pointers and the
 # stream are c_void_p: a bare Python int would be passed as a 32-bit int.
 _SIGNATURES = {
     # storage, fdl, filt_re, filt_im, scales, acc_re, acc_im, P, C, K, Cf, stream
     "neo_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # storage, frame, fdl, rim, scales, dcfix, cs, ab, y, c_idx, c_flags,
-    # P, C, B, Cf, pos, L, pc, n_codes, stream
-    "neo_fused_block_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # storage, sigpad, fdl, rim, scales, dcfix_all, acc_add, cs, abt, out,
-    # c_idx, c_flags, P, C, B, Cf, nb, pos0, L, pc, n_codes, stream
-    "neo_fused_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # mat_bf16, inverse, a, a_inner, a_s_outer, a_s_inner, mat, m_split, m_plane,
+    # m_ld, out, o_inner, o_s_outer, o_s_inner, part, ksplit, kchunk, R, K, Ncol, stream
+    "neo_transform": [_I, _I, _P, _I, _L, _L, _P, _I, _L, _L,
+                      _P, _I, _L, _L, _P, _I, _I, _I, _I, _I, _P],
+    # storage, frame, fdl, rim, scales, dcfix, cs, ab, y, c_idx, c_flags, spec,
+    # gpart, x, scl, mpart, acc, tab, counts, P, C, B, Cf, pos, L, pc, n_codes,
+    # ks, kchunk, S, per, vec, stream
+    "neo_fused_block_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P],
+    # storage, s, x, scl, rows, C, B, stream
+    "neo_fs_quantize": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # storage, x, scl, fdl, scales, P, C, B, wc, pos_first, stream
+    "neo_fs_writeback": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # c_idx, c_flags, tab, P, L, nchunks, B, n_codes, stream
+    "neo_fs_widths": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # storage, ring, scales, xnew, snew, rim, seed, dcfix, wtab, acc,
+    # P, C, B, Cf, wc, pos_first, pc, nchunks, stream
+    "neo_fs_stream_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # storage, ring, scales, fre, fim, f_row, f_c, wrow, part, P, C, K, pc, S, per, vec, stream
+    "neo_fs_step_mac": [_I, _P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # mat_bf16, part, dcfix, acc, S, C, K, stream
+    "neo_fs_step_reduce": [_I, _P, _P, _P, _I, _I, _I, _P],
     # storage, fdl, filt_re, filt_im, scales, k_row, p_row, f_row, acc_re,
     # acc_im, P, C, K, Cf, L, pc, k_tile, stream
     "neo_sparse_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -60,8 +77,8 @@ _SIGNATURES = {
     "neo_nested_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # storage, fdl, fr, out0, out1, P, C, K, pc, stream
     "neo_probe_ring_read": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # mat_bf16, mode, sigpad, cs, abt, out, C, B, nb, stream
-    "neo_probe_stream": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # mode, spec, out, C, B, nb, wc, i0, stream
+    "neo_probe_fold": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,15 +1,17 @@
 """The fused per-block pipeline, B2 (one block) and B3 (a whole UPOLS
-stream), in ``csrc/fused_step.cu``.
+stream), as stage kernels in ``csrc/fused_step.cu`` and ``csrc/transform.cu``.
 
 Replaces ``neojax/kernels/fused_step.py`` · ``fused_block_step`` (Pallas
-body ``_mk_kernel``) and ``fused_stream`` (body ``_mk_stream_kernel``). Per
-block, for each channel:
+body ``_mk_kernel``) and ``fused_stream`` (body ``_mk_stream_kernel``). The
+function is theirs; per block, for each channel:
 
-    packed forward DFT (GEMV against ``cs``)  ->  [quantize +] ring-row
-    insert at ``pos``  ->  rotated-filter MAC over P (the new row with its
-    new scale; B3 may seed the sum from ``acc_add``)  ->  lane-0
-    DC/Nyquist overwrite from ``dcfix``  ->  packed inverse DFT (GEMV
-    against ``ab`` / the tail-half ``abt``)
+    frame rounded to the matrix dtype -> packed forward DFT -> quantize
+    (per-(block, channel) peak scale, ``x / scale * int_max``, rint, clamp)
+    or cast -> ring row ``pos`` written with its scale -> rotated-filter MAC
+    over P (the new row read back in its storage dtype with its new scale;
+    B3 may seed the sum from ``acc_add``) -> lane 0 := ``dcfix`` ->
+    accumulator rounded to the matrix dtype -> packed inverse DFT (all N
+    samples for B2, the UPOLS tail half for B3)
 
 Layout contract (as the JAX package's): packed-512 spectra, B = N/2 lanes,
 re-plane lane 0 = DC.re, im-plane lane 0 = Nyquist.re; the filter arrives
@@ -18,40 +20,66 @@ storage-matched matrix/filter dtype — bf16 for the bf16/int8 storages, f32
 for split/int16 — with the frame (forward) and the accumulator (inverse)
 rounded to that dtype first.
 
-Design (H100). Channels are independent for the whole stream: the scale is
-per channel, ``dcfix`` is per channel and the filter is read-only. So ONE
-CTA owns ONE channel — for B3 over all nb blocks — and the CTA that writes
-a ring row is the only one that ever reads it (after ``__syncthreads()``):
-no grid-wide sync and no cross-CTA hazards. The ring is updated in place.
+Design (H100). The block-by-block loop of the TPU kernel re-reads the ring
+every block (252 MB split at P = 960, C = 64, B = 512) and, written per
+channel, streams the DFT matrices once per channel and block. Neither the
+forward transforms nor the quantization depend on the ring, and block i's
+MAC ``sum_a filt[a] X[i - a]`` (``filt[a] = filt_rim[P - 1 - a]`` for the
+tiled filter) is a causal convolution along time. So B3 walks its nb blocks in windows of
+:data:`WINDOW` blocks, each window five stage launches on one stream:
 
-What bounds it: per block each CTA reads its channel's slice of the ring
-(2*P*B storage elements: 3.9 MB split at P=960, B=512) and the rotated
-filter (2*P*2B matrix-dtype elements, shared across channels through L2),
-plus the DFT matrices (4 MB f32 forward + 2-4 MB inverse) from L2. Known
-costs for later work: B3 fills only C = 64 of the 132 SMs at the headline
-config, and every CTA re-reads the DFT matrices from L2 every block;
-batching the channels into one tensor-core product removes the latter.
+1. :func:`window_forward` — the window's frames x ``cs`` as one product
+   (FFMA for f32 matrices, bf16 tensor cores for bf16 ones)
+2. :func:`quantize_rows` — spectra -> staged rows ``X_new [W, 2, C, B]`` in
+   the storage dtype, scales ``[W, C]``
+3. :func:`stream_mac` — the time-batched MAC: history rows inside the
+   window from ``X_new``, older ones from the ring, each dequantized with
+   its own scale; lane 0 := ``dcfix``; rounded to the matrix dtype
+4. :func:`ring_writeback` — ``X_new`` into ring slots ``(pos0 + i) % P``
+   after the MAC (the last write wins when W > P)
+5. :func:`window_inverse` — the accumulators x ``abt`` as one product,
+   straight into the output
+
+B2 is one block: :func:`window_forward`, :func:`quantize_rows`,
+:func:`ring_writeback` into row ``pos`` (in place, before the MAC),
+:func:`step_mac` (the ring read on a (lane tile, channel, P split) grid with
+16-byte loads) and :func:`step_reduce` (the splits added in a fixed order,
+lane 0 := ``dcfix``, rounded), then :func:`window_inverse` against ``ab``.
+On the card one C call (``neo_fused_block_step``) launches these kernels:
+a block's device time (~0.1 ms at the headline shape) is less than the
+host's cost of a call per stage. The C call counts each stage's launch as
+it makes it, and the wrapper adds those counts to the stages' counters.
+The MAC sums in another order than the block-by-block loop; the
+per-storage tolerances of ``tests/test_fused_step.py`` hold.
 
 Sparse filters (``sched=``): the chunk schedule of
 ``kernels.sparse_mac.build_chunk_schedule`` — the FULL ``[P, L]`` int32
-tables ``(c_idx, flags)`` from the params, on the ring's device. The
-kernels read the row of the current position themselves (B2 row ``pos``,
-B3 row ``(pos0 + i) % P``) and sum only its flag-1 chunks of
-:func:`fused_chunk_rows` rows, each over its first ``B >> code`` lanes
-(the width code in bits 16+). The TPU kernels take pre-paired ``[nb, 2, L]``
-rows and ``[nb, 1, 2]`` counts instead: those only feed their lookahead
-prefetch into SMEM, which these kernels do not have. Masked filter bins are
-zero, so the skipped products are exact zeros.
+tables ``(c_idx, flags)`` from the params, on the ring's device. Block i
+honours row ``(pos0 + i) % P`` (B2: row ``pos``): slot p contributes only
+if its chunk of :func:`fused_chunk_rows` rows is flagged in that row, and
+only on lanes ``k < B >> code``. :func:`sched_widths` turns the tables into
+a ``[P, P / pc]`` table of live widths once a call; the MACs skip the
+tiles that are dead for all their blocks and lanes, and mask the rest, in
+the dense kernels' order: masked filter bins are zero, so the scheduled
+kernels equal the dense ones on the masked filter.
 
-The plain PyTorch versions (:func:`fused_block_step_reference`,
-:func:`fused_stream_reference`, float64 products with operands rounded where
-the kernel rounds them) run for CPU tensors; on CUDA tensors the wrappers
-launch the kernel or raise. Both routes update the ring (and scales) in
-place, so they can stand in for each other.
+Every stage function runs its plain PyTorch version (float64 products,
+operands rounded where the kernel rounds them; named ``*_reference``) for
+CPU tensors and launches its kernel, or raises, for CUDA tensors; each
+counts its launches in ``.launches``. So the CPU route of
+:func:`fused_stream` / :func:`fused_block_step` runs the staged
+decomposition itself. The block-by-block loops
+(:func:`fused_block_step_reference`, :func:`fused_stream_reference`) stay
+as the oracle it is held against. Both routes update the ring (and
+scales) in place.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from neojax_torch.kernels import _build
@@ -61,11 +89,29 @@ from neojax_torch.kernels.sparse_mac import lane_widths
 __all__ = [
     "MATRIX_DTYPES",
     "MAX_BLOCK",
+    "WINDOW",
     "fused_chunk_rows",
     "fused_block_step",
     "fused_block_step_reference",
     "fused_stream",
     "fused_stream_reference",
+    "stage_wrappers",
+    "window_forward",
+    "window_forward_reference",
+    "quantize_rows",
+    "quantize_rows_reference",
+    "stream_mac",
+    "stream_mac_reference",
+    "ring_writeback",
+    "ring_writeback_reference",
+    "window_inverse",
+    "window_inverse_reference",
+    "sched_widths",
+    "sched_widths_reference",
+    "step_mac",
+    "step_mac_reference",
+    "step_reduce",
+    "step_reduce_reference",
 ]
 
 # storage dtype -> transform-matrix / fused-filter dtype
@@ -76,7 +122,11 @@ MATRIX_DTYPES = {
     torch.int8: torch.bfloat16,
 }
 _INT_MAX = {torch.int8: 127.0, torch.int16: 32767.0}
-MAX_BLOCK = 1024  # the kernels' static shared-memory bound (kMaxB in csrc)
+MAX_BLOCK = 1024  # the largest block the pipeline takes (the TPU kernels' bound)
+WINDOW = 64  # blocks a window of B3's staged pipeline (staging ~17 MB at the headline shape)
+_STEP_CTAS = 1024  # B2's MAC: CTAs to aim for over (lane tiles, channels, P splits)
+_STEP_LANES = 128  # threads a CTA of B2's MAC (csrc: kStepThreads)
+_CARD_TILES = 264  # transform: output tiles below which the depth is split (two per SM)
 
 # Bytes per partition chunk of the chunk schedule, as neojax sizes its TPU
 # DMA chunks (``neojax.kernels.fused_step._CHUNK_TARGET``), so both packages
@@ -99,6 +149,9 @@ def fused_chunk_rows(dtype: torch.dtype, p: int, c: int, b: int) -> int:
         if p % d == 0:
             return d
     return 1
+
+
+# ---------------------------------------------------------------- checks
 
 
 def _check_ring(fdl, filt_rim, scales, c: int):
@@ -124,6 +177,7 @@ def _check_ring(fdl, filt_rim, scales, c: int):
 
 
 def _check_common(tensors, name):
+    tensors = [t for t in tensors if t is not None]
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"all {name} operands must be on one device")
@@ -131,18 +185,18 @@ def _check_common(tensors, name):
         raise ValueError(f"{name} operands must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cpu"
 
 
 def _check_sched(sched, fdl):
-    """Validate ``sched = (c_idx, flags)`` against the ring; returns the C
-    entry points' (c_idx, flags, L, pc, n_codes), null pointers without a
-    schedule."""
+    """Validate ``sched = (c_idx, flags)`` against the ring; returns its
+    rows a chunk (None without a schedule)."""
     _, p, c, b = fdl.shape
     widths = lane_widths(b)
     # the kernels compute a code's width as B >> code
     assert all(wd == b >> code for code, wd in enumerate(widths))
     if sched is None:
-        return 0, 0, 0, 0, len(widths)
+        return None
     c_idx, flags = sched
     for name, t in (("c_idx", c_idx), ("flags", flags)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.ndim != 2 or t.shape[0] != p:
@@ -151,15 +205,497 @@ def _check_sched(sched, fdl):
             raise ValueError(f"sched {name} must be contiguous and on the ring's device")
     if c_idx.shape != flags.shape:
         raise ValueError("sched c_idx and flags shapes differ")
-    pc = fused_chunk_rows(fdl.dtype, p, c, b)
     if c_idx.device.type == "cpu" and int((c_idx >> 16).max()) >= len(widths):
         raise ValueError(f"sched holds a width code outside lane_widths({b}) = {widths}")
-    return c_idx.data_ptr(), flags.data_ptr(), c_idx.shape[1], pc, len(widths)
+    return fused_chunk_rows(fdl.dtype, p, c, b)
+
+
+def _quant_scale(scales, dtype):
+    """Dequantization factors ``scale * (1 / int_max)`` in f32 (the kernels'
+    order), as float64."""
+    return (scales * (1.0 / _INT_MAX[dtype])).double()
+
+
+# ------------------------------------------------- 1 + 5. the transforms
+
+
+def _mat_geometry(mat):
+    """(depth K, columns, C column map (split, plane, ld)) of a transform
+    matrix: [K, n] as it is, or B2's forward planes [2, N, B] side by side."""
+    if mat.ndim == 2:
+        return mat.shape[0], mat.shape[1], (mat.shape[1], 0, mat.shape[1])
+    _, k, b = mat.shape
+    return k, 2 * b, (b, k * b, b)
+
+
+def _mat2d(mat):
+    return mat if mat.ndim == 2 else torch.cat([mat[0], mat[1]], dim=-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _depth_split(rows: int, depth: int, cols: int) -> tuple[int, int]:
+    """(splits, depths a split) of a transform: the depth is split when the
+    64 x 64 output tiles alone cannot fill the card (B2's 64 rows)."""
+    tiles = -(-rows // 64) * -(-cols // 64)
+    if tiles >= _CARD_TILES or depth <= 64:
+        return 1, depth
+    ks = min(-(-_CARD_TILES // tiles), depth // 64)
+    per = -(-depth // ks)
+    chunk = -(-per // 32) * 32  # whole depth slices of the bf16 kernel
+    return -(-depth // chunk), chunk
+
+
+def _transform(inverse: bool, a, a_map, mat, out, o_map, rows: int, depth: int, cols: int):
+    """Launch the transform kernel: out(r, j) = sum_t round_M(A(r, t)) Mat(t, j)
+    with the row maps ``(inner, s_outer, s_inner)`` (elements)."""
+    _, _, m_map = _mat_geometry(mat)
+    ks, chunk = _depth_split(rows, depth, cols)
+    part = torch.empty((ks, rows, cols), dtype=torch.float32, device=out.device) if ks > 1 else None
+    code = _build.load().neo_transform(
+        int(mat.dtype == torch.bfloat16), int(inverse), a.data_ptr(), *a_map, mat.data_ptr(), *m_map,
+        out.data_ptr(), *o_map, 0 if part is None else part.data_ptr(), ks, chunk,
+        rows, depth, cols, _build.stream_of(out),
+    )
+    _build.check(code, "transform")
+
+
+def window_forward_reference(x, mat, i0: int, wc: int, out=None):
+    """Plain :func:`window_forward` (float64 products)."""
+    depth, cols, _ = _mat_geometry(mat)
+    b = depth // 2
+    frames = x[:, i0 * b : (i0 + wc + 1) * b].unfold(1, depth, b)  # [C, wc, N]
+    spec = (frames.to(mat.dtype).double() @ _mat2d(mat).double()).float().transpose(0, 1)
+    if out is None:
+        return spec.contiguous()
+    out.copy_(spec)
+    return out
+
+
+def window_forward(x, mat, i0: int, wc: int, out=None):
+    """Forward packed DFTs of ``wc`` blocks from block ``i0``, as one product.
+
+    x   : [C, L] f32, frames of N = 2B samples at hop B (B3's ``sigpad``, or
+          B2's ``frame`` as one block)
+    mat : the forward matrix, [N, 2B] (B3's ``cs``) or [2, N, B] (B2's), f32
+          or bf16; the frames are rounded to its dtype
+    out : optional [wc, C, 2B] f32 destination
+    returns spectra [wc, C, 2B] f32 (re | im lanes)
+    """
+    c, length = x.shape
+    depth, cols, _ = _mat_geometry(mat)
+    b = depth // 2
+    if x.dtype != torch.float32 or mat.dtype not in (torch.float32, torch.bfloat16) or cols != 2 * b:
+        raise ValueError("window_forward takes f32 frames and an f32/bf16 [N, 2B] or [2, N, B] matrix")
+    if i0 < 0 or wc < 1 or (i0 + wc + 1) * b > length:
+        raise ValueError(f"blocks [{i0}, {i0 + wc}) need {(i0 + wc + 1) * b} samples, have {length}")
+    if _check_common([x, mat, out], "window_forward"):
+        return window_forward_reference(x, mat, i0, wc, out)
+    if out is None:
+        out = torch.empty((wc, c, cols), dtype=torch.float32, device=x.device)
+    # row (i, c) of the product starts at sample c * L + (i0 + i) * B
+    _transform(False, x[:, i0 * b :], (c, b, length), mat, out, (1, cols, 0), wc * c, depth, cols)
+    window_forward.launches += 1
+    return out
+
+
+window_forward.launches = 0
+
+
+def window_inverse_reference(acc, inv, out, i0: int):
+    """Plain :func:`window_inverse` (float64 products)."""
+    wc, c, _ = acc.shape
+    n_out = inv.shape[1]
+    y = (acc.to(inv.dtype).double() @ inv.double()).float()  # [wc, C, n_out]
+    out[:, i0 * n_out : (i0 + wc) * n_out] = y.transpose(0, 1).reshape(c, wc * n_out)
+    return out
+
+
+def window_inverse(acc, inv, out, i0: int):
+    """Inverse packed DFTs of a window's accumulators, as one product.
+
+    acc : [wc, C, 2B] f32, rounded to the matrix dtype on the way in
+    inv : [2B, n_out] (B3's tail-half ``abt`` [2B, B]; B2's ``ab`` [2, B, N]
+          reshaped to [2B, N]), f32 or bf16
+    out : [C, nbo * n_out] f32; block i goes to columns (i0 + i) * n_out on
+    returns out
+    """
+    wc, c, depth = acc.shape
+    n_out = inv.shape[1] if inv.ndim == 2 else 0
+    if (acc.dtype != torch.float32 or inv.ndim != 2 or inv.shape[0] != depth
+            or inv.dtype not in (torch.float32, torch.bfloat16) or out.dtype != torch.float32
+            or out.ndim != 2 or out.shape[0] != c or out.shape[1] < (i0 + wc) * n_out or i0 < 0):
+        raise ValueError("window_inverse takes acc [wc, C, 2B] f32, inv [2B, n] and out [C, >= (i0+wc) n] f32")
+    if _check_common([acc, inv, out], "window_inverse"):
+        return window_inverse_reference(acc, inv, out, i0)
+    # row (i, c) of the product lands at column (i0 + i) * n_out of out's row c
+    _transform(True, acc, (1, depth, 0), inv, out[:, i0 * n_out :], (c, n_out, out.shape[1]),
+               wc * c, depth, n_out)
+    window_inverse.launches += 1
+    return out
+
+
+window_inverse.launches = 0
+
+
+# ------------------------------------------------------- 2. quantize
+
+
+def quantize_rows_reference(s, dtype, x=None, scl=None):
+    """Plain :func:`quantize_rows`."""
+    wc, c, w = s.shape
+    b = w // 2
+    spec = s.reshape(wc, c, 2, b).transpose(1, 2)  # [wc, 2, C, B]
+    if dtype in _INT_MAX:
+        m = _INT_MAX[dtype]
+        peak = torch.amax(torch.abs(s), dim=-1)  # [wc, C]
+        scale = torch.where(peak > 0, peak, torch.ones_like(peak))
+        q = torch.clamp(torch.round(spec / scale[:, None, :, None] * m), -m, m).to(dtype)
+    else:
+        scale, q = None, spec.to(dtype)
+    x = q.contiguous() if x is None else x.copy_(q)
+    if scale is not None:
+        scl = scale if scl is None else scl.copy_(scale)
+    return x, scl
+
+
+def quantize_rows(s, dtype, x=None, scl=None):
+    """Spectra -> ring rows: quantize (per-(block, channel) peak scale,
+    ``x / scale * int_max``, rint, clamp) for int storages, else cast.
+
+    s   : [wc, C, 2B] f32
+    x   : optional [wc, 2, C, B] destination in the storage ``dtype``
+    scl : optional [wc, C] f32 destination (int storages)
+    returns (x, scl), scl None for split and bf16
+    """
+    wc, c, w = s.shape
+    b = w // 2
+    quant = dtype in _INT_MAX
+    if s.dtype != torch.float32 or w % 2 or dtype not in STORAGE_CODES:
+        raise ValueError("quantize_rows takes f32 spectra [wc, C, 2B] and a storage dtype")
+    if _check_common([s, x, scl], "quantize_rows"):
+        return quantize_rows_reference(s, dtype, x, scl)
+    if x is None:
+        x = torch.empty((wc, 2, c, b), dtype=dtype, device=s.device)
+    if quant and scl is None:
+        scl = torch.empty((wc, c), dtype=torch.float32, device=s.device)
+    if x.dtype != dtype or tuple(x.shape) != (wc, 2, c, b):
+        raise ValueError(f"x must be {dtype} [{wc}, 2, {c}, {b}]")
+    code = _build.load().neo_fs_quantize(
+        STORAGE_CODES[dtype], s.data_ptr(), x.data_ptr(), scl.data_ptr() if quant else 0,
+        wc * c, c, b, _build.stream_of(s),
+    )
+    _build.check(code, "quantize_rows")
+    quantize_rows.launches += 1
+    return x, scl if quant else None
+
+
+quantize_rows.launches = 0
+
+
+# ------------------------------------------------------ 4. write-back
+
+
+def _writeback_slots(wc: int, p: int, pos_first: int):
+    first = max(0, wc - p)
+    return first, [(pos_first + i) % p for i in range(first, wc)]
+
+
+def ring_writeback_reference(x, scl, fdl, scales, pos_first: int):
+    """Plain :func:`ring_writeback`."""
+    first, slots = _writeback_slots(x.shape[0], fdl.shape[1], pos_first)
+    idx = torch.tensor(slots, device=fdl.device)
+    fdl[:, idx] = x[first:].transpose(0, 1)
+    if scales is not None:
+        scales[idx] = scl[first:]
+    return fdl
+
+
+def ring_writeback(x, scl, fdl, scales, pos_first: int):
+    """Staged rows into the ring, IN PLACE: block i of the window goes to
+    slot ``(pos_first + i) % P`` (with its scale), the last write winning
+    when the window is longer than the ring.
+
+    x : [wc, 2, C, B] storage dtype; scl : [wc, C] f32 or None
+    fdl : [2, P, C, B]; scales : [P, C] f32 or None
+    """
+    wc = x.shape[0]
+    _, p, c, b = fdl.shape
+    if x.dtype != fdl.dtype or tuple(x.shape[1:]) != (2, c, b) or (scl is None) != (scales is None):
+        raise ValueError("ring_writeback: x must match the ring's dtype and [2, C, B] rows")
+    if not 0 <= pos_first < p:
+        raise ValueError(f"pos_first {pos_first} outside [0, {p})")
+    if _check_common([x, scl, fdl, scales], "ring_writeback"):
+        return ring_writeback_reference(x, scl, fdl, scales, pos_first)
+    code = _build.load().neo_fs_writeback(
+        STORAGE_CODES[fdl.dtype], x.data_ptr(), 0 if scl is None else scl.data_ptr(), fdl.data_ptr(),
+        0 if scales is None else scales.data_ptr(), p, c, b, wc, pos_first, _build.stream_of(fdl),
+    )
+    _build.check(code, "ring_writeback")
+    ring_writeback.launches += 1
+    return fdl
+
+
+ring_writeback.launches = 0
+
+
+# ------------------------------------------------ the schedule's widths
+
+
+def sched_widths_reference(sched, b: int, pc: int):
+    """Plain :func:`sched_widths`."""
+    c_idx, flags = (np.asarray(t.cpu()) for t in sched)
+    p = c_idx.shape[0]
+    n_codes = len(lane_widths(b))
+    code, chunk = c_idx >> 16, c_idx & 0xFFFF
+    width = np.where(flags == 1, np.where(code < n_codes, b >> np.minimum(code, 31), b), 0)
+    tab = np.zeros((p, p // pc), np.int32)
+    rows = np.broadcast_to(np.arange(p)[:, None], c_idx.shape)
+    keep = chunk < p // pc
+    np.maximum.at(tab, (rows[keep], chunk[keep]), width[keep].astype(np.int32))
+    return torch.from_numpy(tab).to(sched[0].device)
+
+
+def sched_widths(sched, b: int, pc: int):
+    """The chunk schedule as live lane widths: ``[P, P / pc]`` int32, entry
+    (row, j) the widest ``B >> code`` (B for a code outside ``lane_widths``)
+    of row's flag-1 entries naming chunk j, 0 where none does."""
+    c_idx, flags = sched
+    p, l_max = c_idx.shape
+    if p % pc:
+        raise ValueError(f"pc = {pc} must divide P = {p}")
+    if _check_common([c_idx, flags], "sched_widths"):
+        return sched_widths_reference(sched, b, pc)
+    tab = torch.empty((p, p // pc), dtype=torch.int32, device=c_idx.device)
+    code = _build.load().neo_fs_widths(
+        c_idx.data_ptr(), flags.data_ptr(), tab.data_ptr(), p, l_max, p // pc, b, len(lane_widths(b)),
+        _build.stream_of(c_idx),
+    )
+    _build.check(code, "sched_widths")
+    sched_widths.launches += 1
+    return tab
+
+
+sched_widths.launches = 0
+
+
+def _live_lanes(widths, pos: int, slots, b: int):
+    """[len(slots), B] bool: the lanes that row ``pos`` of the width table
+    keeps for each slot."""
+    tab, pc = widths
+    w = tab[pos].cpu()[torch.as_tensor(slots) // pc]
+    return torch.arange(b)[None, :] < w[:, None]
+
+
+# ------------------------------------------- 3. the time-batched MAC
+
+
+def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None,
+                         widths=None, out=None):
+    """Plain :func:`stream_mac` (float64 sums, a loop over the window)."""
+    _, p, c, b = fdl.shape
+    wc = x.shape[0]
+    old = [(pos_first + d) % p for d in range(-(p - 1), 0)]
+    hist_old = fdl[:, torch.tensor(old, dtype=torch.long, device=fdl.device)].transpose(0, 1).double()
+    hist_new = x.double()
+    if scales is not None:
+        hist_old = hist_old * _quant_scale(scales[old], fdl.dtype)[:, None, :, None]
+        hist_new = hist_new * _quant_scale(scl, fdl.dtype)[:, None, :, None]
+    hist = torch.cat([hist_old, hist_new])  # [P - 1 + wc, 2, C, B]: rows d = -(P-1) .. wc-1
+    # block i reads hist rows i .. i+P-1 (d = i-P+1 .. i): row q is tap a = P-1-q, slot
+    # (pos - a) % P, which meets filter row P-1-pos+slot: q when a <= pos, else q + P
+    res = torch.empty((wc, c, 2 * b), dtype=torch.float32, device=fdl.device) if out is None else out
+    q = torch.arange(p, device=fdl.device)
+    for i in range(wc):
+        xw = hist[i : i + p]
+        pos = (pos_first + i) % p
+        f = filt_rim[torch.where(p - 1 - q <= pos, q, q + p)].double()
+        fr, fi = f[..., :b], f[..., b:]
+        if widths is not None:
+            slots = [(pos - (p - 1 - j)) % p for j in range(p)]
+            live = _live_lanes(widths, pos, slots, b).to(f.device)[:, None, :]
+            fr = torch.where(live, fr, 0.0)
+            fi = torch.where(live, fi, 0.0)
+        acc_re = torch.sum(xw[:, 0] * fr - xw[:, 1] * fi, dim=0)
+        acc_im = torch.sum(xw[:, 0] * fi + xw[:, 1] * fr, dim=0)
+        if seed is not None:
+            acc_re = acc_re + seed[i, 0].double()
+            acc_im = acc_im + seed[i, 1].double()
+        acc_re[:, 0] = dcfix[i, 0].double()
+        acc_im[:, 0] = dcfix[i, 1].double()
+        res[i] = torch.cat([acc_re, acc_im], dim=-1).float().to(filt_rim.dtype).float()
+    return res
+
+
+def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, widths=None, out=None):
+    """The MAC of a window of blocks, batched over time.
+
+    fdl, scales : the ring [2, P, C, B] and its scales [P, C] (or None) as
+                  they stood before the window (slot ``(pos_first + d) % P``
+                  holds the window's block d < 0)
+    x, scl      : the window's staged rows [wc, 2, C, B] and scales [wc, C]
+    filt_rim    : [2P, C', 2B] in the matrix dtype; block i at ring position
+                  pos meets tap a (the slot written a blocks earlier) at row
+                  P - 1 - a when a <= pos, else 2P - 1 - a: the rows the
+                  block-by-block kernel reads, one filter when ``filt_rim``
+                  is the tiled form the convolver builds
+    dcfix       : [wc, 2, C] f32 lane-0 values; seed: [wc, 2, C, B] f32 or None
+    widths      : ``(sched_widths(...), pc)`` or None (dense)
+    returns acc [wc, C, 2B] f32: block i's ``seed + sum_a filt[a] X[i - a]``
+    (each row dequantized with its own scale), lane 0 := dcfix, rounded to
+    the matrix dtype
+    """
+    _, p, c, b = fdl.shape
+    wc = x.shape[0]
+    if (tuple(x.shape) != (wc, 2, c, b) or x.dtype != fdl.dtype or tuple(dcfix.shape) != (wc, 2, c)
+            or (seed is not None and tuple(seed.shape) != (wc, 2, c, b)) or (scl is None) != (scales is None)):
+        raise ValueError("stream_mac: x [wc, 2, C, B], dcfix [wc, 2, C], seed [wc, 2, C, B] as the ring")
+    tab = None if widths is None else widths[0]
+    if _check_common([fdl, scales, x, scl, filt_rim, dcfix, seed, tab, out], "stream_mac"):
+        return stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first, seed, widths, out)
+    if out is None:
+        out = torch.empty((wc, c, 2 * b), dtype=torch.float32, device=fdl.device)
+    pc = 0 if widths is None else widths[1]
+    code = _build.load().neo_fs_stream_mac(
+        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
+        0 if scl is None else scl.data_ptr(), filt_rim.data_ptr(), 0 if seed is None else seed.data_ptr(),
+        dcfix.data_ptr(), 0 if tab is None else tab.data_ptr(), out.data_ptr(),
+        p, c, b, filt_rim.shape[1], wc, pos_first, pc, 0 if tab is None else tab.shape[1],
+        _build.stream_of(fdl),
+    )
+    _build.check(code, "stream_mac")
+    stream_mac.launches += 1
+    return out
+
+
+stream_mac.launches = 0
+
+
+# --------------------------------------------------- B2's one-block MAC
+
+
+def _step_geometry(fdl):
+    """(splits S, slots a split, lanes a thread) of :func:`step_mac`."""
+    return _step_geometry_of(*fdl.shape[1:], fdl.element_size())
+
+
+@functools.lru_cache(maxsize=64)
+def _step_geometry_of(p: int, c: int, b: int, itemsize: int):
+    vec = 16 // itemsize
+    vec = vec if b % vec == 0 else 1
+    lane_tiles = -(-b // (vec * _STEP_LANES))
+    s = max(1, min(p, -(-_STEP_CTAS // (c * lane_tiles))))
+    per = -(-p // s)
+    return -(-p // per), per, vec
+
+
+def _step_aligned(fdl, filt_rim, vec: int) -> bool:
+    """Whether the ring and the filter allow :func:`step_mac`'s ``vec``-lane
+    loads (16 bytes of ring, ``vec`` filter elements)."""
+    align = max(16, vec * filt_rim.element_size())
+    return fdl.data_ptr() % 16 == 0 and filt_rim.data_ptr() % align == 0
+
+
+def step_mac_reference(fdl, scales, filt_rim, pos: int, widths=None):
+    """Plain :func:`step_mac` (float64 sums a split)."""
+    _, p, c, b = fdl.shape
+    s_n, per, _ = _step_geometry(fdl)
+    part = torch.empty((s_n, 2, c, b), dtype=torch.float32, device=fdl.device)
+    for s in range(s_n):
+        sl = list(range(s * per, min(p, (s + 1) * per)))
+        x = fdl[:, sl].double()
+        if scales is not None:
+            x = x * _quant_scale(scales[sl], fdl.dtype)[None, :, :, None]
+        f = filt_rim[[p - 1 - pos + q for q in sl]].double()  # [n, C', 2B]
+        fr, fi = f[..., :b], f[..., b:]
+        if widths is not None:
+            live = _live_lanes(widths, pos, sl, b).to(f.device)[:, None, :]
+            fr = torch.where(live, fr, 0.0)
+            fi = torch.where(live, fi, 0.0)
+        part[s, 0] = torch.sum(x[0] * fr - x[1] * fi, dim=0).float()
+        part[s, 1] = torch.sum(x[0] * fi + x[1] * fr, dim=0).float()
+    return part
+
+
+def step_mac(fdl, scales, filt_rim, pos: int, widths=None):
+    """One block's MAC against the ring (B2), split over P.
+
+    fdl, scales : the ring [2, P, C, B] with the new row already in slot
+                  ``pos``, and its scales [P, C] (or None)
+    filt_rim    : [2P, C', 2B] matrix dtype; slot p meets row P - 1 - pos + p
+    widths      : ``(sched_widths(...), pc)`` or None; row ``pos`` is read
+    returns part [S, 2, C, B] f32, split s the sum over its slots
+    """
+    _, p, c, b = fdl.shape
+    tab = None if widths is None else widths[0]
+    if _check_common([fdl, scales, filt_rim, tab], "step_mac"):
+        return step_mac_reference(fdl, scales, filt_rim, pos, widths)
+    s_n, per, vec = _step_geometry(fdl)
+    cf = filt_rim.shape[1]
+    msize = filt_rim.element_size()
+    fre = filt_rim[p - 1 - pos]
+    if vec > 1 and not _step_aligned(fdl, filt_rim, vec):
+        vec = 1
+    part = torch.empty((s_n, 2, c, b), dtype=torch.float32, device=fdl.device)
+    code = _build.load().neo_fs_step_mac(
+        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(),
+        fre.data_ptr(), fre.data_ptr() + b * msize, cf * 2 * b, 0 if cf == 1 else 2 * b,
+        0 if tab is None else tab[pos].data_ptr(), part.data_ptr(),
+        p, c, b, 1 if widths is None else widths[1], s_n, per, vec, _build.stream_of(fdl),
+    )
+    _build.check(code, "step_mac")
+    step_mac.launches += 1
+    return part
+
+
+step_mac.launches = 0
+
+
+def step_reduce_reference(part, dcfix, mdt):
+    """Plain :func:`step_reduce`."""
+    acc = part.double().sum(0)  # [2, C, B]
+    acc[:, :, 0] = dcfix.double()
+    return torch.cat([acc[0], acc[1]], dim=-1).float().to(mdt).float()[None]
+
+
+def step_reduce(part, dcfix, mdt):
+    """B2's accumulator: the splits of :func:`step_mac` added in split order,
+    lane 0 := ``dcfix`` [2, C], rounded to the matrix dtype ``mdt``.
+    returns acc [1, C, 2B] f32"""
+    s_n, _, c, b = part.shape
+    if tuple(dcfix.shape) != (2, c) or dcfix.dtype != torch.float32:
+        raise ValueError(f"dcfix must be float32 [2, {c}]")
+    if _check_common([part, dcfix], "step_reduce"):
+        return step_reduce_reference(part, dcfix, mdt)
+    acc = torch.empty((1, c, 2 * b), dtype=torch.float32, device=part.device)
+    code = _build.load().neo_fs_step_reduce(
+        int(mdt == torch.bfloat16), part.data_ptr(), dcfix.data_ptr(), acc.data_ptr(), s_n, c, b,
+        _build.stream_of(part),
+    )
+    _build.check(code, "step_reduce")
+    step_reduce.launches += 1
+    return acc
+
+
+step_reduce.launches = 0
+
+
+# the stages neo_fused_block_step launches, in the order of its counts
+_STEP_STAGES = (window_forward, quantize_rows, ring_writeback, sched_widths, step_mac, step_reduce,
+                window_inverse)
+
+
+def stage_wrappers():
+    """The stage functions of B2 and B3, each counting its launches."""
+    return (window_forward, quantize_rows, stream_mac, ring_writeback, window_inverse, sched_widths,
+            step_mac, step_reduce)
+
+
+# ------------------------------------------------------ the block oracle
 
 
 def _sched_live(sched, pos, p, b, pc):
     """[P, B] bool: the (row, lane) pairs that row ``pos`` of the chunk
-    schedule sums (the plain versions' form of the kernels' loop)."""
+    schedule sums (the block-by-block oracle's form of the schedule)."""
     n_codes = len(lane_widths(b))
     live = torch.zeros((p, b), dtype=torch.bool)
     for v, fl in zip(sched[0][pos].tolist(), sched[1][pos].tolist()):
@@ -191,7 +727,7 @@ def _block_reference(frame, fdl, scales, rim, pos, dcfix, fwd, inv, seed=None, s
     rot = rim[p - 1 - pos : 2 * p - 1 - pos].double()  # [P, C', 2B]
     x = fdl.double()
     if scales is not None:
-        x = x * (scales * (1.0 / _INT_MAX[fdl.dtype])).double()[None, :, :, None]
+        x = x * _quant_scale(scales, fdl.dtype)[None, :, :, None]
     fr, fi = rot[..., :b], rot[..., b:]
     if sched is not None:
         live = _sched_live(sched, pos, p, b, fused_chunk_rows(fdl.dtype, p, fdl.shape[2], b))
@@ -210,12 +746,34 @@ def _block_reference(frame, fdl, scales, rim, pos, dcfix, fwd, inv, seed=None, s
 
 
 def fused_block_step_reference(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None, sched=None):
-    """Plain PyTorch B2; same contract as :func:`fused_block_step`."""
+    """Plain PyTorch B2, block by block (the oracle); same contract as
+    :func:`fused_block_step`."""
     b = fdl.shape[3]
     fwd = torch.cat([cs[0], cs[1]], dim=-1)  # [N, 2B]
     inv = ab.reshape(2 * b, -1)  # [2B, N]
     y = _block_reference(frame, fdl, scales, filt_rim, int(pos), dcfix, fwd, inv, sched=sched)
     return (y, fdl) if scales is None else (y, fdl, scales)
+
+
+def fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
+                           sched=None, acc_add=None):
+    """Plain PyTorch B3, a Python loop over blocks (the oracle); same
+    contract as :func:`fused_stream`."""
+    c = sigpad.shape[0]
+    p, b = fdl.shape[1], fdl.shape[3]
+    nb = sigpad.shape[1] // b - 1
+    out = torch.empty((c, nb * b), dtype=torch.float32, device=sigpad.device)
+    for i in range(nb):
+        frame = sigpad[:, i * b : i * b + 2 * b]
+        pos = (int(pos0) + i) % p
+        out[:, i * b : (i + 1) * b] = _block_reference(
+            frame, fdl, scales, filt_rim, pos, dcfix_all[i], cs, abt,
+            None if acc_add is None else acc_add[i], sched,
+        )
+    return (out, fdl) if scales is None else (out, fdl, scales)
+
+
+# ------------------------------------------------------------ B2 and B3
 
 
 def fused_block_step(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None, sched=None):
@@ -233,7 +791,7 @@ def fused_block_step(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None, sche
     scales  : [P, C] f32 (int8/int16 storages only) — row ``pos`` written
               in place
     sched   : optional chunk schedule ``(c_idx, flags)``, the full [P, L]
-              int32 tables (module docstring); the kernel reads row ``pos``
+              int32 tables (module docstring); row ``pos`` is honoured
 
     Returns (y [C, N] f32, fdl) or (y, fdl, scales).
     """
@@ -248,18 +806,47 @@ def fused_block_step(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None, sche
         raise ValueError(f"cs/ab must be {mdt} [2, {n}, {b}] / [2, {b}, {n}]")
     if dcfix.dtype != torch.float32 or tuple(dcfix.shape) != (2, c):
         raise ValueError(f"dcfix must be float32 [2, {c}]")
-    tensors = [frame, fdl, filt_rim, dcfix, cs, ab] + ([] if scales is None else [scales])
-    _check_common(tensors, "fused_block_step")
-    sc, sf, l_max, pc, n_codes = _check_sched(sched, fdl)
-    if frame.device.type == "cpu":
-        return fused_block_step_reference(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales, sched)
+    cpu = _check_common([frame, fdl, filt_rim, dcfix, cs, ab, scales], "fused_block_step")
+    pc = _check_sched(sched, fdl)
+    if cpu:  # the staged plain versions
+        spec = window_forward(frame, cs, 0, 1)
+        x, scl = quantize_rows(spec, fdl.dtype)
+        ring_writeback(x, scl, fdl, scales, pos)
+        widths = None if sched is None else (sched_widths(sched, b, pc), pc)
+        acc = step_reduce(step_mac(fdl, scales, filt_rim, pos, widths), dcfix, mdt)
+        y = window_inverse(acc, ab.reshape(2 * b, n), torch.empty((c, n), dtype=torch.float32), 0)
+        return (y, fdl) if scales is None else (y, fdl, scales)
+    # the same stage kernels, launched by one C call: a block's device time
+    # is about 0.1 ms, less than a host round trip per stage would cost
+    ks, chunk = _depth_split(c, n, n)
+    s_n, per, vec = _step_geometry(fdl)
+    if vec > 1 and not _step_aligned(fdl, filt_rim, vec):
+        vec = 1
+    # the staging regions, 256-byte aligned in one buffer (one allocation a
+    # call: each torch.empty costs host time on a ~0.1 ms step): spec, the
+    # transforms' depth-split sums, the staged row, its scales, step_mac's
+    # partial sums, the accumulator, the widths table; 0 bytes where absent
+    sizes = (4 * c * n, 4 * ks * c * n if ks > 1 else 0, 2 * c * b * fdl.element_size(),
+             4 * c if scales is not None else 0, 4 * s_n * 2 * c * b, 4 * c * n,
+             4 * p * (p // pc) if sched is not None else 0)
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total if size else None)
+        total += -(-size // 256) * 256
+    ws = torch.empty(total, dtype=torch.uint8, device=frame.device)
+    spec, gpart, x, scl, mpart, acc, tab = (0 if o is None else ws.data_ptr() + o for o in offsets)
     y = torch.empty((c, n), dtype=torch.float32, device=frame.device)
+    c_idx, c_flags = (0, 0) if sched is None else (sched[0].data_ptr(), sched[1].data_ptr())
+    counts = (ctypes.c_int * len(_STEP_STAGES))()  # the C call adds one per stage it launched
     code = _build.load().neo_fused_block_step(
         STORAGE_CODES[fdl.dtype], frame.data_ptr(), fdl.data_ptr(), filt_rim.data_ptr(),
-        0 if scales is None else scales.data_ptr(), dcfix.data_ptr(),
-        cs.data_ptr(), ab.data_ptr(), y.data_ptr(), sc, sf,
-        p, c, b, filt_rim.shape[1], pos, l_max, pc, n_codes, _build.stream_of(frame),
+        0 if scales is None else scales.data_ptr(), dcfix.data_ptr(), cs.data_ptr(), ab.data_ptr(),
+        y.data_ptr(), c_idx, c_flags, spec, gpart, x, scl, mpart, acc, tab, counts, p, c, b,
+        filt_rim.shape[1], pos, 0 if sched is None else sched[0].shape[1], pc or 1, len(lane_widths(b)),
+        ks, chunk, s_n, per, vec, _build.stream_of(frame),
     )
+    for stage, launched in zip(_STEP_STAGES, counts):
+        stage.launches += launched
     _build.check(code, "fused_block_step")
     fused_block_step.launches += 1
     fused_block_step.sched_launches += sched is not None
@@ -270,27 +857,10 @@ fused_block_step.launches = 0
 fused_block_step.sched_launches = 0
 
 
-def fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
-                           sched=None, acc_add=None):
-    """Plain PyTorch B3 (a Python loop over blocks); same contract as
-    :func:`fused_stream`."""
-    c = sigpad.shape[0]
-    p, b = fdl.shape[1], fdl.shape[3]
-    nb = sigpad.shape[1] // b - 1
-    out = torch.empty((c, nb * b), dtype=torch.float32, device=sigpad.device)
-    for i in range(nb):
-        frame = sigpad[:, i * b : i * b + 2 * b]
-        pos = (int(pos0) + i) % p
-        out[:, i * b : (i + 1) * b] = _block_reference(
-            frame, fdl, scales, filt_rim, pos, dcfix_all[i], cs, abt,
-            None if acc_add is None else acc_add[i], sched,
-        )
-    return (out, fdl) if scales is None else (out, fdl, scales)
-
-
 def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
                  sched=None, acc_add=None):
-    """Stream nb UPOLS blocks through ONE launch.
+    """Stream nb UPOLS blocks through the staged pipeline, in windows of
+    :data:`WINDOW` blocks.
 
     sigpad   : [C, (nb+1)*B] f32 — [previous tail | signal]
     fdl      : [2, P, C, B] storage dtype, ring layout — updated IN PLACE
@@ -302,7 +872,7 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
     abt      : [2B, B] inverse matrix, last-B columns only (tail half)
     scales   : [P, C] f32 (int8/int16) — updated IN PLACE
     sched    : optional chunk schedule ``(c_idx, flags)``, the full [P, L]
-               int32 tables (module docstring); block i reads row
+               int32 tables (module docstring); block i honours row
                ``(pos0 + i) % P``
     acc_add  : optional [nb, 2, C, B] f32 per-block accumulator SEED
                (packed lanes; the MAC adds onto it, and the ``dcfix``
@@ -328,25 +898,30 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
                                 or tuple(acc_add.shape) != (nb, 2, c, b)):
         raise ValueError(f"acc_add must be float32 [{nb}, 2, {c}, {b}]")
     pos0 = int(pos0) % p
-    tensors = [sigpad, fdl, filt_rim, dcfix_all, cs, abt] + [
-        t for t in (scales, acc_add) if t is not None
-    ]
-    _check_common(tensors, "fused_stream")
-    sc, sf, l_max, pc, n_codes = _check_sched(sched, fdl)
-    if sigpad.device.type == "cpu":
-        return fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales,
-                                      sched, acc_add)
-    out = torch.empty((c, nb * b), dtype=torch.float32, device=sigpad.device)
-    code = _build.load().neo_fused_stream(
-        STORAGE_CODES[fdl.dtype], sigpad.data_ptr(), fdl.data_ptr(), filt_rim.data_ptr(),
-        0 if scales is None else scales.data_ptr(), dcfix_all.data_ptr(),
-        0 if acc_add is None else acc_add.data_ptr(),
-        cs.data_ptr(), abt.data_ptr(), out.data_ptr(), sc, sf,
-        p, c, b, filt_rim.shape[1], nb, pos0, l_max, pc, n_codes, _build.stream_of(sigpad),
-    )
-    _build.check(code, "fused_stream")
-    fused_stream.launches += 1
-    fused_stream.sched_launches += sched is not None
+    cpu = _check_common([sigpad, fdl, filt_rim, dcfix_all, cs, abt, scales, acc_add], "fused_stream")
+    pc = _check_sched(sched, fdl)
+
+    dev = sigpad.device
+    widths = None if sched is None else (sched_widths(sched, b, pc), pc)
+    out = torch.empty((c, nb * b), dtype=torch.float32, device=dev)
+    w = min(WINDOW, nb)  # staging, reused by every window
+    spec = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
+    x = torch.empty((w, 2, c, b), dtype=fdl.dtype, device=dev)
+    scl = None if scales is None else torch.empty((w, c), dtype=torch.float32, device=dev)
+    acc = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
+    for i0 in range(0, nb, WINDOW):
+        wc = min(WINDOW, nb - i0)
+        pos_first = (pos0 + i0) % p
+        s_w = None if scl is None else scl[:wc]
+        window_forward(sigpad, cs, i0, wc, out=spec[:wc])
+        quantize_rows(spec[:wc], fdl.dtype, x[:wc], s_w)
+        stream_mac(fdl, scales, x[:wc], s_w, filt_rim, dcfix_all[i0 : i0 + wc], pos_first,
+                   None if acc_add is None else acc_add[i0 : i0 + wc], widths, out=acc[:wc])
+        ring_writeback(x[:wc], s_w, fdl, scales, pos_first)
+        window_inverse(acc[:wc], abt, out, i0)
+    if not cpu:
+        fused_stream.launches += 1
+        fused_stream.sched_launches += sched is not None
     return (out, fdl) if scales is None else (out, fdl, scales)
 
 

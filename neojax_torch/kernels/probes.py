@@ -13,14 +13,16 @@ B1's read time. It loads every element of both planes:
 keeps every load alive and checkable. Storages: split (f32) and bf16.
 
 T2 :func:`probe_stream` replaces ``tools/fused_probe.py`` · ``run_empty``
-(body ``k_empty``) and ``run_tf`` (body ``k_tf``): B3's grid (one CTA per
-channel over nb blocks) running B3's own stage code
-(``csrc/fused_block.cuh``) up to a point:
+(body ``k_empty``) and ``run_tf`` (body ``k_tf``): B3's own stage kernels
+(``kernels.fused_step``), in B3's windows of ``WINDOW`` blocks, up to a
+point:
 
-    "empty"       : out = 0
-    "win_fwd"     : window + forward packed DFT, out = spec[:B] + spec[B:]
-    "win_fwd_inv" : window + forward DFT, the spectrum rounded to the
-                    matrix dtype, then B3's tail-half inverse DFT
+    "empty"       : out = 0 (one zero-fill launch: the launch floor)
+    "win_fwd"     : B3's forward product (``window_forward``), then a fold
+                    launch, out = spec[:B] + spec[B:]
+    "win_fwd_inv" : B3's forward product, then its tail-half inverse
+                    product (``window_inverse``), which rounds the
+                    spectrum to the matrix dtype on the way in
 
 on B3's matrix layout (``cs [N, 2B]``, ``abt [2B, B]``, f32 or bf16; the
 frame is rounded to the matrix dtype first, as in B3).
@@ -36,6 +38,7 @@ import torch
 
 from neojax_torch.kernels import _build
 from neojax_torch.kernels.fdl_mac import STORAGE_CODES
+from neojax_torch.kernels import fused_step as fs
 from neojax_torch.kernels.fused_step import MAX_BLOCK
 
 __all__ = [
@@ -154,11 +157,20 @@ def probe_stream(sigpad, cs, abt, mode: str):
         raise ValueError(f"probe_stream: unsupported device {sigpad.device}")
     c = sigpad.shape[0]
     out = torch.empty((c, nb * b), dtype=torch.float32, device=sigpad.device)
-    code = _build.load().neo_probe_stream(
-        int(cs.dtype == torch.bfloat16), PROBE_MODES[mode], sigpad.data_ptr(), cs.data_ptr(),
-        abt.data_ptr(), out.data_ptr(), c, b, nb, _build.stream_of(sigpad),
-    )
-    _build.check(code, "probe_stream")
+    lib = _build.load()
+    stream = _build.stream_of(sigpad)
+    if mode == "empty":
+        _build.check(lib.neo_probe_fold(0, 0, out.data_ptr(), c, b, nb, 0, 0, stream), "probe_stream")
+    else:
+        spec = torch.empty((min(fs.WINDOW, nb), c, 2 * b), dtype=torch.float32, device=sigpad.device)
+        for i0 in range(0, nb, fs.WINDOW):
+            wc = min(fs.WINDOW, nb - i0)
+            fs.window_forward(sigpad, cs, i0, wc, out=spec[:wc])
+            if mode == "win_fwd":
+                code = lib.neo_probe_fold(1, spec.data_ptr(), out.data_ptr(), c, b, nb, wc, i0, stream)
+                _build.check(code, "probe_stream")
+            else:
+                fs.window_inverse(spec[:wc], abt, out, i0)
     probe_stream.launches += 1
     return out
 

@@ -3,15 +3,17 @@
 
 Port of ``tools/fused_probe.py``. Rows, each in µs a block:
 
-  ``empty_grid``                  T2 ``empty``: B3's grid writing zeros
-  ``win_fwd/{float32,bfloat16}``  T2 ``win_fwd``: + frame load and forward DFT
+  ``empty_grid``                  T2 ``empty``: one launch writing zeros
+  ``win_fwd/{float32,bfloat16}``  T2 ``win_fwd``: B3's windowed forward product
+                                  (+ a fold of its output)
   ``win_fwd_inv/{...}``           T2 ``win_fwd_inv``: + B3's tail-half inverse
+                                  product
   ``b3_zero_sched/{bf16,split}/P{32,960}``  B3 with an all-zero chunk schedule
                                   (every flag 0): the whole fixed path —
-                                  window, forward DFT, quantize and ring
-                                  insert, DC/Nyquist fix, inverse — without
-                                  the MAC (the row the TPU tool names but
-                                  never ran)
+                                  window, forward DFT, quantize, the MAC
+                                  launch skipping every tile, ring
+                                  write-back, DC/Nyquist fix, inverse (the
+                                  row the TPU tool names but never ran)
   ``b3/{bf16,split}/P{32,960}``   B3 dense (the kernel wrapper, same inputs)
   ``stream/{bf16,split}/P{32,960}`` the per-block convolver's ``process``
 
@@ -19,8 +21,11 @@ The matrix dtype follows the storage (f32 for split, bf16 for bf16). So for
 a storage and P, B3's block splits into empty, window + forward
 (``win_fwd`` - ``empty``), inverse (``win_fwd_inv`` - ``win_fwd``),
 quantize/insert and fix (``b3_zero_sched`` - ``win_fwd_inv``) and MAC
-(``b3`` - ``b3_zero_sched``). The TPU tool's chunk-size ladder has no
-counterpart: the CUDA B3 has no DMA chunks to size.
+(``b3`` - ``b3_zero_sched``). B3 runs as stage kernels, so these
+differences are the stages' own device time plus their launches; the
+smoke's ``stages_us`` reads each stage from a kernel timeline directly.
+The TPU tool's chunk-size ladder has no counterpart: the CUDA B3 has no
+DMA chunks to size.
 
 Every row is slope-timed over two stream lengths (CUDA events, minimum of
 3; a fixed per-call cost cancels); the TPU tool divided one wall time by

@@ -143,6 +143,21 @@ def test_work_models_at_the_headline_shape():
     assert q16.bytes - q8.bytes == 2 * 8 * 4 * 65 * 256 - 8 * 4 * 65 * 63 * 4
 
 
+def test_transform_stages_count_ffts():
+    """B3's transform stages count a real FFT a row, as T2 counts the same
+    two transforms, and no matrix bytes: at the headline window (64 blocks,
+    C = 64, B = 512) both are bound by their bytes, near 7.5 us."""
+    rfft = harness.fft_flops(1024) // 2
+    fwd = headline.transform_work(64 * 64, 1024, 64 * 65 * 512 * 4, 1024)
+    inv = headline.transform_work(64 * 64, 1024, 64 * 64 * 1024 * 4, 512)
+    assert fwd.flops == inv.flops == 64 * 64 * rfft
+    assert fwd.flops + inv.flops == headline.stream_probe_work(4, 64, 512, 64, "win_fwd_inv").flops
+    assert fwd.bytes == 64 * 65 * 512 * 4 + 64 * 64 * 1024 * 4
+    for w in (fwd, inv):
+        t, by = headline.bound(w, 3.35e12, 67e12)
+        assert by == "bytes" and 7.4e-6 < t < 7.6e-6
+
+
 def test_run_record_has_neojax_fields():
     tfields = [f.name for f in dataclasses.fields(tprofile.RunRecord)]
     jfields = [f.name for f in dataclasses.fields(jprofile.RunRecord)]

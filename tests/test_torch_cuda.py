@@ -321,12 +321,18 @@ def test_fused_block_step_sched_matches_plain_and_dense(cuda, rng, monkeypatch, 
         rings = [ring.clone() for _ in range(3)]
         scl = [None if scales is None else scales.clone() for _ in range(3)]
         before = fs.fused_block_step.sched_launches
+        stages_before = _stage_counts()
         ky = fs.fused_block_step(frame, rings[0], params["filt_rim"], pos, dcfix, cs, ab, scl[0], sched)[0]
+        stages_after = _stage_counts()
         py = fs.fused_block_step_reference(frame, rings[1], params["filt_rim"], pos, dcfix, cs, ab, scl[1],
                                            sched)[0]
         dy = fs.fused_block_step(frame, rings[2], params["filt_rim"], pos, dcfix, cs, ab, scl[2])[0]
         torch.cuda.synchronize()
         assert fs.fused_block_step.sched_launches == before + 1
+        # the counts the C call made as it launched: every B2 stage and the widths once
+        assert {k: stages_after[k] - stages_before[k] for k in stages_after} == {
+            "window_forward": 1, "quantize_rows": 1, "ring_writeback": 1, "sched_widths": 1, "step_mac": 1,
+            "step_reduce": 1, "window_inverse": 1, "stream_mac": 0}
         assert _rel(ky, py) < _TOL[storage]
         _same_ring(storage, rings[0], rings[1], scl[0], scl[1])
         assert torch.equal(ky, dy) and torch.equal(rings[0], rings[2])
@@ -429,3 +435,123 @@ def test_probe_stream_kernel_matches_plain(cuda, rng, dt, mode, c, b, nb):
         assert not got.any()
     else:
         assert _rel(got, want) < (_TOL["split"] if dt == torch.float32 else _TOL["bf16"])
+
+
+def _stage_counts():
+    return {f.__name__: f.launches for f in fs.stage_wrappers()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+def test_stage_kernels_match_plain(cuda, rng, monkeypatch, storage, cf):
+    """Each stage kernel of B2/B3 against its plain version on the same
+    inputs, at a ragged shape (B = 96 lanes, C = 3, a window of 5 blocks)."""
+    monkeypatch.setattr(fs, "_CHUNK_TARGET", 1)
+    p, c, b, wc, i0 = 24, 3, 96, 5, 2
+    dt, mdt = _DT[storage], fs.MATRIX_DTYPES[_DT[storage]]
+    ring, scales = _ring(rng, storage, p, c, b, cuda)
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, cf, 2 * b))).astype(np.float32)).to(cuda, mdt)
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, (i0 + wc + 2) * b)).astype(np.float32)).to(cuda)
+    dcfix = torch.from_numpy(rng.standard_normal((wc, 2, c)).astype(np.float32)).to(cuda)
+    seed = torch.from_numpy(rng.standard_normal((wc, 2, c, b)).astype(np.float32)).to(cuda)
+    mask = _lane_band_mask(p, b + 1, 0.5)
+    params = cv.filter_params(cv.PartitionedConfig(b, p, c, storage=storage), np.ones((1, p, b + 1), np.complex64),
+                              sparsity=mask, device=cuda)
+    sched = (params["sp_c_idx"], params["sp_c_flags"])
+    pc = fs.fused_chunk_rows(dt, p, c, b)
+    tol = 2e-6 if mdt == torch.float32 else _TOL["bf16"]
+    before = _stage_counts()
+    for mat in (mb.packed_stream_mats(2 * b, mdt, cuda)[0], mb.packed_mats(2 * b, mdt, cuda)[0]):
+        got = fs.window_forward(sig, mat, i0, wc)
+        assert _rel(got, fs.window_forward_reference(sig, mat, i0, wc)) < tol
+    x, scl = fs.quantize_rows(got, dt)
+    px, pscl = fs.quantize_rows_reference(got, dt)
+    torch.cuda.synchronize()
+    if storage in _INT_MAX:
+        assert int((x.int() - px.int()).abs().max()) <= 1 and _rel(scl, pscl) < 1e-6
+    else:
+        assert torch.equal(x, px)
+    tab = fs.sched_widths(sched, b, pc)
+    assert torch.equal(tab, fs.sched_widths_reference(sched, b, pc))
+    for widths in (None, (tab, pc)):
+        acc = fs.stream_mac(ring, scales, x, scl, rim, dcfix, p - 2, seed, widths)
+        want = fs.stream_mac_reference(ring, scales, x, scl, rim, dcfix, p - 2, seed, widths)
+        assert _rel(acc, want) < _TOL[storage]
+        part = fs.step_mac(ring, scales, rim, 7, widths)
+        assert _rel(part, fs.step_mac_reference(ring, scales, rim, 7, widths)) < 1e-5
+        red = fs.step_reduce(part, dcfix[0], mdt)
+        assert _rel(red, fs.step_reduce_reference(part, dcfix[0], mdt)) < tol
+    abt = mb.packed_stream_mats(2 * b, mdt, cuda)[1]
+    out_k = fs.window_inverse(acc, abt, torch.zeros((c, (i0 + wc) * b), device=cuda), i0)
+    out_p = fs.window_inverse_reference(acc, abt, torch.zeros((c, (i0 + wc) * b), device=cuda), i0)
+    assert _rel(out_k, out_p) < tol
+    k_ring, p_ring = ring.clone(), ring.clone()
+    k_s = None if scales is None else scales.clone()
+    p_s = None if scales is None else scales.clone()
+    fs.ring_writeback(x, scl, k_ring, k_s, p - 2)
+    fs.ring_writeback_reference(x, scl, p_ring, p_s, p - 2)
+    torch.cuda.synchronize()
+    assert torch.equal(k_ring, p_ring) and (scales is None or torch.equal(k_s, p_s))
+    after = _stage_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "window_forward": 2, "quantize_rows": 1, "sched_widths": 1, "stream_mac": 2, "step_mac": 2,
+        "step_reduce": 2, "window_inverse": 1, "ring_writeback": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("p,c,b,nb,pos0", [(64, 3, 96, 70, 60), (5, 3, 64, 1, 2), (24, 5, 130, 100, 20),
+                                           (3, 2, 256, 9, 1)])
+def test_fused_stream_ragged_shapes(cuda, rng, storage, p, c, b, nb, pos0):
+    """B3 at shapes off its tiles: B not a multiple of the 128-lane tile, C
+    odd, nb = 1, nb not a multiple of the window, P < the window (P = 64 is
+    the hybrid head's ring); each window runs each stage once."""
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    ring, scales = _ring(rng, storage, p, c, b, cuda)
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, 1, 2 * b))).astype(np.float32)).to(cuda, mdt)
+    cs, abt = mb.packed_stream_mats(2 * b, mdt, cuda)
+    sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(cuda)
+    dcfix = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(cuda)
+    k_ring, p_ring = ring.clone(), ring.clone()
+    k_s = None if scales is None else scales.clone()
+    p_s = None if scales is None else scales.clone()
+    before = _stage_counts()
+    ko = fs.fused_stream(sigpad, k_ring, rim, pos0, dcfix, cs, abt, k_s)[0]
+    after = _stage_counts()
+    po = fs.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix, cs, abt, p_s)[0]
+    torch.cuda.synchronize()
+    assert _rel(ko, po) < _TOL[storage]
+    _same_ring(storage, k_ring, p_ring, k_s, p_s)
+    windows = -(-nb // fs.WINDOW)
+    for name in ("window_forward", "quantize_rows", "stream_mac", "ring_writeback", "window_inverse"):
+        assert after[name] - before[name] == windows, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("p,c,b", [(7, 5, 130), (64, 3, 96), (2, 1, 1024)])
+def test_fused_block_step_ragged_shapes(cuda, rng, storage, p, c, b):
+    """B2 in one call at shapes off its tiles (B = 130: one lane a thread);
+    each stage counted once a block."""
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    ring, scales = _ring(rng, storage, p, c, b, cuda)
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, c, 2 * b))).astype(np.float32)).to(cuda, mdt)
+    cs, ab = mb.packed_mats(2 * b, mdt, cuda)
+    for pos in sorted({0, p - 1}):
+        frame = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * b)).astype(np.float32)).to(cuda)
+        dcfix = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32)).to(cuda)
+        k_ring, p_ring = ring.clone(), ring.clone()
+        k_s = None if scales is None else scales.clone()
+        p_s = None if scales is None else scales.clone()
+        before = _stage_counts()
+        ky = fs.fused_block_step(frame, k_ring, rim, pos, dcfix, cs, ab, k_s)[0]
+        after = _stage_counts()
+        py = fs.fused_block_step_reference(frame, p_ring, rim, pos, dcfix, cs, ab, p_s)[0]
+        torch.cuda.synchronize()
+        assert _rel(ky, py) < _TOL[storage]
+        _same_ring(storage, k_ring, p_ring, k_s, p_s)
+        for name in ("window_forward", "quantize_rows", "ring_writeback", "step_mac", "step_reduce",
+                     "window_inverse"):
+            assert after[name] - before[name] == 1, name
+        assert after["sched_widths"] == before["sched_widths"]  # no schedule, no widths launch
