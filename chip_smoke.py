@@ -26,7 +26,11 @@ Phases, each printing one JSON object per line:
      at the nested and hybrid shapes: B5 on both meta rings (all four
      storages, two ring positions), B3 with ``acc_add`` on the hybrid head
      (P = 64, split and int16, from 5 rows before the wrap) and B1 on the
-     unfused head's K = 513 bins (P = 64, split and int16). B2 and B3 run
+     unfused head's K = 513 bins (P = 64, all four storages). B1 rows give
+     the kernel's P splits, lanes a thread (``vec``), bound and share, and
+     B1's and B4's ``ms`` is device time with the host's enqueue hidden
+     behind a sleep kernel (``ms_back_to_back``: events around back-to-back
+     calls, which the wrapper's host time bounds for short calls). B2 and B3 run
      as stage kernels (``kernels.fused_step.stage_wrappers``): each row of
      theirs also prints its device time by stage (``stages_us``, from the
      call's kernel timeline), and each stage kernel is held against its
@@ -37,7 +41,9 @@ Phases, each printing one JSON object per line:
      three positions) and on a non-packed K = 513 ring (split, int16), B2
      with the chunk schedule at three positions and B3 with it over 64
      blocks from P-5, each against its plain version and against the dense
-     kernel on the same masked filter (B4 against B1)
+     kernel on the same masked filter (B4 against B1: max abs difference
+     0.0 required; B4 reads the schedule's ``tile_live`` table as the
+     convolver passes it)
   4. the main path, UPOLS ``Convolver.process`` per storage, SNR against an
      f64 FFT-convolution oracle in steady state (blocks 1152-1167, 4
      channels), gated on the storage's class (split 90, int16 74, bf16 40
@@ -71,7 +77,8 @@ Phases, each printing one JSON object per line:
      (``bench.headline``), its bound on the card (the larger of bytes over
      the HBM rate and operations over the f32 rate), its share of the
      bound, and the time of one PyTorch call computing the same function
-     where there is one (``library_ms``)
+     where there is one (``library_ms``); B1 also at the hybrid head's
+     [2, 64, 64, 513] ring and B4 also at K = 513
   8. times: per-block ``process``, ``process_nested`` and
      ``process_hybrid`` per storage, kernel route against the plain torch
      route (``mac_backend="torch"``: cuFFT transforms + tensor-op MAC), and
@@ -92,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -138,6 +146,34 @@ def snr_db(out: np.ndarray, ref: np.ndarray) -> float:
     err = np.asarray(out, np.float64) - ref
     den = float(np.sum(err**2))
     return float("inf") if den == 0 else 10.0 * np.log10(float(np.sum(ref**2)) / den)
+
+
+def mac_ptxas(log_path: str) -> list[dict]:
+    """Registers and spill bytes of each instance of the partition MAC
+    (``step_mac_kernel``, ``step_reduce_kernel``) in the nvcc log, by
+    translation unit."""
+    out, cur = [], None
+    if not os.path.exists(log_path):
+        return out
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                hit = re.search(r"(step_(?:mac|reduce)_kernel\w*?)(?:EEEv|EEvP)", name)
+                cur = None
+                if hit:
+                    cur = {"unit": "fdl_mac.cu" if "fdl_mac_cu" in name else "fused_step.cu",
+                           "kernel": hit.group(1)}
+                    out.append(cur)
+            elif cur is not None:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    cur["registers"] = int(m.group(1))
+    return out
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -196,13 +232,44 @@ def main() -> int:
                      if any(w in ln for w in ("Function properties", "registers", "spill"))]
     emit(phase="build", seconds=time.perf_counter() - t0, built=info["built"],
          library=os.path.relpath(info["path"], os.path.dirname(os.path.abspath(__file__))),
-         ptxas=ptxas)
+         ptxas=ptxas, partition_mac=mac_ptxas(log_path))
+
+    # the card's data-sheet peaks, for each kernel's bound (None off the H100)
+    peak_b, peak_f = harness.hbm_peak_bytes_per_sec(), harness.f32_peak_flops_per_sec()
+    no_peaks = None if peak_b and peak_f else f"the harness has no data-sheet peaks for {card['card']}"
+
+    def bound_of(work, ms):
+        """bound_ms and share of the bound of a kernel time, from its work."""
+        if no_peaks is not None:
+            return {"bound_ms": None, "bound_by": None, "share": None}
+        t, by = headline.bound(work, peak_b, peak_f)
+        return {"bound_ms": 1e3 * t, "bound_by": by, "share": 1e3 * t / ms}
 
     def cuda_ms(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        ev1.synchronize()
+        return ev0.elapsed_time(ev1) / reps
+
+    def device_ms(fn, reps: int) -> float:
+        """Device ms of one call of fn with the host's enqueue hidden: a
+        sleep kernel holds the stream while the reps calls queue up behind
+        it (a short call's back-to-back time is its host time)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t0
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * (reps * one + 1e-3)))  # clock cycles, > the enqueue time
         ev0.record()
         for _ in range(reps):
             fn()
@@ -277,8 +344,10 @@ def main() -> int:
             d, r = rel_err(torch.cat([k_re, k_im]).cpu(), torch.cat([p_re, p_im]).cpu())
             assert r < TOL[storage], f"fdl_mac {storage} cf={cf}: rel err {r}"
             form = "shared" if cf == 1 else "per_channel"
-            row[form] = {"max_abs_err": d, "rel_err": r,
-                         "ms": cuda_ms(lambda: mac_mod.fdl_mac(ring, fr, fi, scales), 20),
+            s_n, _, vec = mac_mod.mac_geometry(ring, fr, fi)
+            ms = device_ms(lambda: mac_mod.fdl_mac(ring, fr, fi, scales), 20)
+            row[form] = {"max_abs_err": d, "rel_err": r, "ms": ms, "splits": s_n, "vec": vec,
+                         **bound_of(headline.fdl_mac_work(storage, P, c, b, cf), ms),
                          "plain_ms": cuda_ms(lambda: mac_mod.fdl_mac_reference(ring, fr, fi, scales), 3)}
         emit(phase="kernel_vs_plain", kernel="fdl_mac", storage=storage, tol=TOL[storage], **row, **card)
         summary["fdl_mac"][storage] = row["shared"] | {"per_channel": row["per_channel"]}
@@ -425,8 +494,8 @@ def main() -> int:
             del planes, scales, tiled
             torch.cuda.empty_cache()
 
-    # B3 with acc_add and B1 on the hybrid head (P = S = 64): the head's
-    # storages are split and int16 (int8 keeps an int16 head)
+    # B3 with acc_add on the hybrid head (P = S = 64): the head's storages
+    # are split and int16 (int8 keeps an int16 head)
     ph = S_HYBRID
     summary["fused_stream_acc_add"] = {}
     summary["fdl_mac_head"] = {}
@@ -467,11 +536,20 @@ def main() -> int:
         emit(phase="kernel_vs_plain", kernel="fused_stream", acc_add=True, storage=storage, partitions=ph,
              tol=TOL[storage], pos0=pos0, **summary["fused_stream_acc_add"][storage], **card)
 
-        # B1 on the unfused head's non-packed bins: [2, 64, 64, 513]
+        del ring, k_ring, p_ring
+    torch.cuda.empty_cache()
+
+    # B1 on the unfused head's non-packed bins, [2, 64, 64, 513], all four
+    # storages (the head keeps split or int16; the others run the same kernel)
+    for storage in STORAGES:
+        sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
         if storage in INT_MAX:
-            hring = torch.from_numpy(rng.integers(-32767, 32768, (2, ph, c, k), dtype=np.int32)).to(dev, sdt)
+            m = INT_MAX[storage]
+            hring = torch.from_numpy(rng.integers(-m, m + 1, (2, ph, c, k), dtype=np.int32)).to(dev, sdt)
+            scales = torch.from_numpy(rng.uniform(1.0, 40.0, (ph, c)).astype(np.float32)).to(dev)
         else:
-            hring = torch.from_numpy((10 * rng.standard_normal((2, ph, c, k))).astype(np.float32)).to(dev)
+            hring = torch.from_numpy((10 * rng.standard_normal((2, ph, c, k))).astype(np.float32)).to(dev, sdt)
+            scales = None
         fr = torch.from_numpy((0.05 * rng.standard_normal((ph, 1, k))).astype(np.float32)).to(dev)
         fi = torch.from_numpy((0.05 * rng.standard_normal((ph, 1, k))).astype(np.float32)).to(dev)
         k_re, k_im = mac_mod.fdl_mac(hring, fr, fi, scales)
@@ -479,13 +557,24 @@ def main() -> int:
         torch.cuda.synchronize()
         d, r = rel_err(torch.cat([k_re, k_im]).cpu(), torch.cat([p_re, p_im]).cpu())
         assert r < TOL[storage], f"fdl_mac head K={k} {storage}: rel err {r}"
+        s_n, _, vec = mac_mod.mac_geometry(hring, fr, fi)
+        # device time with the host hidden; back to back, a loop of these
+        # short calls is bound by the host (as the hybrid head is)
+        ms = device_ms(lambda: mac_mod.fdl_mac(hring, fr, fi, scales), 50)
         summary["fdl_mac_head"][storage] = {
-            "max_abs_err": d, "rel_err": r,
-            "ms": cuda_ms(lambda: mac_mod.fdl_mac(hring, fr, fi, scales), 50),
+            "max_abs_err": d, "rel_err": r, "splits": s_n, "vec": vec,
+            "ms": ms, "ms_back_to_back": cuda_ms(lambda: mac_mod.fdl_mac(hring, fr, fi, scales), 50),
+            **bound_of(headline.fdl_mac_work(storage, ph, c, k), ms),
             "plain_ms": cuda_ms(lambda: mac_mod.fdl_mac_reference(hring, fr, fi, scales), 5)}
+        if storage == "split":  # the bounds phase's hybrid-head row
+            xc_h, fc_h = torch.complex(hring[0], hring[1]), torch.complex(fr[:, 0], fi[:, 0])
+            head_lib = {"library_ms": cuda_ms(lambda: torch.einsum("pck,pk->ck", xc_h, fc_h), 50),
+                        "library_call": "torch.einsum('pck,pk->ck') on complex64 at the hybrid head's "
+                                        "[64, 64, 513] ring (inputs built outside)"}
+            del xc_h, fc_h
         emit(phase="kernel_vs_plain", kernel="fdl_mac", shapes="hybrid_head", storage=storage,
              ring=list(hring.shape), tol=TOL[storage], **summary["fdl_mac_head"][storage], **card)
-        del ring, hring, k_ring, p_ring
+        del hring
     torch.cuda.empty_cache()
 
     # ---- 3c. the sparse kernels at the headline shapes, both masks
@@ -528,30 +617,47 @@ def main() -> int:
             # and against B1 on the same masked filter
             k_tile, pc = mac_mod.choose_chunks(sdt, P, c, b)
             tables = (prm["sp_k_idx"], prm["sp_p_idx"], prm["sp_flags"])
+            live = prm["tile_live"]  # the schedule's tile-live table, as the convolver passes it
             m_dev = torch.from_numpy(mask[:, :b]).to(dev)[:, None, :]
             rnd = [torch.randn((P, c, b), device=dev, generator=gen).mul_(0.05).mul_(m_dev) for _ in range(2)]
             filters = {"shared": (prm["filt_re"], prm["filt_im"]),
                        "per_channel": tuple(torch.cat([f.flip(0)] * 2) for f in rnd)}
             row = {"k_tile": k_tile, "p_chunk": pc}
-            for form, (tre, tim) in filters.items():
+
+            def b4_row(ring_, scales_, tre, tim, tables_, live_, pc_, kt_, k_):
+                """B4 at three positions against its plain version and against
+                B1 on the same masked filter (difference 0.0 required); then
+                its time at the last position, with that row's bound."""
                 worst, vs_dense = (0.0, 0.0), 0.0
                 for pos in (0, P // 2 + 1, P - 1):
                     fr, fi = tre[P - 1 - pos : 2 * P - 1 - pos], tim[P - 1 - pos : 2 * P - 1 - pos]
-                    got = sm_mod.sparse_fdl_mac(ring, fr, fi, pos, *tables, scales, p_chunk=pc, k_tile=k_tile)
-                    want = sm_mod.sparse_fdl_mac_reference(ring, fr, fi, pos, *tables, scales, p_chunk=pc,
-                                                           k_tile=k_tile)
-                    dense = mac_mod.fdl_mac(ring, fr, fi, scales)
+                    got = sm_mod.sparse_fdl_mac(ring_, fr, fi, pos, *tables_, scales_, p_chunk=pc_, k_tile=kt_,
+                                                live=live_)
+                    want = sm_mod.sparse_fdl_mac_reference(ring_, fr, fi, pos, *tables_, scales_, p_chunk=pc_,
+                                                           k_tile=kt_)
+                    dense = mac_mod.fdl_mac(ring_, fr, fi, scales_)
                     torch.cuda.synchronize()
                     d, r = rel_err(torch.cat(got).cpu(), torch.cat(want).cpu())
-                    assert r < TOL[storage], f"sparse_fdl_mac {key} {form} pos={pos}: rel err {r}"
+                    assert r < TOL[storage], f"sparse_fdl_mac K={k_} {key} pos={pos}: rel err {r}"
                     worst = max(worst, (d, r), key=lambda x: x[1])
                     vs_dense = max(vs_dense, rel_err(torch.cat(got).cpu(), torch.cat(dense).cpu())[0])
-                row[form] = {"max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_fdl_mac": vs_dense,
-                             "ms": cuda_ms(lambda: sm_mod.sparse_fdl_mac(ring, fr, fi, pos, *tables, scales,
-                                                                         p_chunk=pc, k_tile=k_tile), 20),
-                             "fdl_mac_ms": cuda_ms(lambda: mac_mod.fdl_mac(ring, fr, fi, scales), 20),
-                             "plain_ms": cuda_ms(lambda: sm_mod.sparse_fdl_mac_reference(
-                                 ring, fr, fi, pos, *tables, scales, p_chunk=pc, k_tile=k_tile), 3)}
+                assert vs_dense == 0.0, f"sparse_fdl_mac K={k_} {key}: differs from fdl_mac by {vs_dense}"
+                s_n, _, vec = mac_mod.mac_geometry(ring_, fr, fi)
+                ms = device_ms(lambda: sm_mod.sparse_fdl_mac(ring_, fr, fi, pos, *tables_, scales_, p_chunk=pc_,
+                                                             k_tile=kt_, live=live_), 20)
+                pairs, rows = headline.tile_live(*(t[pos].cpu() for t in tables_), pc_, kt_, k_)
+                return {"max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_fdl_mac": vs_dense,
+                        "splits": s_n, "vec": vec, "ms": ms,
+                        **bound_of(headline.sparse_fdl_mac_work(storage, c, k_, pairs, rows, tre.shape[1]), ms),
+                        "fdl_mac_ms": device_ms(lambda: mac_mod.fdl_mac(ring_, fr, fi, scales_), 20),
+                        "ms_back_to_back": cuda_ms(lambda: sm_mod.sparse_fdl_mac(
+                            ring_, fr, fi, pos, *tables_, scales_, p_chunk=pc_, k_tile=kt_, live=live_), 20)}
+
+            for form, (tre, tim) in filters.items():
+                row[form] = b4_row(ring, scales, tre, tim, tables, live, pc, k_tile, b)
+                fr, fi = tre[: P], tim[: P]  # position P - 1
+                row[form]["plain_ms"] = cuda_ms(lambda: sm_mod.sparse_fdl_mac_reference(
+                    ring, fr, fi, P - 1, *tables, scales, p_chunk=pc, k_tile=k_tile), 3)
             del rnd, filters
             # B4 on a non-packed K = 513 ring (a ragged third k-tile)
             if storage in ("split", "int16"):
@@ -563,25 +669,18 @@ def main() -> int:
                     ring_u = torch.randn((2, P, c, k), device=dev, generator=gen).mul_(10)
                 kt_u, pc_u = mac_mod.choose_chunks(sdt, P, c, k)
                 tables_u = (prm_u["sp_k_idx"], prm_u["sp_p_idx"], prm_u["sp_flags"])
-                worst, vs_dense = (0.0, 0.0), 0.0
-                for pos in (0, P // 2 + 1, P - 1):
-                    fr = prm_u["filt_re"][P - 1 - pos : 2 * P - 1 - pos]
-                    fi = prm_u["filt_im"][P - 1 - pos : 2 * P - 1 - pos]
-                    got = sm_mod.sparse_fdl_mac(ring_u, fr, fi, pos, *tables_u, scales, p_chunk=pc_u, k_tile=kt_u)
-                    want = sm_mod.sparse_fdl_mac_reference(ring_u, fr, fi, pos, *tables_u, scales, p_chunk=pc_u,
-                                                           k_tile=kt_u)
-                    dense = mac_mod.fdl_mac(ring_u, fr, fi, scales)
-                    torch.cuda.synchronize()
-                    d, r = rel_err(torch.cat(got).cpu(), torch.cat(want).cpu())
-                    assert r < TOL[storage], f"sparse_fdl_mac K={k} {key} pos={pos}: rel err {r}"
-                    worst = max(worst, (d, r), key=lambda x: x[1])
-                    vs_dense = max(vs_dense, rel_err(torch.cat(got).cpu(), torch.cat(dense).cpu())[0])
-                row["unpacked_k513"] = {
-                    "max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_fdl_mac": vs_dense,
-                    "k_tile": kt_u, "p_chunk": pc_u,
-                    "ms": cuda_ms(lambda: sm_mod.sparse_fdl_mac(ring_u, fr, fi, pos, *tables_u, scales,
-                                                                p_chunk=pc_u, k_tile=kt_u), 20),
-                    "fdl_mac_ms": cuda_ms(lambda: mac_mod.fdl_mac(ring_u, fr, fi, scales), 20)}
+                row["unpacked_k513"] = {"k_tile": kt_u, "p_chunk": pc_u, **b4_row(
+                    ring_u, scales, prm_u["filt_re"], prm_u["filt_im"], tables_u, prm_u["tile_live"], pc_u, kt_u, k)}
+                if storage == "split" and mname == "band30":  # the bounds phase's K = 513 row
+                    fr_u, fi_u = prm_u["filt_re"][:P], prm_u["filt_im"][:P]
+                    xc_u = torch.complex(ring_u[0], ring_u[1])
+                    fc_u = torch.complex(fr_u[:, 0], fi_u[:, 0])
+                    k513_lib = {"library_ms": cuda_ms(lambda: torch.einsum("pck,pk->ck", xc_u, fc_u), 20),
+                                "library_call": "torch.einsum('pck,pk->ck') over the band30-masked K = 513 "
+                                                "filter (dense; inputs built outside)"}
+                    k513_work = headline.sparse_fdl_mac_work(
+                        "split", c, k, *headline.tile_live(*(t[P - 1].cpu() for t in tables_u), pc_u, kt_u, k))
+                    del xc_u, fc_u
                 del prm_u, ring_u
             sp_sum["sparse_fdl_mac"][key] = row
             emit(phase="kernel_vs_plain", kernel="sparse_fdl_mac", storage=storage, mask=mname,
@@ -931,8 +1030,6 @@ def main() -> int:
 
     # ---- 7b. probes T1 and T2 against their plain versions, the measurement
     # path in its own launch window, a profiler trace, and every kernel's bound
-    peak_b, peak_f = harness.hbm_peak_bytes_per_sec(), harness.f32_peak_flops_per_sec()
-    no_peaks = None if peak_b and peak_f else f"the harness has no data-sheet peaks for {card['card']}"
     emit(phase="probes", peaks={"hbm_bytes_per_s": peak_b, "f32_flops_per_s": peak_f, "note": no_peaks})
     probe_sum = {"probe_ring_read": {}, "probe_stream": {}}
     for storage in ("split", "bf16"):
@@ -1106,9 +1203,12 @@ def main() -> int:
         "stream_mac": headline.stream_mac_work("split", P, c, b, 64),
         "ring_writeback": headline.writeback_work("split", 64, c, b),
         "window_inverse": headline.transform_work(64 * c, n, 64 * c * n * 4, b),
-        "step_mac": headline.step_mac_work("split", P, c, b, fs_mod._step_geometry_of(P, c, b, 4)[0]),
-        "step_reduce": headline.step_reduce_work(c, b, fs_mod._step_geometry_of(P, c, b, 4)[0]),
+        "step_mac": headline.step_mac_work("split", P, c, b, mac_mod.step_geometry(P, c, b, 4)[0]),
+        "step_reduce": headline.step_reduce_work(c, b, mac_mod.step_geometry(P, c, b, 4)[0]),
         "sched_widths": headline.sched_widths_work(P, c_tabs[0].shape[1], P // pcf),
+        # B1 at the hybrid head's ring [2, 64, 64, 513], B4 at K = 513 (split; band30)
+        "fdl_mac/hybrid_head": headline.fdl_mac_work("split", S_HYBRID, c, BLOCK + 1),
+        "sparse_fdl_mac/k513": k513_work,
     }
     kernel_ms = {
         "fdl_mac": summary["fdl_mac"]["split"]["ms"],
@@ -1122,7 +1222,11 @@ def main() -> int:
         "probe_stream": probe_sum["probe_stream"]["win_fwd_inv/float32"]["ms"],
         **{name: row["split"]["ms"] for name, row in stages.items() if name != "sched_widths"},
         "sched_widths": stages["sched_widths"]["split/band30"]["ms"],
+        "fdl_mac/hybrid_head": summary["fdl_mac_head"]["split"]["ms"],
+        "sparse_fdl_mac/k513": sp_sum["sparse_fdl_mac"]["split/band30"]["unpacked_k513"]["ms"],
     }
+    lib["fdl_mac/hybrid_head"] = head_lib
+    lib["sparse_fdl_mac/k513"] = k513_lib
     bounds = {}
     for name, work in works.items():
         row = {"bytes": work.bytes, "flops": work.flops, "bound_ms": None, "bound_by": None,
@@ -1265,7 +1369,7 @@ def main() -> int:
         "fused_block_step": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
         "fused_stream": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
         "nested_mac": ("neojax_torch/csrc/nested_mac.cu", "neojax/kernels/nested_mac.py:82"),
-        "sparse_fdl_mac": ("neojax_torch/csrc/sparse_mac.cu", "neojax/kernels/sparse_mac.py:246"),
+        "sparse_fdl_mac": ("neojax_torch/csrc/fdl_mac.cu", "neojax/kernels/sparse_mac.py:246"),
         "fused_block_step_sched": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
         "fused_stream_sched": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
         "probe_ring_read": ("neojax_torch/csrc/probes.cu", "tools/roofline_cal.py:143"),
@@ -1277,8 +1381,8 @@ def main() -> int:
         "ring_writeback": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
         "window_inverse": ("neojax_torch/csrc/transform.cu", "neojax/kernels/fused_step.py:791"),
         "sched_widths": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:791"),
-        "step_mac": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
-        "step_reduce": ("neojax_torch/csrc/fused_step.cu", "neojax/kernels/fused_step.py:330"),
+        "step_mac": ("neojax_torch/csrc/step_mac.cuh", "neojax/kernels/fused_step.py:330"),
+        "step_reduce": ("neojax_torch/csrc/step_mac.cuh", "neojax/kernels/fused_step.py:330"),
     }
     by_storage = dict(summary)
     by_storage["fdl_mac"] = summary["fdl_mac"] | {"hybrid_head": summary["fdl_mac_head"]}
@@ -1307,6 +1411,11 @@ def main() -> int:
     for row in rows:
         if row["name"] == "probe_stream":
             row.update(mode="win_fwd_inv, f32 matrices", replaces_also="tools/fused_probe.py:65")
+        if row["name"] in ("fdl_mac", "sparse_fdl_mac"):  # B1/B4 run the partition MAC of step_mac.cuh
+            other = "fdl_mac/hybrid_head" if row["name"] == "fdl_mac" else "sparse_fdl_mac/k513"
+            row.update(kernel_body="neojax_torch/csrc/step_mac.cuh",
+                       splits=heads[row["name"]]["splits"], vec=heads[row["name"]]["vec"],
+                       other_shape={"shape": other.split("/")[1], "ms": kernel_ms[other], **bounds[other]})
         if row["name"] in stages:
             if not row["name"].startswith("step_"):  # B2 runs these stages too
                 row["replaces_also"] = "neojax/kernels/fused_step.py:330"

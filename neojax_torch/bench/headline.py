@@ -194,11 +194,12 @@ def tile_live(k_idx_row, p_idx_row, flags_row, pc: int, k_tile: int, k: int) -> 
     return pairs, len(rows)
 
 
-def fdl_mac_work(storage: str, p: int, c: int, k: int) -> Work:
-    """B1 ``fdl_mac``: ring [2, P, C, K], shared filter planes [P, 1, K] f32
-    x2, scales [P, C] (int storages) -> acc [C, K] f32 x2."""
+def fdl_mac_work(storage: str, p: int, c: int, k: int, cf: int = 1) -> Work:
+    """B1 ``fdl_mac``: ring [2, P, C, K], filter planes [P, cf, K] f32 x2
+    (cf = 1 shared, C per channel), scales [P, C] (int storages) -> acc
+    [C, K] f32 x2."""
     q = storage in _QUANT
-    nbytes = 2 * p * c * k * ITEMSIZE[storage] + 2 * p * k * 4 + (p * c * 4 if q else 0) + 2 * c * k * 4
+    nbytes = 2 * p * c * k * ITEMSIZE[storage] + 2 * p * cf * k * 4 + (p * c * 4 if q else 0) + 2 * c * k * 4
     flops = 8 * p * c * k + (2 * p * c * k if q else 0)
     return Work(nbytes, flops)
 
@@ -258,12 +259,12 @@ def fused_stream_work(storage: str, p: int, c: int, b: int, nb: int, pos0: int =
     return Work(nbytes, flops)
 
 
-def sparse_fdl_mac_work(storage: str, c: int, k: int, live: int, rows: int) -> Work:
-    """B4 ``sparse_fdl_mac``: the ring's and the shared filter's visited
-    (row, lane) pairs (``live``, over ``rows`` distinct rows for the scales)
-    -> acc [C, K] f32 x2 (unvisited lanes written 0)."""
+def sparse_fdl_mac_work(storage: str, c: int, k: int, live: int, rows: int, cf: int = 1) -> Work:
+    """B4 ``sparse_fdl_mac``: the ring's and the filter's ([P, cf, K])
+    visited (row, lane) pairs (``live``, over ``rows`` distinct rows for the
+    scales) -> acc [C, K] f32 x2 (unvisited lanes written 0)."""
     q = storage in _QUANT
-    nbytes = 2 * live * c * ITEMSIZE[storage] + 2 * live * 4 + (rows * c * 4 if q else 0) + 2 * c * k * 4
+    nbytes = 2 * live * c * ITEMSIZE[storage] + 2 * live * cf * 4 + (rows * c * 4 if q else 0) + 2 * c * k * 4
     flops = 8 * live * c + (2 * live * c if q else 0)
     return Work(nbytes, flops)
 

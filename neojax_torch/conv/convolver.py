@@ -68,6 +68,7 @@ from neojax_torch.kernels.sparse_mac import (
     build_sparse_schedule,
     lane_widths,
     sparse_fdl_mac,
+    tile_live_table,
 )
 
 __all__ = [
@@ -255,7 +256,9 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
     - ring configs of a split-plane storage: B4's (k-tile, p-chunk) tables
       ``sp_k_idx``/``sp_p_idx``/``sp_flags`` int32 [P, L] and the lane mask
       ``sp_lane`` bool [K] (K = B packed, B + 1 otherwise), at
-      ``choose_chunks``' geometry;
+      ``choose_chunks``' geometry, and the tile-live table the B4 kernel
+      reads, ``tile_live`` uint8 [P, P / pc, NK] (:func:`_tile_live`; not
+      a neojax key);
     - packed configs also: the fused kernels' chunk tables ``sp_c_idx``
       (chunk | width code << 16) and ``sp_c_flags``, at
       ``fused_chunk_rows``' geometry.
@@ -271,8 +274,7 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
 
     sdt = fdl_lib.STORAGE_DTYPES[config.storage]
     p = mask.shape[0]
-    k_sched = config.block_size if config.use_packed else config.num_bins
-    k_tile, pc = choose_chunks(sdt, p, config.channels, k_sched)
+    k_sched, k_tile, pc = _tile_geometry(config, p)
     sched = build_sparse_schedule(mask[:, :, :k_sched], pc, k_tile)
     out = {
         "sp_k_idx": put(sched["k_idx"], torch.int32),
@@ -280,6 +282,7 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
         "sp_flags": put(sched["flags"], torch.int32),
         "sp_lane": put(sched["lane_mask"], torch.bool),
     }
+    out["tile_live"] = _tile_live(config, out)
     if config.use_packed:
         pcf = fused_chunk_rows(sdt, p, config.channels, config.block_size)
         csched = build_chunk_schedule(mask, pcf, lanes=config.block_size)
@@ -288,6 +291,23 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
         out["sp_c_idx"] = put(csched["c_idx"], torch.int32)
         out["sp_c_flags"] = put(csched["flags"], torch.int32)
     return out
+
+
+def _tile_geometry(config: PartitionedConfig, p: int) -> tuple[int, int, int]:
+    """(K, k_tile, p_chunk) of B4's tables: ``choose_chunks`` at the ring's
+    lanes (B packed, B + 1 otherwise)."""
+    k = config.block_size if config.use_packed else config.num_bins
+    k_tile, pc = choose_chunks(fdl_lib.STORAGE_DTYPES[config.storage], p, config.channels, k)
+    return k, k_tile, pc
+
+
+def _tile_live(config: PartitionedConfig, params: dict) -> torch.Tensor:
+    """B4's tile-live table uint8 [P, P / pc, NK] of the ``sp_k_idx`` /
+    ``sp_p_idx`` / ``sp_flags`` tables in ``params``, on their device."""
+    p = params["sp_k_idx"].shape[0]
+    k, k_tile, pc = _tile_geometry(config, p)
+    return tile_live_table(params["sp_k_idx"], params["sp_p_idx"], params["sp_flags"], p // pc,
+                           -(-k // k_tile))
 
 
 def init_state(config: PartitionedConfig, device=None) -> dict:
@@ -450,10 +470,10 @@ def _split_mac(config: PartitionedConfig, params: dict, new_fdl, pos):
     planes, scales = new_fdl if isinstance(new_fdl, tuple) else (new_fdl, None)
     scl = None if scales is None else scales[..., 0]
     if config.layout == "ring" and "sp_k_idx" in params:
-        k_tile, pc = choose_chunks(planes.dtype, p, config.channels, planes.shape[-1])
+        _, k_tile, pc = _tile_geometry(config, p)
         acc_re, acc_im = sparse_fdl_mac(
             planes, filt_re, filt_im, pos, params["sp_k_idx"], params["sp_p_idx"],
-            params["sp_flags"], scl, p_chunk=pc, k_tile=k_tile,
+            params["sp_flags"], scl, p_chunk=pc, k_tile=k_tile, live=params.get("tile_live"),
         )
         # as neojax: zero the lanes of tiles no rotation visits
         lane = params["sp_lane"]

@@ -40,8 +40,8 @@
 // step_mac_kernel reads the ring with 16-byte loads along the lanes on a
 // (lane tile, channel, P split) grid, and step_reduce_kernel adds the P
 // splits' partial sums in a fixed order (no atomics), sets lane 0 and
-// rounds. step_mac_kernel takes its filter as planes with strides, so the
-// unfused MAC (B1, B4) can use it too.
+// rounds. Both live in step_mac.cuh, shared with the unfused MAC (B1, B4 in
+// fdl_mac.cu), which takes its filter as planes with strides.
 //
 // Sparse filters: widths_kernel turns the chunk schedule (the full [P, L]
 // tables) into a [P, P / pc] table of live lane widths (0: not flagged).
@@ -50,7 +50,7 @@
 // tiles that are dead for every block of the tile and mask the terms of
 // mixed tiles, in the dense kernel's summation order, so the scheduled
 // kernels equal the dense ones on a masked filter.
-#include "common.cuh"
+#include "step_mac.cuh"
 
 namespace {
 
@@ -127,15 +127,6 @@ __global__ void __launch_bounds__(kRowThreads) widths_kernel(const int* __restri
     const int code = v >> 16, chunk = v & 0xFFFF;
     if (chunk < nchunks) atomicMax(t + chunk, code < n_codes ? B >> code : B);
   }
-}
-
-// One complex multiply-add in a fixed order (the scheduled and dense
-// kernels must sum alike).
-__device__ __forceinline__ void cmac(float& ar, float& ai, float xr, float xi, float fr, float fi) {
-  ar = fmaf(xr, fr, ar);
-  ar = fmaf(-xi, fi, ar);
-  ai = fmaf(xr, fi, ai);
-  ai = fmaf(xi, fr, ai);
 }
 
 // ---- 3. the time-batched MAC (B3)
@@ -328,103 +319,6 @@ __global__ void __launch_bounds__(kMacThreads) stream_mac_kernel(MacArgs<T, M> g
   }
 }
 
-// ---- B2's one-block MAC over a P split: part [S, 2, C, K]
-constexpr int kStepThreads = 128;
-
-template <typename E, int V>
-struct alignas(sizeof(E) * V) Pack {
-  E v[V];
-};
-
-template <typename T, typename M>
-struct StepArgs {
-  const T* ring;        // [2, P, C, K]
-  const float* scales;  // [P, C] (int storages)
-  const M* fre;         // filter re at (p, c, k): fre[p * f_row + c * f_c + k]
-  const M* fim;
-  long long f_row, f_c;
-  const int* wrow;      // live widths of the slots' chunks ([P / pc]) or null
-  float* part;
-  int P, C, K, pc, per;  // per: slots a split
-};
-
-// grid (lane tiles of V * kStepThreads, C, S)
-template <typename T, typename M, int V, bool kSched>
-__global__ void __launch_bounds__(kStepThreads) step_mac_kernel(StepArgs<T, M> g) {
-  constexpr bool kQuant = Traits<T>::kQuant;
-  constexpr float kInvMax = 1.0f / Traits<T>::kIntMax;
-  const int k0 = (blockIdx.x * kStepThreads + threadIdx.x) * V;
-  const int c = blockIdx.y;
-  if (k0 >= g.K) return;
-  const size_t row = static_cast<size_t>(g.C) * g.K;
-  const size_t plane = static_cast<size_t>(g.P) * row;
-  const int p_beg = blockIdx.z * g.per, p_end = min(g.P, p_beg + g.per);
-  const T* xbase = g.ring + static_cast<size_t>(c) * g.K + k0;
-  const size_t foff = static_cast<size_t>(c) * g.f_c + k0;
-  float ar[V], ai[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) ar[v] = ai[v] = 0.0f;
-#pragma unroll 2
-  for (int p = p_beg; p < p_end; ++p) {
-    int w = g.K;
-    if (kSched) {
-      w = g.wrow[p / g.pc];
-      if (w <= k0) continue;
-    }
-    const Pack<T, V> xr = *reinterpret_cast<const Pack<T, V>*>(xbase + p * row);
-    const Pack<T, V> xi = *reinterpret_cast<const Pack<T, V>*>(xbase + p * row + plane);
-    const Pack<M, V> fr = *reinterpret_cast<const Pack<M, V>*>(g.fre + p * g.f_row + foff);
-    const Pack<M, V> fi = *reinterpret_cast<const Pack<M, V>*>(g.fim + p * g.f_row + foff);
-    const float s = kQuant ? g.scales[static_cast<size_t>(p) * g.C + c] * kInvMax : 1.0f;
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      if (kSched && k0 + v >= w) break;
-      float r = to_f32(xr.v[v]), i = to_f32(xi.v[v]);
-      if (kQuant) {
-        r *= s;
-        i *= s;
-      }
-      cmac(ar[v], ai[v], r, i, to_f32(fr.v[v]), to_f32(fi.v[v]));
-    }
-  }
-  float* o = g.part + (static_cast<size_t>(blockIdx.z) * 2 * g.C + c) * g.K + k0;
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    o[v] = ar[v];
-    o[row + v] = ai[v];
-  }
-}
-
-// acc [C, 2K] = the splits' partial sums added in split order (lane 0 :=
-// dcfix [2, C] when given), rounded to M
-template <typename M>
-__global__ void __launch_bounds__(kRowThreads) step_reduce_kernel(const float* __restrict__ part,
-                                                                  const float* __restrict__ dcfix,
-                                                                  float* __restrict__ acc, int S,
-                                                                  int C, int K) {
-  const size_t n = static_cast<size_t>(C) * K;
-  for (size_t e = blockIdx.x * static_cast<size_t>(kRowThreads) + threadIdx.x; e < n;
-       e += static_cast<size_t>(gridDim.x) * kRowThreads) {
-    const int c = static_cast<int>(e / K), k = static_cast<int>(e % K);
-    float re = 0.0f, im = 0.0f;
-    for (int s = 0; s < S; ++s) {
-      re += part[2 * s * n + e];
-      im += part[(2 * s + 1) * n + e];
-    }
-    if (k == 0 && dcfix) {
-      re = dcfix[c];
-      im = dcfix[C + c];
-    }
-    acc[static_cast<size_t>(c) * 2 * K + k] = round_to<M>(re);
-    acc[static_cast<size_t>(c) * 2 * K + K + k] = round_to<M>(im);
-  }
-}
-
-int grid_of(size_t n) {
-  const size_t b = (n + kRowThreads - 1) / kRowThreads;
-  return static_cast<int>(b < 4096 ? b : 4096);
-}
-
 template <typename T>
 int launch_quantize(const void* s, void* x, void* scl, int rows, int C, int B, cudaStream_t st) {
   quantize_kernel<T><<<rows, kRowThreads, 0, st>>>(static_cast<const float*>(s), static_cast<T*>(x),
@@ -449,34 +343,6 @@ int launch_stream_mac(const MacArgs<T, M>& g, cudaStream_t st) {
     stream_mac_kernel<T, M, true><<<grid, kMacThreads, 0, st>>>(g);
   else
     stream_mac_kernel<T, M, false><<<grid, kMacThreads, 0, st>>>(g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, typename M, int V>
-int launch_step_mac_v(const StepArgs<T, M>& g, int S, cudaStream_t st) {
-  const dim3 grid((g.K / V + kStepThreads - 1) / kStepThreads, g.C, S);
-  if (g.wrow)
-    step_mac_kernel<T, M, V, true><<<grid, kStepThreads, 0, st>>>(g);
-  else
-    step_mac_kernel<T, M, V, false><<<grid, kStepThreads, 0, st>>>(g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// V = 16 / sizeof(T) lanes a thread (16-byte ring loads), or 1
-template <typename T, typename M>
-int launch_step_mac(const StepArgs<T, M>& g, int S, int vec, cudaStream_t st) {
-  constexpr int kV = 16 / static_cast<int>(sizeof(T));
-  if (vec == 1) return launch_step_mac_v<T, M, 1>(g, S, st);
-  if (vec == kV && g.K % kV == 0) return launch_step_mac_v<T, M, kV>(g, S, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename M>
-int launch_step_reduce(const void* part, const void* dcfix, void* acc, int S, int C, int K,
-                       cudaStream_t st) {
-  step_reduce_kernel<M><<<grid_of(static_cast<size_t>(C) * K), kRowThreads, 0, st>>>(
-      static_cast<const float*>(part), static_cast<const float*>(dcfix), static_cast<float*>(acc),
-      S, C, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -564,12 +430,15 @@ extern "C" int neo_fs_step_mac(int storage, const void* ring, const void* scales
       (wrow && (pc < 1 || P % pc)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NEO_STEP(T, M)                                                                          \
-  return launch_step_mac<T, M>(                                                                 \
-      StepArgs<T, M>{static_cast<const T*>(ring), static_cast<const float*>(scales),            \
-                     static_cast<const M*>(fre), static_cast<const M*>(fim), f_row, f_c,        \
-                     static_cast<const int*>(wrow), static_cast<float*>(part), P, C, K, pc, per}, \
-      S, vec, st)
+#define NEO_STEP(T, M)                                                                            \
+  {                                                                                               \
+    const StepArgs<T, M> g{static_cast<const T*>(ring), static_cast<const float*>(scales),       \
+                           static_cast<const M*>(fre), static_cast<const M*>(fim), f_row, f_c,   \
+                           static_cast<const int*>(wrow), nullptr, static_cast<float*>(part),    \
+                           P, C, K, pc, per, 1, 1};                                              \
+    return wrow ? launch_step_mac<T, M, kWidths>(g, S, vec, st)                              \
+                : launch_step_mac<T, M, kDense>(g, S, vec, st);                               \
+  }
   switch (storage) {
     case kSplit: NEO_STEP(float, float);
     case kBf16: NEO_STEP(__nv_bfloat16, __nv_bfloat16);
@@ -587,8 +456,8 @@ extern "C" int neo_fs_step_reduce(int mat_bf16, const void* part, const void* dc
   if (S < 1 || C < 1 || K < 1 || (mat_bf16 != 0 && mat_bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return mat_bf16 ? launch_step_reduce<__nv_bfloat16>(part, dcfix, acc, S, C, K, st)
-                  : launch_step_reduce<float>(part, dcfix, acc, S, C, K, st);
+  return mat_bf16 ? launch_step_reduce<__nv_bfloat16>(part, dcfix, acc, S, C, K, 2 * K, K, st)
+                  : launch_step_reduce<float>(part, dcfix, acc, S, C, K, 2 * K, K, st);
 }
 
 extern "C" int neo_transform(int mat_bf16, int inverse, const void* a, int a_inner, long long a_so, long long a_si,

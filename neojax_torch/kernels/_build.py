@@ -43,8 +43,9 @@ _L = ctypes.c_longlong
 # C signatures of the entry points (argtypes, in order). Pointers and the
 # stream are c_void_p: a bare Python int would be passed as a 32-bit int.
 _SIGNATURES = {
-    # storage, fdl, filt_re, filt_im, scales, acc_re, acc_im, P, C, K, Cf, stream
-    "neo_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # storage, fdl, filt_re, filt_im, scales, live, acc, part, P, C, K, Cf, pc,
+    # k_tile, nk, S, per, vec, stream
+    "neo_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # mat_bf16, inverse, a, a_inner, a_s_outer, a_s_inner, mat, m_split, m_plane,
     # m_ld, out, o_inner, o_s_outer, o_s_inner, part, ksplit, kchunk, R, K, Ncol, stream
     "neo_transform": [_I, _I, _P, _I, _L, _L, _P, _I, _L, _L,
@@ -69,10 +70,6 @@ _SIGNATURES = {
     "neo_fs_step_mac": [_I, _P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # mat_bf16, part, dcfix, acc, S, C, K, stream
     "neo_fs_step_reduce": [_I, _P, _P, _P, _I, _I, _I, _P],
-    # storage, fdl, filt_re, filt_im, scales, k_row, p_row, f_row, acc_re,
-    # acc_im, P, C, K, Cf, L, pc, k_tile, stream
-    "neo_sparse_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _P],
     # storage, planes, scales, filt_re, filt_im, acc_re, acc_im, P2, C, K, L, G, stream
     "neo_nested_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # storage, fdl, fr, out0, out1, P, C, K, pc, stream

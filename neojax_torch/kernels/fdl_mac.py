@@ -12,11 +12,19 @@ in and f32 accumulation. The filter planes are already ring-rotated
 
 On the H100 the MAC is bound by device-memory bytes: it reads the whole
 ring once per block (2*P*C*K storage elements: 252 MB split, 63 MB int8 at
-P=960, C=64, K=512) for 8 flops per complex element. The kernel gives each
-thread one output lane (coalesced along k), loops over P in registers (no
-cross-CTA atomics, no partial sums in memory) and reads the storage dtype
-directly, so narrower storages move proportionally fewer bytes. It needs
-no divisibility of P (the Pallas chunk-divides-P rule was a VMEM limit).
+P=960, C=64, K=512) for 8 flops per complex element. It runs on the
+partition MAC that B2's ``step_mac`` runs too (``csrc/step_mac.cuh``): a
+(lane tile, channel, P split) grid, :func:`step_geometry`'s S splits of the
+P slots, and the splits' partial sums added in split order by a second
+launch (no atomics: the same bits on every run). A thread owns V = 4 lanes
+(one 16-byte load of each f32 filter plane; ring loads of 4 * itemsize
+bytes), or V = 1 where K or a pointer's alignment forbids it: measured on
+the H100, V = 16 / itemsize (16-byte ring loads) was slower for the
+narrower storages, whose threads then were too few. A split sums at
+least ``_MIN_SPLIT`` slots, so a ring of fewer than ``2 * _MIN_SPLIT``
+slots (the hybrid head's 64) runs as one split, which writes the result
+in the one launch and allocates only the result. It needs no
+divisibility of P (the Pallas chunk-divides-P rule was a VMEM limit).
 
 :func:`fdl_mac_reference` is the plain PyTorch version (float64 products):
 the wrapper runs it for CPU tensors; on CUDA tensors the wrapper launches
@@ -25,11 +33,13 @@ the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from neojax_torch.kernels import _build
 
-__all__ = ["fdl_mac", "fdl_mac_reference", "choose_chunks", "STORAGE_CODES"]
+__all__ = ["fdl_mac", "fdl_mac_reference", "choose_chunks", "mac_geometry", "step_geometry", "STORAGE_CODES"]
 
 # storage dtype -> the C entry points' storage code
 STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
@@ -41,6 +51,20 @@ _INT_MAX = {torch.int8: 127.0, torch.int16: 32767.0}
 # arguments and works at any.
 _K_TILE = 256
 _VMEM_BUDGET = 8 * 1024 * 1024
+
+# The partition MAC's grid (csrc/step_mac.cuh), shared by B1, B4 and B2's
+# step_mac: CTAs to aim for over (lane tiles, channels, P splits), and the
+# threads of a CTA (csrc: kStepThreads).
+_STEP_CTAS = 1024
+_STEP_LANES = 128
+# B1/B4: slots a split sums at the least. A split's partial sums (2*C*K f32)
+# then cost at most 1/16 of the ring bytes it reads (int8), and a ring of
+# fewer than 128 slots runs in one launch. B1/B4 take as many splits as
+# that allows (CTAs aimed at: _MAC_CTAS), so that B4's live slots, which
+# crowd into a few splits, run in short loops.
+_MIN_SPLIT = 64
+_MAC_CTAS = 8 * _STEP_CTAS
+_MAC_VEC_BYTES = 4  # V = 16 / 4: one 16-byte load of each f32 filter plane
 
 
 def choose_chunks(dtype: torch.dtype, p: int, c: int, k: int) -> tuple[int, int]:
@@ -55,6 +79,60 @@ def choose_chunks(dtype: torch.dtype, p: int, c: int, k: int) -> tuple[int, int]
             pc = d
             break
     return k_tile, pc
+
+
+@functools.lru_cache(maxsize=256)
+def step_geometry(p: int, c: int, k: int, itemsize: int, min_split: int = 1,
+                  ctas: int = _STEP_CTAS) -> tuple[int, int, int]:
+    """(splits S, slots a split, lanes a thread V) of the partition MAC over
+    a ring [2, p, c, k]: V = 16 / itemsize (the element whose 16-byte loads
+    set V: B2 its ring's, B1 its f32 filter's) where it divides K, else 1;
+    S for about ``ctas`` CTAs, each split at least ``min_split`` slots. S
+    depends on the shapes alone, so a result's bits do not depend on the
+    pointers' alignment (which may only lower V)."""
+    vec = 16 // itemsize
+    vec = vec if k % vec == 0 else 1
+    lane_tiles = -(-k // (vec * _STEP_LANES))
+    s = max(1, min(p // min_split, -(-ctas // (c * lane_tiles))))
+    per = -(-p // s)
+    return -(-p // per), per, vec
+
+
+def _aligned(fdl, filt_re, filt_im, vec: int) -> bool:
+    """Whether the ring allows ``vec``-element loads and the f32 filter
+    planes ``vec``-float loads."""
+    return (fdl.data_ptr() % (vec * fdl.element_size()) == 0 and filt_re.data_ptr() % (4 * vec) == 0
+            and filt_im.data_ptr() % (4 * vec) == 0)
+
+
+def mac_geometry(fdl, filt_re, filt_im, k_tile: int | None = None) -> tuple[int, int, int]:
+    """(splits S, slots a split, lanes a thread V) of B1/B4 on these
+    operands: :func:`step_geometry` at 4-lane loads, V = 1 where a pointer
+    is not aligned to V elements or V does not divide B4's ``k_tile``."""
+    _, p, c, k = fdl.shape
+    s_n, per, vec = step_geometry(p, c, k, _MAC_VEC_BYTES, _MIN_SPLIT, _MAC_CTAS)
+    if vec > 1 and (not _aligned(fdl, filt_re, filt_im, vec) or (k_tile or vec) % vec):
+        vec = 1
+    return s_n, per, vec
+
+
+def _launch(name, fdl, filt_re, filt_im, scales, tiles=None):
+    """Run the partition MAC on the card; ``tiles`` = (live row [P/pc, nk]
+    uint8 pointer, pc, k_tile, nk) for B4. Returns acc [2, C, K] f32. The
+    splits' partial sums take one allocation where S > 1 (never on the
+    hybrid head's 64-slot ring, which is one split)."""
+    _, p, c, k = fdl.shape
+    live, pc, k_tile, nk = tiles or (0, 1, 1, 1)
+    s_n, per, vec = mac_geometry(fdl, filt_re, filt_im, k_tile if tiles else None)
+    acc = torch.empty((2, c, k), dtype=torch.float32, device=fdl.device)
+    part = torch.empty((s_n, 2, c, k), dtype=torch.float32, device=fdl.device) if s_n > 1 else None
+    code = _build.load().neo_fdl_mac(
+        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), filt_re.data_ptr(), filt_im.data_ptr(),
+        0 if scales is None else scales.data_ptr(), live, acc.data_ptr(), 0 if part is None else part.data_ptr(),
+        p, c, k, filt_re.shape[1], pc, k_tile, nk, s_n, per, vec, _build.stream_of(fdl),
+    )
+    _build.check(code, name)
+    return acc
 
 
 def _check_args(fdl, filt_re, filt_im, scales):
@@ -110,19 +188,9 @@ def fdl_mac(fdl, filt_re, filt_im, scales=None):
         return fdl_mac_reference(fdl, filt_re, filt_im, scales)
     if fdl.device.type != "cuda":
         raise ValueError(f"fdl_mac: unsupported device {fdl.device}")
-    _, p, c, k = fdl.shape
-    acc_re = torch.empty((c, k), dtype=torch.float32, device=fdl.device)
-    acc_im = torch.empty((c, k), dtype=torch.float32, device=fdl.device)
-    lib = _build.load()
-    code = lib.neo_fdl_mac(
-        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), filt_re.data_ptr(), filt_im.data_ptr(),
-        0 if scales is None else scales.data_ptr(),
-        acc_re.data_ptr(), acc_im.data_ptr(),
-        p, c, k, filt_re.shape[1], _build.stream_of(fdl),
-    )
-    _build.check(code, "fdl_mac")
+    acc = _launch("fdl_mac", fdl, filt_re, filt_im, scales)
     fdl_mac.launches += 1
-    return acc_re, acc_im
+    return acc[0], acc[1]
 
 
 fdl_mac.launches = 0

@@ -83,7 +83,7 @@ import numpy as np
 import torch
 
 from neojax_torch.kernels import _build
-from neojax_torch.kernels.fdl_mac import STORAGE_CODES
+from neojax_torch.kernels.fdl_mac import STORAGE_CODES, step_geometry
 from neojax_torch.kernels.sparse_mac import lane_widths
 
 __all__ = [
@@ -124,8 +124,6 @@ MATRIX_DTYPES = {
 _INT_MAX = {torch.int8: 127.0, torch.int16: 32767.0}
 MAX_BLOCK = 1024  # the largest block the pipeline takes (the TPU kernels' bound)
 WINDOW = 64  # blocks a window of B3's staged pipeline (staging ~17 MB at the headline shape)
-_STEP_CTAS = 1024  # B2's MAC: CTAs to aim for over (lane tiles, channels, P splits)
-_STEP_LANES = 128  # threads a CTA of B2's MAC (csrc: kStepThreads)
 _CARD_TILES = 264  # transform: output tiles below which the depth is split (two per SM)
 
 # Bytes per partition chunk of the chunk schedule, as neojax sizes its TPU
@@ -574,18 +572,9 @@ stream_mac.launches = 0
 
 
 def _step_geometry(fdl):
-    """(splits S, slots a split, lanes a thread) of :func:`step_mac`."""
-    return _step_geometry_of(*fdl.shape[1:], fdl.element_size())
-
-
-@functools.lru_cache(maxsize=64)
-def _step_geometry_of(p: int, c: int, b: int, itemsize: int):
-    vec = 16 // itemsize
-    vec = vec if b % vec == 0 else 1
-    lane_tiles = -(-b // (vec * _STEP_LANES))
-    s = max(1, min(p, -(-_STEP_CTAS // (c * lane_tiles))))
-    per = -(-p // s)
-    return -(-p // per), per, vec
+    """(splits S, slots a split, lanes a thread) of :func:`step_mac`: the
+    partition MAC's geometry, shared with B1 (``kernels.fdl_mac``)."""
+    return step_geometry(*fdl.shape[1:], fdl.element_size())
 
 
 def _step_aligned(fdl, filt_rim, vec: int) -> bool:

@@ -1,4 +1,4 @@
-"""The sparse schedules and the tile-sparse FDL MAC, B4 (``csrc/sparse_mac.cu``).
+"""The sparse schedules and the tile-sparse FDL MAC, B4 (``csrc/fdl_mac.cu``).
 
 Replaces ``neojax/kernels/sparse_mac.py``: the host-side schedule builders
 (``lane_widths``, ``build_chunk_schedule``, ``build_sparse_schedule``,
@@ -17,6 +17,16 @@ once at filter setup as ``[P, L]`` rows, padded with flag-0 entries.
   row ``pos`` lists the active partition chunks, each with a lane-width
   code in bits 16+ (only the first ``B >> code`` lanes are live).
 
+On the card B4 is B1's kernel (the partition MAC of ``csrc/step_mac.cuh``)
+reading, for its ring position, a row of :func:`tile_live_table`: uint8
+``[P, P / pc, NK]``, 1 where row ``pos`` visits (p-chunk, k-tile). The
+table is derived from the three ``[P, L]`` tables alone, once beside them
+(``conv.convolver`` keeps it as ``params["tile_live"]``), so a call reads
+one row of it instead of scanning the schedule row in every thread. A
+thread skips the chunks its lanes never visit, in B1's summation order
+and split geometry: on a masked filter B4 equals B1 bit for bit, apart
+from the sign of zero.
+
 :func:`sparse_fdl_mac_reference` is B4's plain PyTorch version (float64
 products): the wrapper runs it for CPU tensors; on CUDA tensors it launches
 the kernel or raises.
@@ -27,13 +37,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from neojax_torch.kernels import _build
-from neojax_torch.kernels.fdl_mac import STORAGE_CODES, _check_args, fdl_mac_reference
+from neojax_torch.kernels.fdl_mac import _check_args, _launch, fdl_mac_reference
 
 __all__ = [
     "lane_widths",
     "build_chunk_schedule",
     "build_sparse_schedule",
+    "tile_live_table",
     "sparse_fdl_mac",
     "sparse_fdl_mac_reference",
 ]
@@ -190,6 +200,23 @@ def build_sparse_schedule(mask: np.ndarray, p_chunk: int, k_tile: int):
     }
 
 
+def tile_live_table(k_idx, p_idx, flags, npc: int, nk: int):
+    """B4's tile-live table of :func:`build_sparse_schedule`'s ``[R, L]``
+    int32 tables (R rows, any device): uint8 ``[R, npc, nk]``, 1 where the
+    row holds a flag-1 entry (k_idx = t, p_idx = j) for p-chunk j and k-tile
+    t, else 0. Derived from the tables alone (not from a mask), so converted
+    params get the same table."""
+    rows = k_idx.shape[0]
+    if k_idx.device.type == "cpu" and rows and bool(
+            (k_idx.min() < 0) | (k_idx.max() >= nk) | (p_idx.min() < 0) | (p_idx.max() >= npc)):
+        raise ValueError(f"schedule entries outside {npc} p-chunks x {nk} k-tiles")
+    base = torch.arange(rows, device=k_idx.device)[:, None] * (npc * nk)
+    idx = (base + p_idx.long() * nk + k_idx.long()).reshape(-1)
+    live = torch.zeros(rows * npc * nk, dtype=torch.int32, device=k_idx.device)
+    live.scatter_reduce_(0, idx, (flags == 1).reshape(-1).to(torch.int32), "amax")
+    return live.to(torch.uint8).view(rows, npc, nk)
+
+
 def _check_tables(fdl, pos, tables, p_chunk, k_tile):
     p, k = fdl.shape[1], fdl.shape[3]
     shape = tuple(tables[0].shape)
@@ -223,7 +250,7 @@ def sparse_fdl_mac_reference(fdl, filt_re, filt_im, pos, k_idx, p_idx, flags, sc
 
 
 def sparse_fdl_mac(fdl, filt_re, filt_im, pos, k_idx, p_idx, flags, scales=None, *,
-                   p_chunk: int, k_tile: int):
+                   p_chunk: int, k_tile: int, live=None):
     """Tile-sparse :func:`~neojax_torch.kernels.fdl_mac.fdl_mac`: only the
     (k-tile, p-chunk) pairs of row ``pos`` of the schedule are read and
     MAC'd, each chunk's rows in ascending order.
@@ -235,6 +262,9 @@ def sparse_fdl_mac(fdl, filt_re, filt_im, pos, k_idx, p_idx, flags, scales=None,
     k_idx, p_idx, flags : [P, L] int32 tables of :func:`build_sparse_schedule`
     scales       : [P, C] f32 for int storage
     p_chunk, k_tile : the geometry the tables were built with
+    live         : their :func:`tile_live_table` [P, P / p_chunk, NK] uint8
+                   on the ring's device, or None: the card then derives row
+                   ``pos`` of it for this call
 
     Returns (acc_re, acc_im) [C, K] f32. Lanes in k-tiles that row ``pos``
     never visits are 0; the convolver still masks with ``lane_mask``, as
@@ -242,26 +272,21 @@ def sparse_fdl_mac(fdl, filt_re, filt_im, pos, k_idx, p_idx, flags, scales=None,
     """
     _check_args(fdl, filt_re, filt_im, scales)
     pos = int(pos)
-    p, k, l_max = _check_tables(fdl, pos, (k_idx, p_idx, flags), p_chunk, k_tile)
+    p, k, _ = _check_tables(fdl, pos, (k_idx, p_idx, flags), p_chunk, k_tile)
+    npc, nk = p // p_chunk, -(-k // k_tile)
+    if live is not None and (live.dtype != torch.uint8 or tuple(live.shape) != (p, npc, nk)
+                             or live.device != fdl.device or not live.is_contiguous()):
+        raise ValueError(f"live must be a contiguous uint8 [{p}, {npc}, {nk}] tensor on the ring's device")
     if fdl.device.type == "cpu":
         return sparse_fdl_mac_reference(fdl, filt_re, filt_im, pos, k_idx, p_idx, flags, scales,
                                         p_chunk=p_chunk, k_tile=k_tile)
     if fdl.device.type != "cuda":
         raise ValueError(f"sparse_fdl_mac: unsupported device {fdl.device}")
-    c = fdl.shape[2]
-    acc_re = torch.empty((c, k), dtype=torch.float32, device=fdl.device)
-    acc_im = torch.empty((c, k), dtype=torch.float32, device=fdl.device)
-    row = pos * l_max * 4  # byte offset of row pos: the kernel reads one row
-    code = _build.load().neo_sparse_fdl_mac(
-        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), filt_re.data_ptr(), filt_im.data_ptr(),
-        0 if scales is None else scales.data_ptr(),
-        k_idx.data_ptr() + row, p_idx.data_ptr() + row, flags.data_ptr() + row,
-        acc_re.data_ptr(), acc_im.data_ptr(),
-        p, c, k, filt_re.shape[1], l_max, p_chunk, k_tile, _build.stream_of(fdl),
-    )
-    _build.check(code, "sparse_fdl_mac")
+    row = (tile_live_table(k_idx[pos : pos + 1], p_idx[pos : pos + 1], flags[pos : pos + 1], npc, nk)
+           if live is None else live[pos])
+    acc = _launch("sparse_fdl_mac", fdl, filt_re, filt_im, scales, (row.data_ptr(), p_chunk, k_tile, nk))
     sparse_fdl_mac.launches += 1
-    return acc_re, acc_im
+    return acc[0], acc[1]
 
 
 sparse_fdl_mac.launches = 0

@@ -1,7 +1,8 @@
 """neojax_torch's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes the headline smoke (``chip_smoke.py``) does not cover: odd
 P, C and K, per-channel fused filters, the largest fused block (1024), ring
-wraps, B1 at the hybrid head's non-packed K = B+1, B5 (the nested meta MAC)
+wraps, B1 at the hybrid head's non-packed K = B+1, B1 and B4 split over P
+(the ordered reduce, an unaligned filter view), B5 (the nested meta MAC)
 at every storage and group count, B3 with its ``acc_add`` seed, B4 (the
 tile-sparse MAC) and B2/B3 with the sparse chunk schedule — each also
 against the dense kernel on the same masked filter — and the convolver's
@@ -290,6 +291,76 @@ def test_sparse_fdl_mac_kernel_matches_plain_and_dense(cuda, rng, storage, cf, k
         assert _rel(torch.cat(got), torch.cat(want)) < 2e-6
         dense = mac.fdl_mac(ring, rr, ri, scales)
         assert torch.equal(torch.cat(got), torch.cat(dense))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+@pytest.mark.parametrize("k", [512, 513, 40])
+def test_fdl_mac_split_p_kernel_matches_plain(cuda, rng, storage, cf, k):
+    """P = 200: three P splits (67, 67, 66 slots) added in split order by
+    the second launch; a rotated view of a tiled filter, as the convolver
+    passes it; the same bits on a second call (no atomics)."""
+    p, c = 200, 3
+    assert mac.step_geometry(p, c, k, 4, mac._MIN_SPLIT, mac._MAC_CTAS)[:2] == (3, 67)
+    ring, scales = _ring(rng, storage, p, c, k, cuda)
+    tiled = torch.from_numpy(rng.standard_normal((2, 2 * p, cf, k)).astype(np.float32)).to(cuda)
+    for pos in (0, 77):
+        fr, fi = tiled[0, p - 1 - pos : 2 * p - 1 - pos], tiled[1, p - 1 - pos : 2 * p - 1 - pos]
+        before = mac.fdl_mac.launches
+        got = mac.fdl_mac(ring, fr, fi, scales)
+        again = mac.fdl_mac(ring, fr, fi, scales)
+        torch.cuda.synchronize()
+        assert mac.fdl_mac.launches == before + 2
+        assert torch.equal(torch.cat(got), torch.cat(again))
+        want = mac.fdl_mac_reference(ring, fr, fi, scales)
+        assert _rel(torch.cat(got), torch.cat(want)) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+def test_fdl_mac_kernel_unaligned_filter_view(cuda, rng, storage):
+    """A filter view 4 bytes past an aligned start takes the one-lane
+    loads; V only regroups the lanes, so the bits equal the aligned run's."""
+    p, c, k = 130, 3, 64
+    ring, scales = _ring(rng, storage, p, c, k, cuda)
+    flat = torch.from_numpy(rng.standard_normal(2 * p * k + 1).astype(np.float32)).to(cuda)
+    fr, fi = flat[1 : p * k + 1].view(p, 1, k), flat[p * k + 1 :].view(p, 1, k)
+    assert fr.data_ptr() % 16 != 0 and mac.mac_geometry(ring, fr, fi)[2] == 1
+    got = mac.fdl_mac(ring, fr, fi, scales)
+    aligned = mac.fdl_mac(ring, fr.clone(), fi.clone(), scales)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(got), torch.cat(aligned))
+    assert _rel(torch.cat(got), torch.cat(mac.fdl_mac_reference(ring, fr, fi, scales))) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("k,kt", [(512, 256), (513, 256), (40, 40)])
+def test_sparse_fdl_mac_split_p_equals_dense_on_masked_filter(cuda, rng, storage, k, kt):
+    """B4 at P = 200 (three splits, chunks of 8 that straddle them) with
+    the tile-live table and without it (derived for the call): within the
+    plain version's tolerance, and equal to B1 on the masked filter, max
+    abs difference 0.0."""
+    p, c, pc = 200, 3, 8
+    mask = _lane_band_mask(p, k, 0.6)
+    sched = sm.build_sparse_schedule(mask, pc, kt)
+    tables = [torch.from_numpy(sched[key]).to(cuda) for key in ("k_idx", "p_idx", "flags")]
+    live = sm.tile_live_table(*tables, p // pc, -(-k // kt))
+    ring, scales = _ring(rng, storage, p, c, k, cuda)
+    m = torch.from_numpy(mask).to(cuda)[:, None, :]
+    f = [torch.from_numpy(rng.standard_normal((p, 1, k)).astype(np.float32)).to(cuda) * m for _ in range(2)]
+    tr, ti = (torch.cat([x.flip(0)] * 2) for x in f)
+    for pos in (0, 100, p - 1):
+        rr, ri = tr[p - 1 - pos : 2 * p - 1 - pos], ti[p - 1 - pos : 2 * p - 1 - pos]
+        got = sm.sparse_fdl_mac(ring, rr, ri, pos, *tables, scales, p_chunk=pc, k_tile=kt, live=live)
+        derived = sm.sparse_fdl_mac(ring, rr, ri, pos, *tables, scales, p_chunk=pc, k_tile=kt)
+        dense = mac.fdl_mac(ring, rr, ri, scales)
+        want = sm.sparse_fdl_mac_reference(ring, rr, ri, pos, *tables, scales, p_chunk=pc, k_tile=kt)
+        torch.cuda.synchronize()
+        assert _rel(torch.cat(got), torch.cat(want)) < 2e-6
+        assert float((torch.cat(got) - torch.cat(dense)).abs().max()) == 0.0
+        assert torch.equal(torch.cat(got), torch.cat(derived))
 
 
 def _sparse_fused_inputs(cuda, rng, storage, cf, p, c, b):

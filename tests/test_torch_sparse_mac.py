@@ -227,3 +227,90 @@ def test_sparse_mac_rejects_bad_tables(rng):
     before = tsm.sparse_fdl_mac.launches
     tsm.sparse_fdl_mac(ring, f, f, 0, *good, p_chunk=4, k_tile=64)
     assert tsm.sparse_fdl_mac.launches == before  # the CPU route counts nothing
+
+
+# ---- the tile-live table the B4 kernel reads
+
+
+def _live_of_row(k_idx, p_idx, flags, npc, nk):
+    """Row ``pos`` of the table, from its schedule row entry by entry."""
+    live = np.zeros((npc, nk), np.uint8)
+    for kk, cc, fl in zip(k_idx, p_idx, flags):
+        if fl == 1:
+            live[cc, kk] = 1
+    return live
+
+
+@pytest.mark.parametrize("kind", ["partitions", "lanes"])
+@pytest.mark.parametrize("k", [512, 513])
+def test_tile_live_table_matches_the_schedule_rows(rng, kind, k):
+    """Every row of the table against its schedule row, and against the
+    rotated mask itself: (p-chunk j, k-tile t) is live at ``pos`` iff some
+    slot of chunk j meets a filter partition with a kept bin in tile t."""
+    p, pc, kt = 32, 8, 256
+    mask = _masks(rng, kind, p, k)
+    sched = tsm.build_sparse_schedule(mask, pc, kt)
+    npc, nk = p // pc, -(-k // kt)
+    tables = [torch.from_numpy(sched[key]) for key in ("k_idx", "p_idx", "flags")]
+    live = tsm.tile_live_table(*tables, npc, nk)
+    assert live.dtype == torch.uint8 and tuple(live.shape) == (p, npc, nk)
+    padk = np.zeros((p, nk * kt), bool)
+    padk[:, :k] = mask
+    tiles = padk.reshape(p, nk, kt).any(axis=2)  # [P, NK]
+    for pos in range(p):
+        want = _live_of_row(sched["k_idx"][pos], sched["p_idx"][pos], sched["flags"][pos], npc, nk)
+        np.testing.assert_array_equal(live[pos].numpy(), want, err_msg=f"pos {pos}")
+        rot = tiles[[(pos - i) % p for i in range(p)]]  # slot i meets partition (pos - i) mod P
+        np.testing.assert_array_equal(want, rot.reshape(npc, pc, nk).any(axis=1).astype(np.uint8))
+    # one row alone, as the card derives it when no table is given
+    row = tsm.tile_live_table(*(t[5:6] for t in tables), npc, nk)
+    assert torch.equal(row[0], live[5])
+
+
+def test_tile_live_table_rejects_entries_outside_the_geometry():
+    k_idx = torch.tensor([[0, 2]], dtype=torch.int32)
+    ok = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        tsm.tile_live_table(k_idx, ok, torch.ones((1, 2), dtype=torch.int32), 1, 2)
+    with pytest.raises(ValueError, match="live"):
+        ring = torch.zeros((2, 8, 2, 64))
+        f = torch.zeros((8, 1, 64))
+        good = [torch.zeros((8, 3), dtype=torch.int32) for _ in range(3)]
+        tsm.sparse_fdl_mac(ring, f, f, 0, *good, p_chunk=4, k_tile=64, live=torch.zeros((8, 2, 2), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("storage", ["split", "int8"])
+@pytest.mark.parametrize("packed", [True, False])
+def test_tile_live_from_converted_params_and_a_rebound_mono_filter(rng, storage, packed):
+    """The table derives from the three [P, L] tables alone: params
+    converted from neojax (which has no such key) get the table the port's
+    own ``filter_params`` builds, and so does a mono filter bound to more
+    channels (the tables are rebuilt at the new channel count)."""
+    from neojax.conv import convolver as jcv
+    from neojax_torch import conv as tconv
+    from neojax_torch import convert
+    from neojax_torch.conv import convolver as tcv
+    import jax
+
+    b, p, c = 64, 32, 4
+    parts = ((rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    mask = _masks(rng, "lanes", p, b + 1)
+    cfg_kw = dict(block_size=b, num_partitions=p, channels=c, storage=storage, packed=packed)
+    jparams = jcv.filter_params(jcv.PartitionedConfig(**cfg_kw), parts, sparsity=mask)
+    assert "tile_live" not in jparams
+    tcfg = tcv.PartitionedConfig(**cfg_kw)
+    own = tcv.filter_params(tcfg, parts, sparsity=mask, device="cpu")
+    conv_p = convert.params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    assert own["tile_live"].dtype == torch.uint8 and torch.equal(conv_p["tile_live"], own["tile_live"])
+    k = b if packed else b + 1
+    kt, pc = tfm.choose_chunks(tcv.fdl_lib.STORAGE_DTYPES[storage], p, c, k)
+    assert tuple(own["tile_live"].shape) == (p, p // pc, -(-k // kt))
+
+    mono = tconv.sparse_upols_convolver(sparsity=mask, storage=storage, device="cpu")
+    mono.filter(parts)
+    assert mono.config.channels == 1
+    mono.process(rng.uniform(-1, 1, (c, 2 * b)).astype(np.float32))
+    assert mono.config.channels == c
+    want = tcv.filter_params(tcv.PartitionedConfig(b, p, c, storage=storage), parts, sparsity=mask, device="cpu")
+    assert torch.equal(mono.params["tile_live"], want["tile_live"])
