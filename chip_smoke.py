@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive neojax_torch's engines end to end on one CUDA card: the per-block
-convolver (dense and sparse), the nested (two-level FDL) engine and the
-hybrid real-time engine.
+convolver (dense and sparse), the nested (two-level FDL) engine, the
+hybrid real-time engine, the chunked (Toeplitz-product) engine,
+``make_engine`` over the four, and ``neojax_torch.convolve``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 NVIDIA Hopper card (the kernels are built for sm_90a) and nvcc; it exits
@@ -12,8 +13,8 @@ Configuration: the repo's headline (``bench.py``, BASELINE.json config
 partitions; the per-block convolver pads them to P = 960), block B = 512,
 transform N = 1024. The nested engine runs at S = 128 blocks a chunk
 (meta ring [2, 8, 64, 513, 256]), the hybrid at S = 64 (head ring of 64
-partitions, tail meta ring [2, 14, 64, 513, 128]), as ``bench.py:192-225``.
-The sparse convolver runs two keep-masks of that IR: ``band30``, the first
+partitions, tail meta ring [2, 14, 64, 513, 128]), as ``bench.py:192-225``;
+the chunked engine at S = 128 (``bench.py:391``). The sparse convolver runs two keep-masks of that IR: ``band30``, the first
 30 % of the 960 partitions (``bench.py:298-299``), and ``perc30``, the
 A-weighted ``conv.perceptual_mask`` at -30 dB over the 938 real partitions.
 
@@ -65,6 +66,25 @@ Phases, each printing one JSON object per line:
      1216 blocks (split, int8) against ``process_hybrid`` with the unfused
      and the fused head, and ``process_nested`` with its state carried
      across two calls against one call
+  7c. the chunked engine's main path, ``process_chunked`` at S = 128 over
+     1280 blocks, split and bf16, SNR-gated as phase 6 (split 90, bf16 40
+     dB), with its warm µs a block, one traced call's device time by op
+     (product, transforms, every ``cat``) and idle share, its product
+     alone against the card's peak (``bench.headline.chunked_work``) and
+     its window's shift-concat alone against the HBM rate; then
+     the perc30 mask at bf16 (four buckets, the gather path) against the
+     masked oracle of 5b. The product is ``torch.bmm`` (cuBLAS; the JAX
+     package runs it outside any Pallas kernel), so this window expects no
+     kernel of the port
+  7d. ``make_engine`` over the four engines at split on one input (two
+     calls, then ``reset`` and one call), their pairwise difference, and
+     ``storage=None`` on the card resolving to ``"split"``
+  7e. ``neojax_torch.convolve`` by all seven methods, 48 000 samples by a
+     24 000-tap IR, with both TF32 flags on, against ``np.convolve`` in
+     float64; and ``fft_convolve(backend="matmul")`` over 64 channels of
+     4096 samples by a 4096-tap IR (transform size 8192, the backend's
+     largest), whose DFT products TF32 would round, beside the same
+     forward product with TF32 left on
   7b. probes: T1 (``probe_ring_read``, bf16 and split) at the
      [2, 960, 64, 512] ring, both outputs, and T2 (``probe_stream``, its
      three modes, f32 and bf16 matrices) over 64 blocks, each against its
@@ -88,7 +108,8 @@ Phases, each printing one JSON object per line:
   9. the kernels summary, then the final ``{"ok": true, ...}`` line
 
 Launch counters are zeroed right before each main path (phases 4+5, 5b,
-the nested and the hybrid halves of 6, 7, and 7b's measurement path) and
+the nested and the hybrid halves of 6, 7, 7c, 7d, 7e and 7b's measurement
+path) and
 read right after it; each kernel of that path must have launched in its
 window (B2 and B3 with the chunk schedule counted apart, and each of their
 stage kernels by its own count).
@@ -115,6 +136,8 @@ P = 960  # Convolver.filter's padding of 938
 NB_MAIN = 1168  # blocks streamed on the per-block main path
 S_NESTED, NB_NESTED = 128, 1280  # 10 chunks, covering the SNR window
 S_HYBRID, NB_HYBRID = 64, 1216  # 19 chunks
+S_CHUNKED, NB_CHUNKED = 128, 1280  # 10 chunks, covering the SNR window
+S_ENGINES, NB_ENGINES = 64, 512  # make_engine: two calls of 256 blocks
 SNR_START, SNR_BLOCKS, SNR_CH = 1152, 16, 4  # steady-state window (> P_REAL)
 STORAGES = ("split", "bf16", "int16", "int8")
 SNR_CLASS_DB = {"split": 90.0, "int16": 74.0, "bf16": 40.0}  # bench.py:319
@@ -127,6 +150,10 @@ TOL = {"split": 2e-5, "bf16": 5e-3, "int16": 5e-4, "int8": 2e-2}
 STREAM_TOL = {"split": 1e-5, "int8": 1e-4}
 FUSED_HEAD_TOL = {"split": 1e-5, "int16": 2e-3, "int8": 6e-2}
 INT_MAX = {"int16": 32767, "int8": 127}
+# make_engine's engines against each other at split, and convolve's
+# methods against np.convolve: max|a - b| / max|b|
+ENGINES_TOL = 1e-4
+CONVOLVE_TOL = 2e-5
 DEVICE = "cuda"
 
 
@@ -182,6 +209,260 @@ def rel_err(a, b) -> tuple[float, float]:
     b = np.asarray(b, np.float64)
     d = float(np.abs(a - b).max())
     return d, d / max(1e-30, float(np.abs(b).max()))
+
+
+# the card kernels of the chunked engine's ops, by name (cuBLAS's product,
+# cuFFT's transforms, and every cat: the window's shift-concat, the UPOLS
+# frames' two cats a chunk, the output's stack once a call)
+OP_CLASSES = (("product", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
+              ("transforms", re.compile(r"fft", re.I)),
+              ("cats", re.compile(r"CatArray")))
+
+
+def kernel_breakdown(events: list[dict]) -> dict:
+    """Device µs by op class (``OP_CLASSES``, the rest "other") of a Chrome
+    trace's kernel events, the largest kernels, and the idle share of the
+    span from the first kernel's start to the last one's end."""
+    kern = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    by_op, by_name = {}, {}
+    busy, end = 0.0, None
+    for e in kern:
+        t0, dur = float(e["ts"]), float(e["dur"])
+        op = next((name for name, pat in OP_CLASSES if pat.search(e["name"])), "other")
+        by_op[op] = by_op.get(op, 0.0) + dur
+        by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) + dur
+        busy += max(0.0, t0 + dur - max(t0, end)) if end is not None else dur  # union of intervals
+        end = t0 + dur if end is None else max(end, t0 + dur)
+    span = (end - float(kern[0]["ts"])) if kern else 0.0
+    return {"device_us_by_op": by_op, "device_us": sum(by_op.values()), "busy_us": busy, "span_us": span,
+            "idle_share": (1.0 - busy / span) if span > 0 else None,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:5], "kernels": len(kern)}
+
+
+def trace_events(fn) -> list[dict]:
+    """The Chrome-trace events of one call of fn (``bench.profile.trace``)."""
+    import torch
+    from neojax_torch.bench import profile as bench_profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with bench_profile.trace(tmp):
+            fn()
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            return json.load(f)["traceEvents"]
+
+
+def snr_window(a, start: int) -> np.ndarray:
+    """The steady-state SNR window: SNR_BLOCKS blocks of SNR_CH channels."""
+    return np.asarray(a[:SNR_CH, start * BLOCK : (start + SNR_BLOCKS) * BLOCK], np.float64)
+
+
+def run_chunked(dev, card, parts, sig2, oracle2, sig, masked_oracle, mask_perc30, cuda_ms, peaks) -> dict:
+    """7c. The chunked engine's main path at the headline (``process_chunked``
+    over NB_CHUNKED blocks at S_CHUNKED, split and bf16, SNR-gated against
+    the f64 oracle), its warm µs a block, one traced call's device time by
+    op and idle share (the profiler's host cost included), its product
+    alone against the card's peak (``headline.chunked_work``) and its
+    window's shift-concat alone (``chunked._shift_window``, reading and
+    writing the window once) against the HBM rate; then the
+    perc30 mask at bf16 (4 buckets, the gather path) against the masked
+    oracle, with its own trace."""
+    import torch
+    from neojax_torch import conv
+    from neojax_torch.bench import headline
+    from neojax_torch.conv import chunked as ch
+    from neojax_torch.fft import matmul_backend as mb
+
+    peak_b, peak_f32, peak_bf16 = peaks
+    x = sig2[:, : NB_CHUNKED * BLOCK]
+    out_summary = {}
+    for storage in ("split", "bf16"):
+        cfg = conv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage=storage)
+        t0 = time.perf_counter()
+        params = conv.chunked_filter_params(cfg, parts, S_CHUNKED, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        (bucket,) = params["buckets"]
+        kb, m2 = bucket["tcat"].shape[0], bucket["tcat"].shape[2]
+        assert (kb, bucket["tcat"].shape[1], m2) == (BLOCK + 1, 2 * S_CHUNKED, 2 * (P_REAL + S_CHUNKED - 1))
+        state = conv.chunked_init_state(cfg, params)
+        t0 = time.perf_counter()
+        state, out = conv.process_chunked(cfg, params, state, x, S_CHUNKED)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        assert tuple(out.shape) == (CHANNELS, NB_CHUNKED * BLOCK) and bool(torch.isfinite(out).all())
+        snr = snr_db(snr_window(out.cpu().numpy(), SNR_START), snr_window(oracle2, SNR_START))
+        cls = ENGINE_SNR_CLASS_DB[storage]
+        st = conv.chunked_init_state(cfg, params)
+        ms = cuda_ms(lambda: conv.process_chunked(cfg, params, st, x, S_CHUNKED), 3)
+        trace = kernel_breakdown(trace_events(lambda: conv.process_chunked(cfg, params, st, x, S_CHUNKED)))
+        # the product alone, on this run's window operand
+        hw = state["hists"][0]
+        prod_ms = cuda_ms(lambda: ch._bucket_product(bucket["tcat"], hw), 10)
+        # the window's shift-concat alone, on this run's window and on new
+        # spectra in the path's own K-major view of the first chunk's frames
+        frames = x[:, : S_CHUNKED * BLOCK].reshape(CHANNELS, S_CHUNKED, BLOCK).transpose(0, 1)
+        sre, sim = mb.rfft_split(torch.cat([frames, frames], dim=-1), 2 * BLOCK)
+        nre, nim = (v.permute(2, 0, 1).to(hw.dtype) for v in (sre, sim))
+        nxt = torch.empty_like(hw)
+        shift_ms = cuda_ms(lambda: ch._shift_window(hw, nre, nim, nxt), 10)
+        shift_bytes = 2 * hw.numel() * hw.element_size()
+        chunks = NB_CHUNKED // S_CHUNKED
+        shift = {"ms_per_chunk": shift_ms, "bytes": shift_bytes, "bytes_per_s": shift_bytes / (shift_ms * 1e-3),
+                 "ms_per_call": chunks * shift_ms, "share_of_call": chunks * shift_ms / ms}
+        if peak_b:
+            shift["share_of_bytes_peak"] = shift["bytes_per_s"] / peak_b
+        work = headline.chunked_work(storage, kb, S_CHUNKED, m2 // 2, CHANNELS)
+        peak_f = peak_bf16 if storage == "bf16" else peak_f32
+        prod = {"ms": prod_ms, "flops": work.flops, "bytes": work.bytes,
+                "flops_per_s": work.flops / (prod_ms * 1e-3), "bytes_per_s": work.bytes / (prod_ms * 1e-3)}
+        if peak_b and peak_f:
+            t_b, by = headline.bound(work, peak_b, peak_f)
+            prod.update(peak_flops_per_s=peak_f, share_of_flops_peak=prod["flops_per_s"] / peak_f,
+                        share_of_bytes_peak=prod["bytes_per_s"] / peak_b, bound_ms=1e3 * t_b, bound_by=by,
+                        share_of_bound=1e3 * t_b / prod_ms)
+        row = {"snr_db_vs_f64": snr, "snr_class_db": cls, "us_per_block": 1e3 * ms / NB_CHUNKED,
+               "samples_per_s": CHANNELS * NB_CHUNKED * BLOCK / (ms * 1e-3), "build_s": build_s,
+               "first_call_s": first_s, "tcat": list(bucket["tcat"].shape),
+               "tcat_gbytes": bucket["tcat"].numel() * bucket["tcat"].element_size() / 1e9,
+               "product": prod, "shift_concat": shift, "trace": trace, "chunks_per_call": chunks}
+        out_summary[storage] = row
+        emit(phase="main_path", entry="process_chunked", storage=storage, chunk_blocks=S_CHUNKED,
+             channels=CHANNELS, partitions=P_REAL, block=BLOCK, blocks=NB_CHUNKED, **row, **card)
+        assert snr >= cls, f"chunked {storage}: SNR {snr:.1f} dB below its {cls} dB class"
+        del params, state, st, out, bucket, hw, nxt
+        torch.cuda.empty_cache()
+
+    # perc30 at bf16: the bucketed (gather/scatter) route, on phase 4's signal
+    cfg = conv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage="bf16")
+    params = conv.chunked_filter_params(cfg, parts, S_CHUNKED, mask=mask_perc30[:P_REAL], device=dev)
+    assert len(params["buckets"]) == 4, len(params["buckets"])
+    state, out = conv.process_chunked(cfg, params, conv.chunked_init_state(cfg, params), sig, S_CHUNKED)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == tuple(sig.shape) and bool(torch.isfinite(out).all())
+    snr = snr_db(snr_window(out.cpu().numpy(), SNR_START), masked_oracle(mask_perc30))
+    st = conv.chunked_init_state(cfg, params)
+    ms = cuda_ms(lambda: conv.process_chunked(cfg, params, st, sig, S_CHUNKED), 3)
+    nb = -(-sig.shape[1] // (S_CHUNKED * BLOCK)) * S_CHUNKED
+    row = {"snr_db_vs_masked_f64": snr, "snr_class_db": ENGINE_SNR_CLASS_DB["bf16"],
+           "us_per_block": 1e3 * ms / nb, "buckets": [[int(b["bins"].shape[0]), b["band"]] for b in params["buckets"]],
+           "tcat_gbytes": sum(b["tcat"].numel() * 2 for b in params["buckets"]) / 1e9,
+           "trace": kernel_breakdown(trace_events(lambda: conv.process_chunked(cfg, params, st, sig, S_CHUNKED)))}
+    out_summary["bf16/perc30"] = row
+    emit(phase="main_path", entry="process_chunked", storage="bf16", mask="perc30", chunk_blocks=S_CHUNKED,
+         channels=CHANNELS, partitions=P_REAL, block=BLOCK, blocks=sig.shape[1] // BLOCK, **row, **card)
+    assert snr >= ENGINE_SNR_CLASS_DB["bf16"], f"chunked bf16 perc30: SNR {snr:.1f} dB below its class"
+    del params, state, st, out
+    torch.cuda.empty_cache()
+    return out_summary
+
+
+def run_engines(dev, card, parts, sig2) -> dict:
+    """7d. ``make_engine``'s four engines at split on one input (the
+    headline IR and channels, two calls of NB_ENGINES / 2 blocks at
+    S_ENGINES), pairwise max difference relative to the peak (gated at
+    ENGINES_TOL), ``reset`` then one call against the two, ``latency``,
+    and ``storage=None`` resolving to ``"split"`` on the card."""
+    import torch
+    from neojax_torch import conv
+
+    half = NB_ENGINES // 2 * BLOCK
+    x = sig2[:, : 2 * half]
+    outs, rows = {}, {}
+    for engine in ("perblock", "nested", "hybrid", "chunked"):
+        eng = conv.make_engine(engine, parts, storage="split", channels=CHANNELS, device=dev,
+                               chunk_blocks=None if engine == "perblock" else S_ENGINES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        two = torch.cat([eng.process(x[:, :half]), eng.process(x[:, half:])], dim=-1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        eng.reset()
+        one = eng.process(x)
+        assert tuple(two.shape) == tuple(x.shape) and bool(torch.isfinite(two).all())
+        assert eng.latency == 0
+        rows[engine] = {"two_calls_s": dt, "reset_then_one_call_rel_diff": rel_err(one.cpu(), two.cpu())[1],
+                        "chunk_blocks": eng.chunk_blocks, "partitions": eng.config.num_partitions}
+        outs[engine] = two.cpu()
+        del eng, one, two
+        torch.cuda.empty_cache()
+    pairs = {f"{a}/{b}": rel_err(outs[a], outs[b])[1]
+             for i, a in enumerate(outs) for b in list(outs)[i + 1 :]}
+    default = conv.make_engine("perblock", parts, device=dev).config.storage
+    emit(phase="entry_point", entry="make_engine", storage="split", channels=CHANNELS, partitions=P_REAL,
+         blocks=2 * half // BLOCK, calls=2, engines=rows, pairwise_rel_diff=pairs, tol=ENGINES_TOL,
+         storage_none_on_card=default, **card)
+    want = "split" if torch.device(dev).type == "cuda" else "dense"  # the convolver's rule
+    assert default == want, f"make_engine storage=None on {dev} resolved to {default!r}"
+    for key, r in pairs.items():
+        assert r < ENGINES_TOL, f"make_engine {key}: rel diff {r}"
+    for engine, row in rows.items():
+        assert row["reset_then_one_call_rel_diff"] < ENGINES_TOL, f"{engine}: reset then one call differs"
+    return {"engines": rows, "pairwise_rel_diff": pairs}
+
+
+def run_convolve(dev, card, cuda_ms) -> dict:
+    """7e. ``neojax_torch.convolve`` by all seven methods on the card, a
+    48 000-sample signal and a 24 000-tap IR, both TF32 flags set on first
+    (the products must stay IEEE float32), each against ``np.convolve`` in
+    float64 (max error relative to the peak, gated at CONVOLVE_TOL). Then
+    ``fft_convolve(backend="matmul")`` on 64 channels of 4096 samples by
+    a 4096-tap IR: its DFT products are GEMMs, which TF32 would round, so
+    this row's gate fails if ``ieee_float32`` does not hold; beside it the
+    same forward product with TF32 left on (reported, not gated)."""
+    import torch
+    import torch.nn.functional as F
+    import neojax_torch
+    from neojax_torch import conv
+    from neojax_torch.fft import matmul_backend as mb
+
+    rng = np.random.default_rng(5)
+    a = rng.uniform(-1, 1, 48000).astype(np.float32)
+    h = (rng.uniform(-1, 1, 24000) * np.exp(-np.arange(24000) / 4800.0)).astype(np.float32)
+    ref = np.convolve(a.astype(np.float64), h.astype(np.float64))
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    rows = {}
+    try:
+        flags = {"allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32}
+        a_dev, h_dev = torch.from_numpy(a).to(dev), torch.from_numpy(h).to(dev)
+        for method in ("auto", "direct", "fft", "ols", "ola", "upols", "upola"):
+            out = neojax_torch.convolve(a_dev, h_dev, method=method, device=dev)
+            torch.cuda.synchronize()
+            assert out.device.type == torch.device(dev).type and tuple(out.shape) == ref.shape
+            d, r = rel_err(out.cpu(), ref)
+            rows[method] = {"max_abs_err": d, "rel_err": r,
+                            "ms": cuda_ms(lambda: neojax_torch.convolve(a_dev, h_dev, method=method, device=dev), 3)}
+        n2 = 4096
+        a2 = rng.uniform(-1, 1, (CHANNELS, n2))
+        h2 = h[:n2].astype(np.float64)
+        spec_want = np.fft.rfft(a2, 2 * n2)
+        ref2 = np.fft.irfft(spec_want * np.fft.rfft(h2, 2 * n2), 2 * n2)[:, : 2 * n2 - 1]
+        a2_dev = torch.from_numpy(a2.astype(np.float32)).to(dev)
+        h2_dev = torch.from_numpy(h2.astype(np.float32)).to(dev)
+        out = conv.fft_convolve(a2_dev, h2_dev, backend="matmul")
+        torch.cuda.synchronize()
+        assert tuple(out.shape) == ref2.shape
+        d, r = rel_err(out.cpu(), ref2)
+        x2 = F.pad(a2_dev, (0, n2))
+        cm, sm = mb.rfft_matrices(2 * n2, dev)
+        want = np.stack([spec_want.real, spec_want.imag])
+        rows["fft/matmul"] = {
+            "max_abs_err": d, "rel_err": r, "channels": CHANNELS, "signal": n2, "ir": n2,
+            "ms": cuda_ms(lambda: conv.fft_convolve(a2_dev, h2_dev, backend="matmul"), 3),
+            "forward_rel_err_ieee": rel_err(torch.stack([mb._product(x2, cm), mb._product(x2, sm)]).cpu(), want)[1],
+            "forward_rel_err_tf32": rel_err(torch.stack([x2 @ cm, x2 @ sm]).cpu(), want)[1]}
+        flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    emit(phase="entry_point", entry="convolve", signal=a.size, ir=h.size, tf32_flags=flags, methods=rows,
+         tol=CONVOLVE_TOL, **card)
+    assert flags_after == (True, True), "the caller's TF32 flags were not restored"
+    for method, row in rows.items():
+        assert row["rel_err"] < CONVOLVE_TOL, f"convolve {method}: rel err {row['rel_err']}"
+    return rows
 
 
 def main() -> int:
@@ -671,6 +952,9 @@ def main() -> int:
                 tables_u = (prm_u["sp_k_idx"], prm_u["sp_p_idx"], prm_u["sp_flags"])
                 row["unpacked_k513"] = {"k_tile": kt_u, "p_chunk": pc_u, **b4_row(
                     ring_u, scales, prm_u["filt_re"], prm_u["filt_im"], tables_u, prm_u["tile_live"], pc_u, kt_u, k)}
+                fr_p, fi_p = prm_u["filt_re"][:P], prm_u["filt_im"][:P]  # position P - 1
+                row["unpacked_k513"]["plain_ms"] = cuda_ms(lambda: sm_mod.sparse_fdl_mac_reference(
+                    ring_u, fr_p, fi_p, P - 1, *tables_u, scales, p_chunk=pc_u, k_tile=kt_u), 3)
                 if storage == "split" and mname == "band30":  # the bounds phase's K = 513 row
                     fr_u, fi_u = prm_u["filt_re"][:P], prm_u["filt_im"][:P]
                     xc_u = torch.complex(ring_u[0], ring_u[1])
@@ -1027,6 +1311,21 @@ def main() -> int:
     del params, one, a, b2, st
     torch.cuda.empty_cache()
     read_window("hybrid_stream", ("fdl_mac", "nested_mac"))
+
+    # ---- 7c-7e. the chunked engine's main path (no kernel of the port: its
+    # product is torch.bmm, so its window expects none), make_engine over
+    # the four engines, and convolve's seven methods
+    kernels.reset_launch_counts()
+    chunked_sum = run_chunked(dev, card, parts, sig2, oracle2, sig, masked_oracle, masks["perc30"], cuda_ms,
+                              (peak_b, peak_f, harness.bf16_peak_flops_per_sec()))
+    read_window("chunked", ())
+    kernels.reset_launch_counts()
+    make_engine_sum = run_engines(dev, card, parts, sig2)
+    read_window("make_engine", ("fused_stream", "nested_mac", *b3_stage_names))
+    kernels.reset_launch_counts()
+    convolve_sum = run_convolve(dev, card, cuda_ms)
+    # block 2048 (the 24 000-tap IR) is above B3's 1024: UPOLS and UPOLA step block by block through B1
+    read_window("convolve", ("fdl_mac",))
 
     # ---- 7b. probes T1 and T2 against their plain versions, the measurement
     # path in its own launch window, a profiler trace, and every kernel's bound
@@ -1424,8 +1723,8 @@ def main() -> int:
     emit(phase="summary", snr_db_vs_f64=snrs, engine_snr_db_vs_f64=engine_snrs,
          sparse_snr_db_vs_masked_f64=sparse_snrs, sparse_times=sparse_times, sparse_masks=mask_stats,
          times=times, measurement=meas, stages=stages,
-         engine_times=engine_times, hybrid_stream_latency=stream_lat,
-         total_s=time.perf_counter() - t_start, **card)
+         engine_times=engine_times, hybrid_stream_latency=stream_lat, chunked=chunked_sum,
+         make_engine=make_engine_sum, convolve=convolve_sum, total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -30,6 +30,7 @@ __all__ = [
     "fft_flops",
     "hbm_peak_bytes_per_sec",
     "f32_peak_flops_per_sec",
+    "bf16_peak_flops_per_sec",
     "hbm_achievable_bytes_per_sec",
     "memcpy_probe",
     "multiply_add_probe",
@@ -44,6 +45,11 @@ _HBM_PEAK = {
 }
 _F32_PEAK = {
     "NVIDIA H100 80GB HBM3": 67e12,
+}
+# dense bf16 operations/s on the tensor cores (the chunked engine's bf16
+# product: bf16 operands, float32 accumulator)
+_BF16_PEAK = {
+    "NVIDIA H100 80GB HBM3": 989e12,
 }
 
 
@@ -73,6 +79,12 @@ def f32_peak_flops_per_sec() -> float | None:
     """The card's data-sheet float32 rate outside the tensor cores, or None."""
     _require_card()
     return _F32_PEAK.get(torch.cuda.get_device_name(0))
+
+
+def bf16_peak_flops_per_sec() -> float | None:
+    """The card's data-sheet dense bf16 tensor-core rate, or None."""
+    _require_card()
+    return _BF16_PEAK.get(torch.cuda.get_device_name(0))
 
 
 @dataclasses.dataclass(frozen=True)

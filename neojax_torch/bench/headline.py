@@ -65,6 +65,7 @@ __all__ = [
     "step_mac_work",
     "step_reduce_work",
     "sched_widths_work",
+    "chunked_work",
     "chunk_visits",
     "tile_live",
 ]
@@ -365,3 +366,15 @@ def step_reduce_work(c: int, b: int, splits: int) -> Work:
 def sched_widths_work(p: int, entries: int, chunks: int) -> Work:
     """``sched_widths``: the [P, L] chunk tables -> the [P, chunks] widths."""
     return Work(2 * p * entries * 4 + p * chunks * 4, 0)
+
+
+def chunked_work(storage: str, kb: int, s: int, m: int, c: int) -> Work:
+    """One bucket's product of the chunked engine for one chunk of S blocks,
+    ``tcat [Kb, 2S, 2M] @ hists [Kb, 2M, C] -> [Kb, 2S, C]``: the Toeplitz
+    operand and the spectrum window read once (bf16 for ``"bf16"``, float32
+    otherwise), the float32 product written once; 2 Kb 2S 2M C operations
+    (at the headline, K = 513, S = 128, M = 938 + 127, C = 64: 35.8 G per
+    chunk, 1.12 GB of ``tcat`` in float32)."""
+    item = ITEMSIZE["bf16"] if storage == "bf16" else 4
+    nbytes = kb * 2 * s * 2 * m * item + kb * 2 * m * c * item + kb * 2 * s * c * 4
+    return Work(nbytes, 2 * kb * 2 * s * 2 * m * c)

@@ -1,7 +1,10 @@
-"""neojax_torch.conv — the uniformly-partitioned FDL convolver (UPOLS/UPOLA),
-the nested (two-level FDL) throughput engine and the hybrid real-time
-engine."""
+"""neojax_torch.conv — the convolution engine: direct, FFT, OLS/OLA, the
+uniformly-partitioned FDL convolver (UPOLS/UPOLA), the nested (two-level
+FDL) and chunked (Toeplitz-product) throughput engines, the hybrid
+real-time engine, and ``make_engine`` over the four."""
 
+from neojax_torch.conv.engines import Engine, make_engine
+from neojax_torch.conv.chunked import chunked_filter_params, chunked_init_state, process_chunked
 from neojax_torch.conv.convolver import (
     Convolver,
     PartitionedConfig,
@@ -25,13 +28,18 @@ from neojax_torch.conv.hybrid import (
     hybrid_init_state,
     process_hybrid,
 )
+from neojax_torch.conv.direct import direct_convolve
+from neojax_torch.conv.fft_conv import fft_convolve
+from neojax_torch.conv.modes import Method, Mode, output_size
 from neojax_torch.conv.nested import nested_filter_params, nested_init_state, process_nested
-from neojax_torch.conv.overlap import stream_blocks, unstream_blocks
+from neojax_torch.conv.overlap import OverlapAdd, OverlapSave, stream_blocks, unstream_blocks
 from neojax_torch.conv.partition import num_partitions, uniform_partition
 from neojax_torch.conv.sparse import perceptual_mask, perceptual_weights, sparsity_mask
 from neojax_torch.ops.normalize import normalize_impulse
 
 __all__ = [
+    "Engine",
+    "make_engine",
     "Convolver",
     "PartitionedConfig",
     "filter_params",
@@ -47,6 +55,9 @@ __all__ = [
     "split_upola_convolver",
     "sparse_upols_convolver",
     "sparse_upola_convolver",
+    "chunked_filter_params",
+    "chunked_init_state",
+    "process_chunked",
     "nested_filter_params",
     "nested_init_state",
     "process_nested",
@@ -54,6 +65,13 @@ __all__ = [
     "hybrid_init_state",
     "process_hybrid",
     "HybridStream",
+    "direct_convolve",
+    "fft_convolve",
+    "Mode",
+    "Method",
+    "output_size",
+    "OverlapSave",
+    "OverlapAdd",
     "stream_blocks",
     "unstream_blocks",
     "uniform_partition",

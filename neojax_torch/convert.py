@@ -1,5 +1,5 @@
 """Carry params and streaming state between ``neojax`` and this package,
-for the per-block convolver, the nested engine and the hybrid engine.
+for the per-block convolver and the nested, hybrid and chunked engines.
 
 Both packages use the same dict keys and shapes, so the conversion is a
 dtype/device move plus two layout differences:
@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from neojax_torch.conv import chunked as chunked_lib
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv import hybrid as hybrid_lib
 from neojax_torch.conv import nested as nested_lib
@@ -45,6 +46,8 @@ __all__ = [
     "nested_state_from_neojax",
     "hybrid_params_from_neojax",
     "hybrid_state_from_neojax",
+    "chunked_params_from_neojax",
+    "chunked_state_from_neojax",
     "state_to_numpy",
 ]
 
@@ -135,6 +138,27 @@ def hybrid_state_from_neojax(config: PartitionedConfig, state_np: dict, device=N
     return state
 
 
+def chunked_params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) -> dict:
+    """neojax ``chunked_filter_params`` output (as numpy) -> this package's:
+    each bucket's ``tcat`` in the storage's dtype (bf16 for ``"bf16"``),
+    ``bins`` int32, ``band`` an int."""
+    device = resolve_device(device)
+    return {"buckets": tuple(
+        {"tcat": _tensor(bk["tcat"], device, chunked_lib._dtype(config)),
+         "bins": _tensor(bk["bins"], device, torch.int32),
+         "band": int(bk["band"])}
+        for bk in params_np["buckets"]
+    )}
+
+
+def chunked_state_from_neojax(config: PartitionedConfig, state_np: dict, device=None) -> dict:
+    """neojax ``chunked_init_state``/``process_chunked`` state (as numpy) ->
+    this package's state on ``device``."""
+    device = resolve_device(device)
+    return {"tail": _tensor(state_np["tail"], device, torch.float32),
+            "hists": tuple(_tensor(h, device, chunked_lib._dtype(config)) for h in state_np["hists"])}
+
+
 def _state_dict(state_np: dict, device, dtypes: dict) -> dict:
     """numpy state -> tensors: ints for the positions, ``dtypes[key]`` for
     the keyed arrays (the first element of a (planes, scales) tuple),
@@ -159,8 +183,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def state_to_numpy(state: dict) -> dict:
-    """This package's state (convolver, nested, hybrid or ``HybridStream``)
-    -> numpy arrays with the JAX package's layout (positions and ``r`` as
+    """This package's state (convolver, nested, hybrid, chunked or
+    ``HybridStream``) -> numpy arrays with the JAX package's layout (positions and ``r`` as
     int32 scalars, bf16 arrays widened to float32)."""
     out = {}
     for key, value in state.items():

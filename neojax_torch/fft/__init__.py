@@ -1,5 +1,6 @@
-"""neojax_torch.fft — real transforms on torch.fft and the packed-DFT builders."""
+"""neojax_torch.fft — transforms on torch.fft or as DFT products, and the
+packed-DFT matrices."""
 
-from neojax_torch.fft.api import irfft, rfft
+from neojax_torch.fft.api import fft, get_backend, ifft, irfft, rfft, set_backend
 
-__all__ = ["rfft", "irfft"]
+__all__ = ["set_backend", "get_backend", "fft", "ifft", "rfft", "irfft"]

@@ -1,20 +1,30 @@
-"""Packed-DFT matrices for the fused kernels, and the split transforms.
+"""DFT matrices: the packed ones of the fused kernels, the plain ones of the
+``"matmul"`` transform backend, and the split transforms.
 
 The fused per-block kernels (``neojax_torch.kernels.fused_step``) evaluate
 the block's forward and inverse real DFT as GEMVs against dense matrices in
 the *packed* spectrum layout of ``neojax.fft.matmul_backend``: B = N/2
 lanes, lane 0 of the re-plane holds DC.re and lane 0 of the im-plane holds
-Nyquist.re (both imaginary parts vanish for real input). The matrices are
-built in float64 numpy and cast once per (size, dtype, device).
+Nyquist.re (both imaginary parts vanish for real input). All matrices are
+built in float64 numpy and cast to float32 once per (size, dtype, device).
 
-Outside the kernels the transforms run on ``torch.fft`` (cuFFT on the
-card, in float32): the packed split layout (:func:`rfft_packed_split` /
-:func:`irfft_packed_split`), the non-packed K = B+1 bin layout of the
-nested and hybrid engines (:func:`rfft_split` / :func:`irfft_split`, the
-JAX package's ``rfft_split_cat`` / ``irfft_split_cat``) and the nested
-engine's meta C2C transforms (:func:`meta_fft` / :func:`meta_ifft_tail`,
-which replace the packed GEMMs of ``neojax.conv.nested._meta_gemm_mats``).
-So no float32 ``torch.matmul`` — and no TF32 — is on the port's CUDA path.
+The engines' transforms outside the kernels run on ``torch.fft`` (cuFFT on
+the card, in float32): the packed split layout (:func:`rfft_packed_split`
+/ :func:`irfft_packed_split`), the non-packed K = B+1 bin layout of the
+nested, hybrid and chunked engines (:func:`rfft_split` /
+:func:`irfft_split`, the JAX package's ``rfft_split_cat`` /
+``irfft_split_cat``) and the nested engine's meta C2C transforms
+(:func:`meta_fft` / :func:`meta_ifft_tail`, which replace the packed GEMMs
+of ``neojax.conv.nested._meta_gemm_mats``).
+
+The ``"matmul"`` backend of ``fft.api`` is the DFT as a product against
+the non-packed matrices (:func:`rfft_matrices`, :func:`irfft_matrices`,
+:func:`fft_matrices`; products :func:`rfft`, :func:`irfft`,
+:func:`fft_split`), a float32 ``torch.matmul`` on cuBLAS. TF32 rule: every
+float32 product of the port runs inside ``core.device.ieee_float32``, so
+it is IEEE float32 (the JAX package's ``Precision.HIGHEST``) whatever the
+caller set — TF32's 10-bit mantissa would break the reference's 1e-5
+bound.
 
 Precision. The JAX engines pick an MXU precision per transform
 (``_fft_precisions``). Here ``HIGHEST`` and ``HIGH`` are float32 FFTs,
@@ -29,7 +39,15 @@ import functools
 import numpy as np
 import torch
 
+from neojax_torch.core.device import ieee_float32, resolve_device
+
 __all__ = [
+    "rfft_matrices",
+    "irfft_matrices",
+    "fft_matrices",
+    "rfft",
+    "irfft",
+    "fft_split",
     "packed_mats_np",
     "packed_mats",
     "packed_stream_mats",
@@ -45,6 +63,82 @@ __all__ = [
 
 # The JAX package's lax.Precision names, lower-cased.
 PRECISIONS = ("default", "high", "highest")
+
+
+def _dft_mats_np(kind: str, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The non-packed DFT matrix pair in float64 (``neojax.fft.
+    matmul_backend._{rfft,irfft,fft}_mats_np``):
+
+    - ``"rfft"``: (cos, sin) [N, N//2+1] of the negative angle;
+    - ``"irfft"``: (a, b) [N//2+1, N], x = re @ a + im @ b with 1/N and the
+      two-sided weights (1 at DC and, for even N, Nyquist) folded in;
+    - ``"fft"``: (cos, sin) [N, N] of the negative angle.
+    """
+    t = np.arange(n)
+    if kind == "irfft":
+        k = np.arange(n // 2 + 1)
+        ang = 2.0 * np.pi * np.outer(k, t) / n  # [K, N]
+        w = np.full((n // 2 + 1, 1), 2.0)
+        w[0] = 1.0
+        if n % 2 == 0:
+            w[-1] = 1.0
+        return w * np.cos(ang) / n, -w * np.sin(ang) / n
+    k = np.arange(n // 2 + 1 if kind == "rfft" else n)
+    ang = -2.0 * np.pi * np.outer(t, k) / n
+    return np.cos(ang), np.sin(ang)
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_mats_cached(kind: str, n: int, device: str):
+    return tuple(_to_device(m, torch.float32, device) for m in _dft_mats_np(kind, n))
+
+
+def rfft_matrices(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [N, N//2+1] float32 on ``device`` (None: the card):
+    spec = x @ cos + i x @ sin. Cached: callers must not write to them."""
+    return _dft_mats_cached("rfft", n, str(resolve_device(device)))
+
+
+def irfft_matrices(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) [N//2+1, N] float32 on ``device`` (None: the card):
+    x = re @ a + im @ b, the normalized inverse. Cached: callers must not
+    write to them."""
+    return _dft_mats_cached("irfft", n, str(resolve_device(device)))
+
+
+def fft_matrices(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [N, N] float32 on ``device`` (None: the card) of the
+    forward C2C DFT. Cached: callers must not write to them."""
+    return _dft_mats_cached("fft", n, str(resolve_device(device)))
+
+
+def _product(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x @ m over x's last axis in IEEE float32."""
+    with ieee_float32():
+        return torch.matmul(x.to(torch.float32), m)
+
+
+def rfft(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Real [..., n] -> complex64 [..., n//2+1] as a DFT product,
+    unnormalized forward."""
+    c, s = rfft_matrices(n, x.device)
+    return torch.complex(_product(x, c), _product(x, s))
+
+
+def irfft(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """Complex [..., n//2+1] -> real float32 [..., n] as a DFT product,
+    normalized (1/n) inverse."""
+    a, b = irfft_matrices(n, spec.device)
+    return _product(spec.real, a) + _product(spec.imag, b)
+
+
+def fft_split(re: torch.Tensor, im: torch.Tensor, n: int, inverse: bool = False):
+    """C2C DFT over the last axis in split layout, as DFT products;
+    unnormalized in both directions. Returns (re, im) float32."""
+    c, s = fft_matrices(n, re.device)
+    if inverse:  # conjugate twiddles: cos unchanged, sin negated
+        return _product(re, c) + _product(im, s), _product(im, c) - _product(re, s)
+    return _product(re, c) - _product(im, s), _product(re, s) + _product(im, c)
 
 
 @functools.lru_cache(maxsize=32)

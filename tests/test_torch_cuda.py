@@ -7,7 +7,12 @@ at every storage and group count, B3 with its ``acc_add`` seed, B4 (the
 tile-sparse MAC) and B2/B3 with the sparse chunk schedule — each also
 against the dense kernel on the same masked filter — and the convolver's
 (dense and sparse), nested engine's and hybrid engine's CUDA routes against
-their CPU routes.
+their CPU routes. Also the float32 products that run outside the kernels
+(the chunked engine's split and bf16 products, ``direct_convolve``, the
+``"matmul"`` DFT backend) with the caller's TF32 flags forced on, each
+against its CPU route or a float64 oracle at a bound TF32 would miss, and
+``make_engine``'s four engines and ``convolve``'s seven methods on the
+card.
 
 Marked ``cuda``: every test skips without a CUDA device (decided in the
 ``cuda`` fixture, never at import). The file imports no JAX, so on a card
@@ -626,3 +631,98 @@ def test_fused_block_step_ragged_shapes(cuda, rng, storage, p, c, b):
                      "window_inverse"):
             assert after[name] - before[name] == 1, name
         assert after["sched_widths"] == before["sched_widths"]  # no schedule, no widths launch
+
+
+@pytest.fixture
+def tf32_on():
+    """The caller's TF32 flags on (cuBLAS and cuDNN), restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _peak_rel(a, b):
+    a = torch.as_tensor(a).detach().double().cpu()
+    b = torch.as_tensor(b).detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["split", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_chunked_cuda_route_matches_cpu_route(cuda, rng, tf32_on, storage, masked):
+    """The card's product (IEEE float32 for split, bf16 operands with a
+    float32 accumulator for bf16) against the CPU route: split 2e-5 and
+    bf16 5e-3 of the output peak (bf16 transform operands may round to
+    neighbouring values after cuFFT and pocketfft)."""
+    from neojax_torch.conv import chunked as ch
+
+    b, p, c, s = 64, 24, 3, 8
+    ir = (rng.uniform(-1, 1, p * b) * np.exp(-np.arange(p * b) / (4 * b)) * 0.3).astype(np.float32)
+    parts = conv.uniform_partition(ir, b)
+    mask = conv.perceptual_mask(parts[0], 48000.0, -50.0) if masked else None
+    sig = rng.uniform(-1, 1, (c, 3 * s * b + 17)).astype(np.float32)
+    cfg = cv.PartitionedConfig(b, p, c, storage=storage)
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = ch.chunked_filter_params(cfg, parts, s, mask=mask, device=dev)
+        state, out = ch.process_chunked(cfg, params, ch.chunked_init_state(cfg, params), sig, s)
+        assert out.device.type == torch.device(dev).type and out.dtype == torch.float32
+        outs[str(dev)] = (params, state, out)
+    (cp, cs_, co), (gp, gs, go) = outs["cpu"], outs[str(cuda)]
+    for cb, gb in zip(cp["buckets"], gp["buckets"]):  # the device gather equals the CPU build
+        assert torch.equal(cb["tcat"].view(torch.int16 if storage == "bf16" else torch.int32),
+                           gb["tcat"].cpu().view(torch.int16 if storage == "bf16" else torch.int32))
+    assert _peak_rel(go, co) < (2e-5 if storage == "split" else 5e-3)
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32  # restored
+
+
+@pytest.mark.cuda
+def test_float32_products_stay_ieee_under_tf32(cuda, rng, tf32_on):
+    """direct_convolve and the "matmul" DFT backend against float64 at
+    1e-5 of the peak: TF32's 10-bit mantissa would miss it by two orders."""
+    from neojax_torch import fft as tfft
+
+    a = rng.uniform(-1, 1, 4000)
+    h = rng.uniform(-1, 1, 1500)
+    out = conv.direct_convolve(a.astype(np.float32), h.astype(np.float32), device=cuda)
+    assert _peak_rel(out, np.convolve(a, h)) < 1e-5
+    x = rng.uniform(-1, 1, (8, 1024))
+    spec = tfft.rfft(x.astype(np.float32), backend="matmul", device=cuda)
+    want = np.fft.rfft(x)
+    assert _peak_rel(torch.view_as_real(spec), torch.view_as_real(torch.from_numpy(want))) < 1e-5
+    back = tfft.irfft(spec, n=1024, backend="matmul")
+    assert _peak_rel(back, x) < 1e-5
+    z = (rng.standard_normal((4, 512)) + 1j * rng.standard_normal((4, 512)))
+    got = tfft.fft(z.astype(np.complex64), backend="matmul", device=cuda)
+    assert _peak_rel(torch.view_as_real(got), torch.view_as_real(torch.from_numpy(np.fft.fft(z)))) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["perblock", "nested", "hybrid", "chunked"])
+def test_make_engine_cuda_route_matches_cpu_route(cuda, rng, tf32_on, engine):
+    """Each engine at split on the card against its CPU route over two
+    calls (2e-5 of the peak); storage=None on the card is "split"."""
+    b, p, c, s = 32, 19, 2, 4
+    parts = conv.uniform_partition(rng.uniform(-1, 1, p * b).astype(np.float32) * 0.2, b)
+    sig = rng.uniform(-1, 1, (c, 6 * s * b)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        eng = conv.make_engine(engine, parts, storage="split", chunk_blocks=s, channels=c, device=dev)
+        outs.append(torch.cat([eng.process(sig[:, : 2 * s * b]).cpu(), eng.process(sig[:, 2 * s * b :]).cpu()], -1))
+    assert _peak_rel(outs[1], outs[0]) < 2e-5
+    assert conv.make_engine(engine, parts, chunk_blocks=s, device=cuda).config.storage == "split"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["auto", "direct", "fft", "ols", "ola", "upols", "upola"])
+def test_convolve_on_the_card(cuda, rng, tf32_on, method):
+    import neojax_torch
+
+    a = rng.uniform(-1, 1, 6000)
+    h = rng.uniform(-1, 1, 2500)
+    out = neojax_torch.convolve(a.astype(np.float32), h.astype(np.float32), method=method)
+    assert out.device.type == "cuda" and out.shape == (8499,)
+    assert _peak_rel(out, np.convolve(a, h)) < 1e-5

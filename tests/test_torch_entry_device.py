@@ -1,8 +1,10 @@
 """neojax_torch's entry points run on the card unless the caller asks for the
 CPU: with no ``device`` and no card they raise a RuntimeError that names
 ``device="cpu"`` (never a silent CPU run), with a card they pick ``cuda``,
-and the ``*_init_state`` functions of the nested and hybrid engines follow
-their params' device.
+and the ``*_init_state`` functions of the nested, hybrid and chunked
+engines follow their params' device (the chunked engine's resolves
+``device`` like the others when its params hold no tensor: a fully masked
+filter).
 
 Whether a card is visible is set per test with ``monkeypatch`` on
 ``torch.cuda.is_available``, so these tests mean the same on any machine.
@@ -12,12 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+import neojax_torch
 from neojax_torch import conv as tconv
 from neojax_torch import convert
 from neojax_torch.bench import quality
+from neojax_torch.conv import chunked as tch
 from neojax_torch.conv import convolver as tcv
 from neojax_torch.conv import hybrid as thy
 from neojax_torch.conv import nested as tnested
+from neojax_torch.conv.streaming import streaming_convolve
+from neojax_torch.fft import matmul_backend as tmb
 from neojax_torch.core.device import resolve_device
 
 B, P, C = 16, 4, 2
@@ -78,7 +84,30 @@ _FUNCTIONS = {
     "hybrid_state_from_neojax": lambda **kw: convert.hybrid_state_from_neojax(
         _cfg(), convert.state_to_numpy(thy.hybrid_init_state(
             _cfg(), thy.hybrid_filter_params(_cfg(), _parts(), 2, device="cpu"))), **kw),
+    "chunked_filter_params": lambda **kw: tch.chunked_filter_params(_cfg(), _parts(), 2, **kw),
+    # a fully masked filter: no bucket, so no params tensor to follow
+    "chunked_init_state": lambda **kw: tch.chunked_init_state(_cfg(), {"buckets": ()}, **kw),
+    "chunked_params_from_neojax": lambda **kw: convert.chunked_params_from_neojax(
+        _cfg(), _chunked_np(tch.chunked_filter_params(_cfg(), _parts(), 2, device="cpu")), **kw),
+    "chunked_state_from_neojax": lambda **kw: convert.chunked_state_from_neojax(
+        _cfg(), convert.state_to_numpy(tch.chunked_init_state(
+            _cfg(), tch.chunked_filter_params(_cfg(), _parts(), 2, device="cpu"))), **kw),
+    "make_engine": lambda **kw: tconv.make_engine("chunked", _parts(), chunk_blocks=2, channels=C, **kw),
+    "convolve": lambda **kw: neojax_torch.convolve(np.ones(8, np.float32), np.ones(3, np.float32), **kw),
+    "direct_convolve": lambda **kw: tconv.direct_convolve(np.ones(8, np.float32), np.ones(3, np.float32), **kw),
+    "fft_convolve": lambda **kw: tconv.fft_convolve(np.ones(8, np.float32), np.ones(3, np.float32), **kw),
+    "OverlapSave.init_state": lambda **kw: tconv.OverlapSave(B, 5).init_state(C, **kw),
+    "OverlapAdd.init_state": lambda **kw: tconv.OverlapAdd(B, 5).init_state(C, **kw),
+    "rfft_matrices": lambda **kw: tmb.rfft_matrices(B, **kw),
+    "irfft_matrices": lambda **kw: tmb.irfft_matrices(B, **kw),
+    "fft_matrices": lambda **kw: tmb.fft_matrices(B, **kw),
 }
+
+
+def _chunked_np(params):
+    """Chunked params as numpy, the layout ``chunked_params_from_neojax`` takes."""
+    return {"buckets": tuple({k: v if isinstance(v, int) else v.numpy() for k, v in bk.items()}
+                             for bk in params["buckets"])}
 
 
 @pytest.fixture
@@ -131,6 +160,27 @@ def test_resolve_device(no_card):
         resolve_device()
 
 
+_CONVOLVE = {
+    "convolve": neojax_torch.convolve,
+    "direct_convolve": tconv.direct_convolve,
+    "fft_convolve": tconv.fft_convolve,
+    "streaming_convolve": lambda a, h: streaming_convolve(a, h, "ols"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CONVOLVE))
+def test_convolve_surface_keeps_tensors_where_they_lie(no_card, name):
+    """The array functions' one input rule (``core.device.as_tensor``): with
+    no ``device`` a tensor input is used where it lies, so CPU tensors run
+    on the CPU with no card; host input goes to the card and raises."""
+    a, h = torch.ones(8), torch.ones(3)
+    out = _CONVOLVE[name](a, h)
+    assert out.device.type == "cpu"
+    np.testing.assert_allclose(out.numpy(), np.convolve(np.ones(8), np.ones(3)), atol=1e-5)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _CONVOLVE[name](a.numpy(), h.numpy())
+
+
 def test_engine_init_states_follow_their_params(no_card):
     cfg = _cfg()
     nparams = tnested.nested_filter_params(cfg, _parts(), 2, device="cpu")
@@ -138,3 +188,13 @@ def test_engine_init_states_follow_their_params(no_card):
     assert tnested.nested_init_state(cfg, nparams)["tail"].device.type == "cpu"
     assert thy.hybrid_init_state(cfg, hparams)["btail"].device.type == "cpu"
     assert thy.HybridStream(cfg, hparams).device.type == "cpu"
+    cparams = tch.chunked_filter_params(cfg, _parts(), 2, device="cpu")
+    assert tch.chunked_init_state(cfg, cparams)["hists"][0].device.type == "cpu"
+
+
+def test_engine_storage_follows_the_device(no_card):
+    """``make_engine``'s ``storage=None`` is the convolver's rule: dense on
+    the CPU (the card's ``"split"`` is checked on the card)."""
+    for engine in ("perblock", "nested", "hybrid", "chunked"):
+        eng = tconv.make_engine(engine, _parts(), chunk_blocks=2, channels=C, device="cpu")
+        assert eng.config.storage == "dense" and eng.device == torch.device("cpu")
