@@ -85,6 +85,29 @@ Phases, each printing one JSON object per line:
      4096 samples by a 4096-tap IR (transform size 8192, the backend's
      largest), whose DFT products TF32 would round, beside the same
      forward product with TF32 left on
+  7f. the WAV-convolver CLI, ``neojax_torch.cli.main`` in-process, on a
+     16-channel 20 s 48 kHz file (32-bit PCM) and a mono 10 s hall IR
+     written at 44.1 kHz (resampled by the CLI to 938 partitions at block
+     512): the five engines at block 512 (chunk 128, the hybrid 64) at
+     their card storages, upols with ``--threshold-db -30``, and upols at
+     the default block 4096; each called twice, the second reported (the
+     CLI's real-time factor, launch counts, SNR of the output WAV against
+     an f64 oracle, gated on the storage's class). In the first call each
+     kernel wrapper the engines reach keeps a copy of the operands of its
+     last call of each kind (B2/B3 with and without the chunk schedule or
+     ``acc_add``); after it, the kernel and its plain version run on
+     copies of those operands (``cli_kernel_vs_plain``: B1 at block 4096
+     and on the hybrid's 16-channel head, B2, B3 and B3 ``sched`` at 16
+     channels, B5 on the nested and hybrid-tail rings), gated as phase 3
+  7g. ``examples/realtime_stream_torch.run``: ``HybridStream`` callbacks
+     against the 10 667 µs deadline and ``io.StreamExecutor`` with odd
+     pushes (2 channels, 10 s IR, block 512, S = 64, split), both within
+     1e-4 of the offline ``process_hybrid``
+  7h. the fft/core/ops surface on the card (dct2, dft, split and packed
+     transforms against float64 with TF32 on; the fixed-point ops bit for
+     bit against the CPU; ``debug.checked``) and a split
+     ``Convolver.process`` checkpointed with ``io.save_state`` /
+     ``load_state`` and continued
   7b. probes: T1 (``probe_ring_read``, bf16 and split) at the
      [2, 960, 64, 512] ring, both outputs, and T2 (``probe_stream``, its
      three modes, f32 and bf16 matrices) over 64 blocks, each against its
@@ -108,8 +131,8 @@ Phases, each printing one JSON object per line:
   9. the kernels summary, then the final ``{"ok": true, ...}`` line
 
 Launch counters are zeroed right before each main path (phases 4+5, 5b,
-the nested and the hybrid halves of 6, 7, 7c, 7d, 7e and 7b's measurement
-path) and
+the nested and the hybrid halves of 6, 7, 7c, 7d, 7e, each reported CLI
+call of 7f (summed into one window), 7g, 7h and 7b's measurement path) and
 read right after it; each kernel of that path must have launched in its
 window (B2 and B3 with the chunk schedule counted apart, and each of their
 stage kernels by its own count).
@@ -117,6 +140,7 @@ stage kernels by its own count).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -154,6 +178,25 @@ INT_MAX = {"int16": 32767, "int8": 127}
 # methods against np.convolve: max|a - b| / max|b|
 ENGINES_TOL = 1e-4
 CONVOLVE_TOL = 2e-5
+# the CLI phase: a 16-channel (third-order Ambisonics) 20 s file and a mono
+# hall IR written at 44.1 kHz; runs as (engine, --block, --chunk-blocks,
+# --threshold-db, the kernels the run must launch), a block of None being
+# the CLI's default (4096, above B3's 1024: B1 block by block); at the
+# card's bf16 the hybrid keeps its unfused head (B1), and chunked runs
+# torch.bmm
+CLI_CHANNELS, CLI_SECONDS, CLI_IR_SR = 16, 20, 44100
+CLI_RUNS = (("upols", 512, 128, None, ("fused_stream",)),
+            ("upola", 512, 128, None, ("fused_block_step",)),
+            ("chunked", 512, 128, None, ()),
+            ("nested", 512, 128, None, ("nested_mac",)),
+            ("hybrid", 512, 64, None, ("fdl_mac", "nested_mac")),
+            ("upols", 512, 128, -30.0, ("fused_stream_sched", "sched_widths")),
+            ("upols", None, None, None, ("fdl_mac",)))
+# the surface's transforms against float64: max|got - ref| / max|ref|
+SURFACE_TOL = 1e-5
+# a stream cut off B3's 64-block windows against one call, relative to the
+# peak: it rounds apart by 9.98e-7 on the H100 at 94 blocks; 5x margin
+CUT_TOL = 5e-6
 DEVICE = "cuda"
 
 
@@ -463,6 +506,371 @@ def run_convolve(dev, card, cuda_ms) -> dict:
     for method, row in rows.items():
         assert row["rel_err"] < CONVOLVE_TOL, f"convolve {method}: rel err {row['rel_err']}"
     return rows
+
+
+def masked_upols_oracle(x64: np.ndarray, h: np.ndarray, block: int, start: int, blocks: int) -> np.ndarray:
+    """UPOLS over the spectra h [P, K] in float64, output blocks
+    [start, start + blocks) of every row of x64 [C, T]:
+    out_i = irfft(sum_p X_{i-p} H_p)[B:], X_j = rfft([block j-1 | block j])."""
+    p = h.shape[0]
+    j0 = start - p + 1
+    x = np.concatenate([np.zeros((x64.shape[0], block)), x64], axis=1)
+    frames = np.stack([x[:, j * block : (j + 2) * block] for j in range(j0, start + blocks)], 1)
+    spec = np.fft.rfft(frames, 2 * block)
+    outs = [np.fft.irfft(np.einsum("cpk,pk->ck", spec[:, i - j0 - np.arange(p)], h), 2 * block)[:, block:]
+            for i in range(start, start + blocks)]
+    return np.concatenate(outs, axis=1)
+
+
+# the kernel wrappers the CLI's engines call, by the module that binds each
+# name; B2/B3 apart by the chunk schedule and the seed they were given
+CLI_KERNEL_SITES = (("convolver", ("fdl_mac", "sparse_fdl_mac", "fused_block_step", "fused_stream")),
+                    ("hybrid", ("fdl_mac", "fused_stream")),
+                    ("nested", ("nested_mac",)))
+
+
+def _clone(v):
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    return tuple(_clone(x) for x in v) if isinstance(v, tuple) else v
+
+
+@contextlib.contextmanager
+def last_kernel_calls(calls: dict):
+    """Within the block, each wrapper of ``CLI_KERNEL_SITES`` keeps a copy
+    of the operands of its last call of each kind, before the kernel writes
+    its ring: ``calls["fused_stream/sched"] = (wrapper, arguments, calls
+    seen)``."""
+    import importlib
+    import inspect
+
+    def spy(fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            named = sig.bind(*args, **kwargs).arguments
+            kind = "/".join([fn.__name__] + [k for k in ("sched", "acc_add") if named.get(k) is not None])
+            seen = calls[kind][2] if kind in calls else 0
+            calls[kind] = (fn, {k: _clone(v) for k, v in named.items()}, seen + 1)
+            return fn(*args, **kwargs)
+
+        return call
+
+    saved = []
+    for mod_name, names in CLI_KERNEL_SITES:
+        mod = importlib.import_module(f"neojax_torch.conv.{mod_name}")
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, spy(getattr(mod, name)))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def kernel_vs_plain_on(fn, named: dict) -> dict:
+    """A kernel wrapper and its plain version on copies of one call's
+    operands: max|kernel - plain| / max|plain| of the output at the ring's
+    storage tolerance (phase 3's), and for B2/B3 the ring each writes."""
+    import inspect
+
+    import torch
+    from neojax_torch.conv import fdl as fdl_lib
+    from neojax_torch.kernels import fdl_mac, fused_step, nested_mac, sparse_mac
+
+    plain = {"fdl_mac": fdl_mac.fdl_mac_reference, "sparse_fdl_mac": sparse_mac.sparse_fdl_mac_reference,
+             "fused_block_step": fused_step.fused_block_step_reference,
+             "fused_stream": fused_step.fused_stream_reference,
+             "nested_mac": nested_mac.nested_mac_reference}[fn.__name__]
+    ring = named.get("fdl", named.get("planes"))
+    storage = next(k for k, v in fdl_lib.STORAGE_DTYPES.items() if v == ring.dtype)
+    k_args = {k: _clone(v) for k, v in named.items()}
+    params = inspect.signature(plain).parameters
+    p_args = {k: _clone(v) for k, v in named.items() if k in params}
+    got, want = fn(**k_args), plain(**p_args)
+    torch.cuda.synchronize()
+    writes = fn.__name__.startswith("fused_")  # (out, ring[, scales]); the MACs give (re, im)
+    k_out, p_out = (got[0], want[0]) if writes else (torch.cat(got[:2]), torch.cat(want[:2]))
+    d, r = rel_err(k_out.cpu(), p_out.cpu())
+    row = {"storage": storage, "ring": list(ring.shape), "max_abs_err": d, "rel_err": r, "tol": TOL[storage]}
+    assert r < TOL[storage], f"{fn.__name__} at the CLI's operands ({storage}): rel err {r}"
+    if writes:
+        k_ring, p_ring = k_args["fdl"], p_args["fdl"]
+        if storage in INT_MAX:  # rint ties may flip by 1 LSB
+            row["ring_lsb"] = int((k_ring.to(torch.int32) - p_ring.to(torch.int32)).abs().max())
+            row["scales_rel_err"] = rel_err(k_args["scales"].cpu(), p_args["scales"].cpu())[1]
+            assert row["ring_lsb"] <= 1 and row["scales_rel_err"] < 1e-5, row
+        else:
+            row["ring_rel_err"] = rel_err(k_ring.float().cpu(), p_ring.float().cpu())[1]
+            assert row["ring_rel_err"] < TOL[storage], row
+    return row
+
+
+def run_cli(dev, card) -> dict:
+    """7f. The WAV-convolver CLI (``neojax_torch.cli.main``) in-process on a
+    user's file: CLI_CHANNELS channels of CLI_SECONDS s at 48 kHz (32-bit
+    PCM, amplitude 0.25) and a mono 10 s decaying-noise IR written at
+    44.1 kHz, so the CLI resamples it (480 000 samples: 938 partitions at
+    block 512). Seven runs (``CLI_RUNS``), each called twice and the second
+    reported: the CLI's own timed region as it prints it (to the ms; all
+    of ``main`` timed from outside beside it), real-time factor and M
+    samples/s, the launch
+    counts of that call, and the SNR of the 32-bit output WAV against
+    ``scipy.signal.fftconvolve`` of the signal as read back with the port's
+    resampled, normalized IR (the masked run: against the UPOLS oracle over
+    the masked spectra on phase 5b's window), gated on the storage's
+    class. The first call of each run keeps its kernels' operands
+    (``last_kernel_calls``); each kernel is held against its plain version
+    on them before the second, and every kernel the second launches must
+    have been so held. Returns the rows and the summed launch counts."""
+    import io as pyio
+
+    import scipy.signal
+    import torch
+    from neojax_torch import cli, conv, kernels
+    from neojax_torch.conv.sparse import perceptual_mask
+    from neojax_torch.io.resample import resample
+    from neojax_torch.io.wav import read_wav, write_wav
+
+    rng = np.random.default_rng(8)
+    frames = CLI_SECONDS * SR
+    n_ir = 10 * CLI_IR_SR
+    rows, total = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sig_path, ir_path = os.path.join(tmp, "signal.wav"), os.path.join(tmp, "hall.wav")
+        write_wav(sig_path, rng.uniform(-0.25, 0.25, (CLI_CHANNELS, frames)).astype(np.float32), SR, bits=32)
+        hall = 0.1 * rng.standard_normal(n_ir) * np.exp(-np.arange(n_ir) / (n_ir / 4.0))
+        write_wav(ir_path, hall.astype(np.float32), CLI_IR_SR, bits=32)
+        x64 = read_wav(sig_path)[0].astype(np.float64)
+        ir_read, ir_sr = read_wav(ir_path)
+        h = conv.normalize_impulse(resample(ir_read, ir_sr, SR)).numpy()  # the CLI's filter prep
+        assert h.shape == (1, 10 * SR), h.shape
+        oracle = scipy.signal.fftconvolve(x64, h.astype(np.float64), axes=-1)[:, :frames]
+        parts512 = conv.uniform_partition(h, BLOCK)
+        mask = perceptual_mask(parts512, float(SR), -30.0)
+        h_masked = parts512[0].astype(np.complex128) * mask[0]
+        masked_oracle = masked_upols_oracle(x64[:SNR_CH], h_masked, BLOCK, SNR_START, SNR_BLOCKS)
+
+        for engine, block, chunk, threshold, expect in CLI_RUNS:
+            out_path = os.path.join(tmp, f"out_{engine}.wav")
+            argv = [sig_path, ir_path, out_path, "--engine", engine, "--bits", "32", "--device", DEVICE]
+            if block is not None:
+                argv += ["--block", str(block), "--chunk-blocks", str(chunk)]
+            if threshold is not None:
+                argv += ["--threshold-db", str(threshold)]
+            calls, checked = {}, {}
+            for call in range(2):  # the first call builds, warms and keeps its kernels' operands
+                if call:
+                    for kind, (fn, named, seen) in calls.items():
+                        checked[kind] = {"calls_seen": seen, **kernel_vs_plain_on(fn, named)}
+                        emit(phase="cli_kernel_vs_plain", engine=engine, block=block or 4096,
+                             threshold_db=threshold, kernel=kind, **checked[kind], **card)
+                    calls.clear()
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                log = pyio.StringIO()
+                t0 = time.perf_counter()
+                with (contextlib.nullcontext() if call else last_kernel_calls(calls)), \
+                        contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+                    rc = cli.main(argv)
+                wall = time.perf_counter() - t0
+                assert rc == 0, f"cli {engine}: exit code {rc}\n{log.getvalue()}"
+            counts = kernels.launch_counts()
+            for name, v in counts.items():
+                total[name] = total.get(name, 0) + v
+            text = log.getvalue()
+            m = re.search(r"processed ([\d.]+) s in ([\d.]+) s -> real-time factor ([\d.]+)x \(([\d.]+) M samples/s\)",
+                          text)
+            assert m and f"impulse resampled {CLI_IR_SR} Hz -> {SR} Hz" in text, text
+            out, out_sr = read_wav(out_path)
+            assert out_sr == SR and out.shape == (CLI_CHANNELS, frames) and np.isfinite(out).all()
+            renorm = "normalized output peak" in text
+            storage = "bf16" if engine in ("chunked", "nested", "hybrid") else "split"  # the CLI's card defaults
+            if threshold is None:
+                ref = oracle / np.abs(oracle).max() if renorm else oracle
+                snr = snr_db(out, ref)
+            else:
+                snr = snr_db(snr_window(out, SNR_START), masked_oracle)
+            dt = float(m.group(2))
+            row = {"engine": engine, "storage": storage, "block": block or 4096,
+                   "chunk_blocks": chunk if engine in ("chunked", "nested", "hybrid") else None,
+                   "threshold_db": threshold, "timed_s": dt, "realtime_factor": frames / SR / dt,
+                   "msamples_per_s": CLI_CHANNELS * frames / dt / 1e6, "main_wall_s": wall, "peak_renormalized": renorm, "snr_db": snr,
+                   "snr_against": "masked f64 UPOLS oracle (phase 5b window)" if threshold is not None
+                   else "scipy.signal.fftconvolve f64, whole output",
+                   "snr_class_db": SNR_CLASS_DB[storage],
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "kernels_vs_plain": sorted(checked)}
+            rows.append(row)
+            emit(phase="cli", channels=CLI_CHANNELS, frames=frames, ir_frames_44k1=n_ir, **row, **card)
+            for name in expect:
+                assert counts[name] > 0, f"cli {engine} block {row['block']}: {name} was not launched"
+            for name, v in counts.items():  # every kernel the run launched, held at its operands
+                wrapper = name.removesuffix("_sched")
+                if v and any(wrapper in names for _, names in CLI_KERNEL_SITES):
+                    assert any(k.split("/")[0] == wrapper and (name == wrapper or "sched" in k) for k in checked), \
+                        f"cli {engine} block {row['block']}: {name} launched but not held against its plain version"
+        for row in rows:
+            assert row["snr_db"] >= row["snr_class_db"], \
+                f"cli {row['engine']} block {row['block']}: SNR {row['snr_db']:.1f} dB below its class"
+    return {"runs": rows, "launches": total}
+
+
+def run_executor(dev, card) -> dict:
+    """7g. ``examples/realtime_stream_torch.run``: ``HybridStream`` callbacks
+    (2 channels, 10 s IR, block 512, S = 64, split, about 5 s) against the
+    10 667 µs deadline, and the same engine behind ``io.StreamExecutor``
+    with odd-sized pushes; both gated at 1e-4 against the offline
+    ``process_hybrid``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import realtime_stream_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = realtime_stream_torch.run(channels=2, seconds=5.0, ir_seconds=10.0, block=BLOCK, sr=SR,
+                                        chunk_blocks=64, out=os.path.join(tmp, "demo.json"), device=dev)
+    cb, ex = res["callback_path"], res["executor_path"]
+    emit(phase="executor", config=res["config"], callback=cb, executor=ex, **card)
+    assert cb["max_abs_err_vs_offline"] < 1e-4, f"HybridStream callbacks vs offline: {cb['max_abs_err_vs_offline']}"
+    assert ex["matches_offline_1e-4"], f"StreamExecutor vs offline: {ex}"
+    return res
+
+
+def run_surface(dev, card) -> dict:
+    """7h. The fft/core/ops surface on the card: ``dct2`` at 64 and 4096,
+    ``dft`` at 17, 100 and 4099, ``split_fft``/``packed_rfft``/
+    ``packed_irfft`` at 1024, each against numpy/scipy in float64 within
+    SURFACE_TOL x max|ref| with both TF32 flags on; the fixed-point ops bit
+    for bit against the CPU; ``debug.checked`` raising on a card op that
+    makes a NaN; and a split ``Convolver.process`` checkpointed after 94
+    blocks (about 1 s) and after 128 (a boundary of B3's 64-block
+    windows), saved, loaded and continued, against the same two calls
+    without the file (bit for bit) and against one uninterrupted call: bit
+    for bit at 128 blocks; at 94, where B3's windows fall on other blocks,
+    printed and gated at ``CUT_TOL`` of the peak."""
+    import scipy.fft
+    import torch
+    from neojax_torch import conv
+    from neojax_torch import fft as tfft
+    from neojax_torch import io as tio
+    from neojax_torch.core import fixed_point as fp
+    from neojax_torch.ops import debug
+
+    rng = np.random.default_rng(9)
+    rows = {}
+
+    def check(name, got, ref):
+        got = np.asarray(got, np.complex128 if np.iscomplexobj(ref) else np.float64)
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        rows[name] = {"rel_err": err, "tol": SURFACE_TOL}
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for n in (64, 4096):
+            x = rng.standard_normal((4, n))
+            got = tfft.dct2(torch.from_numpy(x.astype(np.float32)).to(dev))
+            check(f"dct2/{n}", got.cpu().numpy(), scipy.fft.dct(x, type=2))
+        for n in (17, 100, 4099):
+            x = rng.standard_normal((4, n)) + 1j * rng.standard_normal((4, n))
+            got = tfft.dft(torch.from_numpy(x.astype(np.complex64)).to(dev))
+            check(f"dft/{n}", got.cpu().numpy(), np.fft.fft(x))
+            got = tfft.naive_dft(torch.from_numpy(x.astype(np.complex64)).to(dev)) if n < 4099 else None
+            if got is not None:
+                check(f"naive_dft/{n}", got.cpu().numpy(), np.fft.fft(x))
+        n = 1024
+        re, im = rng.standard_normal((2, 8, n))
+        fr, fi = tfft.split_fft(torch.from_numpy(re.astype(np.float32)).to(dev),
+                                torch.from_numpy(im.astype(np.float32)).to(dev))
+        check("split_fft/1024", (fr + 1j * fi).cpu().numpy(), np.fft.fft(re + 1j * im))
+        x = rng.standard_normal((8, n))
+        pre, pim = tfft.packed_rfft(torch.from_numpy(x.astype(np.float32)).to(dev))
+        spec = np.fft.rfft(x)
+        check("packed_rfft/1024", (pre + 1j * pim).cpu().numpy(), spec)
+        back = tfft.packed_irfft(torch.from_numpy(spec.real.astype(np.float32)).to(dev),
+                                 torch.from_numpy(spec.imag.astype(np.float32)).to(dev))
+        check("packed_irfft/1024", back.cpu().numpy(), x)
+        flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    emit(phase="surface", part="transforms", tf32_flags_on=True, rows=rows, **card)
+    assert flags_after == (True, True), "the caller's TF32 flags were not restored"
+    for name, row in rows.items():
+        assert row["rel_err"] < SURFACE_TOL, f"{name}: rel err {row['rel_err']}"
+
+    # fixed point: every Q7 pair, the Q15 edges and random pairs
+    q7 = np.arange(-128, 128, dtype=np.int8)
+    a7, b7 = (v.ravel() for v in np.meshgrid(q7, q7))
+    edge = np.array([-32768, -32767, -1, 0, 1, 32766, 32767], np.int16)
+    a15 = np.concatenate([np.repeat(edge, edge.size), rng.integers(-32768, 32768, 200_000).astype(np.int16)])
+    b15 = np.concatenate([np.tile(edge, edge.size), rng.integers(-32768, 32768, 200_000).astype(np.int16)])
+    fixed = {}
+    for fmt, a, b in (("Q7", a7, b7), ("Q15", a15, b15)):
+        for op in ("fixed_add", "fixed_subtract", "fixed_multiply"):
+            on_card = getattr(fp, op)(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)).cpu()
+            fixed[f"{op}/{fmt}"] = bool(torch.equal(on_card, getattr(fp, op)(a, b, device="cpu")))
+        xs = rng.uniform(-1.2, 1.2, 50_000)
+        q_card = fp.to_fixed(torch.from_numpy(xs).to(dev), getattr(fp, fmt))
+        q_cpu = fp.to_fixed(xs, getattr(fp, fmt), device="cpu")
+        fixed[f"to_fixed/{fmt}"] = bool(torch.equal(q_card.cpu(), q_cpu))
+        fixed[f"to_float/{fmt}"] = bool(torch.equal(fp.to_float(q_card).cpu(), fp.to_float(q_cpu)))
+    emit(phase="surface", part="fixed_point", bit_equal_to_cpu=fixed, pairs={"Q7": int(a7.size), "Q15": int(a15.size)},
+         **card)
+    assert all(fixed.values()), f"fixed point on the card differs from the CPU: {fixed}"
+
+    # checked: the first card op that makes a NaN from finite inputs raises
+    t = torch.zeros(4, device=dev)
+    try:
+        debug.checked(lambda v: torch.log(v - 1.0) + 1.0)(t)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    finite_ok = float(debug.checked(lambda v: (v + 1.0).sum())(t)) == 4.0
+    emit(phase="surface", part="checked", raised=raised, finite_passes=finite_ok, **card)
+    assert raised is not None and "log" in raised and finite_ok, f"debug.checked: {raised}, {finite_ok}"
+
+    # a split Convolver.process on the card, checkpointed after 94 blocks
+    # (about 1 s) and after 128 (on a boundary of B3's 64-block windows)
+    ir = 0.05 * rng.standard_normal(10 * SR) * np.exp(-np.arange(10 * SR) / (2.5 * SR))
+    parts = conv.uniform_partition(conv.normalize_impulse(ir.astype(np.float32)).numpy(), BLOCK)
+    x = torch.from_numpy(rng.uniform(-1, 1, (CHANNELS, 256 * BLOCK)).astype(np.float32)).to(dev)
+
+    def fresh():
+        v = conv.Convolver(storage="split", device=dev)
+        v.filter(parts)
+        return v
+
+    whole = fresh().process(x)
+    repeat_exact = bool(torch.equal(whole, fresh().process(x)))
+    rows_ck = {}
+    for blocks in (94, 128):
+        split = blocks * BLOCK
+        two = fresh()
+        head = two.process(x[:, :split])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state.npz")
+            tio.save_state(path, two.state)
+            resumed = fresh()
+            resumed.process(x[:, :BLOCK])  # binds the channels
+            resumed.state = tio.load_state(path, device=dev)
+        tail_two = two.process(x[:, split:])
+        tail_res = resumed.process(x[:, split:])
+        torch.cuda.synchronize()
+        joined = torch.cat([head, tail_res], dim=-1)
+        d, r = rel_err(joined.cpu(), whole.cpu())
+        rows_ck[blocks] = {"resumed_equals_two_calls_bitwise": bool(torch.equal(tail_res, tail_two)),
+                           "equals_uninterrupted_bitwise": bool(torch.equal(joined, whole)),
+                           "max_abs_diff_vs_uninterrupted": d, "rel_diff_vs_uninterrupted": r}
+    row = {"blocks": 256, "channels": CHANNELS, "partitions": parts.shape[1], "repeat_bitwise": repeat_exact,
+           "checkpoints": rows_ck, "tol_off_window_boundary": CUT_TOL}
+    emit(phase="surface", part="checkpoint", storage="split", **row, **card)
+    for blocks, ck in rows_ck.items():
+        assert ck["resumed_equals_two_calls_bitwise"], f"the state reloaded after {blocks} blocks continues differently"
+        assert ck["equals_uninterrupted_bitwise"] or (blocks % 64 and ck["rel_diff_vs_uninterrupted"] < CUT_TOL), \
+            f"checkpoint after {blocks} blocks vs uninterrupted: rel diff {ck['rel_diff_vs_uninterrupted']}"
+    return {"transforms": rows, "fixed_point": fixed, "checked": raised, "checkpoint": row}
 
 
 def main() -> int:
@@ -1142,10 +1550,10 @@ def main() -> int:
 
     windows = {}
 
-    def read_window(path, expect):
-        """Read the launch counts of one main path and require each kernel
-        of that path to have launched."""
-        counts = kernels.launch_counts()
+    def read_window(path, expect, counts=None):
+        """Read the launch counts of one main path (or take the ones given)
+        and require each kernel of that path to have launched."""
+        counts = kernels.launch_counts() if counts is None else counts
         windows[path] = counts
         emit(phase="launch_counts", path=path, **counts)
         for name in expect:
@@ -1326,6 +1734,21 @@ def main() -> int:
     convolve_sum = run_convolve(dev, card, cuda_ms)
     # block 2048 (the 24 000-tap IR) is above B3's 1024: UPOLS and UPOLA step block by block through B1
     read_window("convolve", ("fdl_mac",))
+
+    # ---- 7f-7h. the WAV-convolver CLI (its seven runs' reported calls
+    # summed into one window), the real-time example's callback and
+    # executor paths, and the fft/core/ops surface with a checkpoint
+    cli_sum = run_cli(dev, card)
+    read_window("cli", ("fused_stream", "fused_block_step", "nested_mac", "fdl_mac", "fused_stream_sched",
+                        "sched_widths", *b3_stage_names, *b2_stage_names), cli_sum["launches"])
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    executor_sum = run_executor(dev, card)
+    read_window("executor", ("fdl_mac", "nested_mac"))
+    kernels.reset_launch_counts()
+    surface_sum = run_surface(dev, card)
+    read_window("surface", ("fused_stream", *b3_stage_names))
+    torch.cuda.empty_cache()
 
     # ---- 7b. probes T1 and T2 against their plain versions, the measurement
     # path in its own launch window, a profiler trace, and every kernel's bound
@@ -1724,7 +2147,9 @@ def main() -> int:
          sparse_snr_db_vs_masked_f64=sparse_snrs, sparse_times=sparse_times, sparse_masks=mask_stats,
          times=times, measurement=meas, stages=stages,
          engine_times=engine_times, hybrid_stream_latency=stream_lat, chunked=chunked_sum,
-         make_engine=make_engine_sum, convolve=convolve_sum, total_s=time.perf_counter() - t_start, **card)
+         make_engine=make_engine_sum, convolve=convolve_sum, cli=cli_sum["runs"],
+         executor={k: executor_sum[k] for k in ("callback_path", "executor_path")}, surface=surface_sum,
+         total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from neojax_torch import conv, core, fft, ops
+from neojax_torch import conv, core, fft, io, ops
 from neojax_torch.core.device import as_tensor
 from neojax_torch.core.units import a_weighting, amplitude_to_db, fast_log2, fast_log10
 
@@ -38,6 +38,7 @@ __all__ = [
     "conv",
     "core",
     "fft",
+    "io",
     "ops",
 ]
 

@@ -17,7 +17,7 @@ import contextlib
 
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "ieee_float32"]
+__all__ = ["resolve_device", "as_tensor", "as_tensors", "ieee_float32"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,6 +46,16 @@ def as_tensor(x, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype) if device is not None or dtype is not None else x
     return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+
+
+def as_tensors(*xs, device=None, dtype: torch.dtype | None = None) -> tuple:
+    """Several operands by :func:`as_tensor`'s rule, where host data follows
+    the first tensor operand's device when ``device`` is None (as a torch op
+    takes a Python scalar beside a tensor); with no tensor operand, host
+    data goes to ``resolve_device(device)``."""
+    if device is None:
+        device = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    return tuple(as_tensor(x, device, dtype) for x in xs)
 
 
 def _read(obj, name):

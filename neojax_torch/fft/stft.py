@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from neojax_torch.core.bits import bit_ceil, idiv
+from neojax_torch.core.device import as_tensor
 from neojax_torch.core.windows import make_window
 from neojax_torch.fft import api as fft_api
 
@@ -46,9 +47,11 @@ def num_stft_frames(signal_size: int, frame_size: int, overlap_size: int) -> int
     return idiv(signal_size - frame_size + overlap_size, frame_size - overlap_size) + 1
 
 
-def stft(x, options: StftOptions | int) -> torch.Tensor:
+def stft(x, options: StftOptions | int, device=None) -> torch.Tensor:
     """STFT of ``x`` ([len] or [ch, len], a tensor or an array) ->
-    [ch, frames, bins] complex, on ``x``'s device.
+    [ch, frames, bins] complex. A tensor is transformed where it lies
+    (unless ``device`` is given); host data goes to ``device`` (None: the
+    card, ``core.device.as_tensor``).
 
     Rank-1 input produces a single-channel cube with the channel axis kept,
     matching the reference's matrix-in / cube-out contract.
@@ -56,7 +59,7 @@ def stft(x, options: StftOptions | int) -> torch.Tensor:
     if isinstance(options, int):
         options = StftOptions.default(options)
 
-    x = torch.as_tensor(x)
+    x = as_tensor(x, device)
     if x.ndim == 1:
         x = x[None, :]
     if x.ndim != 2:

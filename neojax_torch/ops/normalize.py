@@ -1,15 +1,30 @@
-"""Impulse-response energy normalization (``neojax.ops.normalize``).
+"""Energy / peak normalization (``neojax.ops.normalize``).
 
-Counterpart of the reference's ``normalize_impulse.hpp:12-33``: a
-multichannel IR is scaled by the *minimum* per-channel energy factor, so no
-channel exceeds unit energy.
+Counterparts of ``src/neo/algorithm/normalize_energy.hpp:19,47``,
+``normalize_peak.hpp:21,56`` and the multichannel
+``src/neo/convolution/normalize_impulse.hpp:12-33``: a multichannel IR is
+scaled by the *minimum* per-channel energy factor, so no channel exceeds
+unit energy.
+
+The energy normalizers are filter prep, beside ``conv.uniform_partition``:
+a host array is normalized on the host. The peak normalizers are array
+functions: host input goes to ``device`` (None: the card,
+``core.device.as_tensor``).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["normalize_energy_factor", "normalize_energy", "normalize_impulse"]
+from neojax_torch.core.device import as_tensor
+
+__all__ = [
+    "normalize_energy_factor",
+    "normalize_energy",
+    "normalize_peak_factor",
+    "normalize_peak",
+    "normalize_impulse",
+]
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -25,6 +40,17 @@ def normalize_energy_factor(x) -> torch.Tensor:
 def normalize_energy(x) -> torch.Tensor:
     x = _as_tensor(x)
     return x * normalize_energy_factor(x)
+
+
+def normalize_peak_factor(x, device=None) -> torch.Tensor:
+    """1 / max|x|; 1.0 for an all-zero signal."""
+    peak = torch.max(torch.abs(as_tensor(x, device)))
+    return torch.where(peak > 0, 1.0 / peak, torch.ones_like(peak))
+
+
+def normalize_peak(x, device=None) -> torch.Tensor:
+    x = as_tensor(x, device)
+    return x * normalize_peak_factor(x)
 
 
 def normalize_impulse(x) -> torch.Tensor:

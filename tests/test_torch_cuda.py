@@ -12,7 +12,11 @@ their CPU routes. Also the float32 products that run outside the kernels
 ``"matmul"`` DFT backend) with the caller's TF32 flags forced on, each
 against its CPU route or a float64 oracle at a bound TF32 would miss, and
 ``make_engine``'s four engines and ``convolve``'s seven methods on the
-card.
+card. Also the fft/core/ops surface on the card (the transforms against
+float64 with TF32 on, the fixed-point ops bit for bit against the CPU,
+``debug.checked``, host input going to the card), a checkpoint saved and
+resumed on the card, the CLI on the card against its ``--device cpu``
+run, and ``io.StreamExecutor`` around a card ``HybridStream``.
 
 Marked ``cuda``: every test skips without a CUDA device (decided in the
 ``cuda`` fixture, never at import). The file imports no JAX, so on a card
@@ -22,6 +26,8 @@ without JAX run it apart from ``tests/conftest.py`` (which imports JAX):
 Tolerance: ``_TOL``, max|kernel - plain| / max|plain| (the storage ladder of
 ``tests/test_fused_step.py``); the int rings to one LSB.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -726,3 +732,155 @@ def test_convolve_on_the_card(cuda, rng, tf32_on, method):
     out = neojax_torch.convolve(a.astype(np.float32), h.astype(np.float32), method=method)
     assert out.device.type == "cuda" and out.shape == (8499,)
     assert _peak_rel(out, np.convolve(a, h)) < 1e-5
+
+
+# ------------------------------------------------- the fft/core/ops surface
+
+
+_SURFACE = {
+    "dct2/64": (lambda x: _fft().dct2(x), lambda x: _dct2(x), "real", 64),
+    "dct2/4096": (lambda x: _fft().dct2(x), lambda x: _dct2(x), "real", 4096),
+    "dft/17": (lambda x: _fft().dft(x), np.fft.fft, "complex", 17),
+    "dft/100": (lambda x: _fft().dft(x), np.fft.fft, "complex", 100),
+    "dft/4099": (lambda x: _fft().dft(x), np.fft.fft, "complex", 4099),
+    "naive_dft/100": (lambda x: _fft().naive_dft(x), np.fft.fft, "complex", 100),
+    "packed_rfft/1024": (lambda x: torch.complex(*_fft().packed_rfft(x)), np.fft.rfft, "real", 1024),
+    "split_fft/1024": (lambda x: torch.complex(*_fft().split_fft(x.real.contiguous(), x.imag.contiguous())),
+                       np.fft.fft, "complex", 1024),
+}
+
+
+def _fft():
+    from neojax_torch import fft
+
+    return fft
+
+
+def _dct2(x):
+    import scipy.fft
+
+    return scipy.fft.dct(x, type=2)  # unscaled: 2 sum x_n cos(pi k (2n + 1) / 2N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_SURFACE))
+def test_surface_transforms_on_the_card(cuda, rng, tf32_on, name):
+    """Each transform on the card against numpy/scipy in float64 within
+    1e-5 of the peak, with the caller's TF32 flags on."""
+    fn, ref_fn, kind, n = _SURFACE[name]
+    x = rng.standard_normal((4, n)) + (1j * rng.standard_normal((4, n)) if kind == "complex" else 0)
+    x_dev = torch.from_numpy(x.astype(np.complex64 if kind == "complex" else np.float32)).to(cuda)
+    got = fn(x_dev)
+    assert got.device.type == "cuda"
+    ref = ref_fn(x)
+    assert _peak_rel(torch.view_as_real(got.to(torch.complex128)), torch.view_as_real(torch.from_numpy(ref + 0j))) < 1e-5
+
+
+@pytest.mark.cuda
+def test_packed_irfft_and_host_input_on_the_card(cuda, rng):
+    from neojax_torch import fft
+
+    x = rng.standard_normal((3, 1024))
+    spec = np.fft.rfft(x)
+    back = fft.packed_irfft(spec.real.astype(np.float32), spec.imag.astype(np.float32))
+    assert back.device.type == "cuda" and _peak_rel(back, x) < 1e-5
+    assert fft.stft(x[0].astype(np.float32), 256).device.type == "cuda"
+    from neojax_torch import core
+
+    for build in (core.hann_window, core.hamming_window, core.rectangular_window):
+        assert build(16).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["fixed_add", "fixed_subtract", "fixed_multiply"])
+@pytest.mark.parametrize("fmt", ["Q7", "Q15"])
+def test_fixed_point_on_the_card_bit_for_bit(cuda, rng, op, fmt):
+    from neojax_torch.core import fixed_point as fp
+
+    if fmt == "Q7":
+        q = np.arange(-128, 128, dtype=np.int8)
+        a, b = (v.ravel() for v in np.meshgrid(q, q))
+    else:
+        a, b = (rng.integers(-32768, 32768, 100_000).astype(np.int16) for _ in range(2))
+        a[:3], b[:3] = (-32768, -32768, 32767), (-32768, 32767, 32767)
+    on_card = getattr(fp, op)(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), getattr(fp, op)(a, b, device="cpu"))
+    x = rng.uniform(-1.2, 1.2, 10_000)
+    assert torch.equal(fp.to_fixed(torch.from_numpy(x).to(cuda), getattr(fp, fmt)).cpu(),
+                       fp.to_fixed(x, getattr(fp, fmt), device="cpu"))
+
+
+@pytest.mark.cuda
+def test_checked_raises_on_a_card_op(cuda):
+    from neojax_torch.ops import debug
+
+    t = torch.zeros(4, device=cuda)
+    with pytest.raises(FloatingPointError, match="log"):
+        debug.checked(lambda v: torch.log(v - 1.0) + 1.0)(t)
+    assert float(debug.checked(lambda v: (v + 1.0).sum())(t)) == 4.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["split", "int8"])
+def test_checkpoint_resumes_on_the_card(cuda, rng, tmp_path, storage):
+    """A card stream saved, loaded onto the card and continued equals the
+    same stream continued without the file, bit for bit."""
+    from neojax_torch import io as tio
+
+    b, p, c = 64, 40, 3
+    parts = conv.uniform_partition(rng.uniform(-1, 1, p * b).astype(np.float32) * 0.2, b)
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, 20 * b)).astype(np.float32)).to(cuda)
+    cfg = cv.PartitionedConfig(b, p, c, storage=storage)
+    params = cv.filter_params(cfg, parts, device=cuda)
+    state, _ = cv.process(cfg, params, cv.init_state(cfg, cuda), sig[:, : 7 * b])
+    tio.save_state(str(tmp_path / "s.npz"), state)
+    loaded = tio.load_state(str(tmp_path / "s.npz"))
+    assert isinstance(loaded["pos"], int)
+    _, a = cv.process(cfg, params, state, sig[:, 7 * b :])
+    _, b2 = cv.process(cfg, params, loaded, sig[:, 7 * b :])
+    assert torch.equal(a, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["upols", "upola", "chunked", "nested", "hybrid"])
+def test_cli_on_the_card_matches_its_cpu_run(cuda, rng, tmp_path, engine):
+    """The CLI at split on the card against ``--device cpu`` on the same files."""
+    from neojax_torch import cli
+    from neojax_torch.io.wav import read_wav, write_wav
+
+    write_wav(str(tmp_path / "s.wav"), rng.uniform(-0.3, 0.3, (2, 4000)).astype(np.float32), 8000, bits=32)
+    write_wav(str(tmp_path / "i.wav"), (rng.uniform(-1, 1, (1, 700)) * 0.2).astype(np.float32), 8000, bits=32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        argv = [str(tmp_path / "s.wav"), str(tmp_path / "i.wav"), str(tmp_path / f"o_{dev}.wav"), "--engine", engine,
+                "--block", "64", "--chunk-blocks", "4", "--storage", "split", "--bits", "32", "--device", dev]
+        assert cli.main(argv) == 0
+        outs.append(read_wav(str(tmp_path / f"o_{dev}.wav"))[0])
+    assert _peak_rel(outs[0], outs[1]) < 2e-5
+
+
+@pytest.mark.cuda
+def test_stream_executor_on_the_card(cuda, rng):
+    """``io.StreamExecutor`` around a card ``HybridStream``, odd pushes,
+    against the offline ``process_hybrid`` within 1e-4."""
+    from neojax_torch.conv import hybrid
+    from neojax_torch.io import StreamExecutor
+
+    b, p, c, s = 64, 40, 2, 8
+    parts = conv.uniform_partition(rng.uniform(-1, 1, p * b).astype(np.float32) * 0.2, b)
+    cfg = cv.PartitionedConfig(b, p, c, storage="split")
+    params = hybrid.hybrid_filter_params(cfg, parts, s, device=cuda)
+    sig = rng.uniform(-1, 1, (c, 4 * s * b)).astype(np.float32)
+    _, ref = hybrid.process_hybrid(cfg, params, hybrid.hybrid_init_state(cfg, params), torch.from_numpy(sig).to(cuda))
+    stream = hybrid.HybridStream(cfg, params)
+    got, sent, t0 = [], 0, time.perf_counter()
+    with StreamExecutor(lambda st, blk: (st, stream(blk)), None, c, b) as ex:
+        while sum(g.shape[1] for g in got) < sig.shape[1] and time.perf_counter() - t0 < 60:
+            if sent < sig.shape[1]:
+                sent += ex.push(sig[:, sent : sent + 333])
+            chunk = ex.pull(4 * b)
+            if chunk.shape[1]:
+                got.append(chunk)
+    out = np.concatenate(got, axis=-1)
+    assert float(np.abs(out - ref.cpu().numpy()).max()) < 1e-4

@@ -15,6 +15,10 @@ import pytest
 import torch
 
 import neojax_torch
+from neojax_torch import cli as tcli
+from neojax_torch import core as tcore
+from neojax_torch import fft as tfft
+from neojax_torch import ops as tops
 from neojax_torch import conv as tconv
 from neojax_torch import convert
 from neojax_torch.bench import quality
@@ -101,6 +105,24 @@ _FUNCTIONS = {
     "rfft_matrices": lambda **kw: tmb.rfft_matrices(B, **kw),
     "irfft_matrices": lambda **kw: tmb.irfft_matrices(B, **kw),
     "fft_matrices": lambda **kw: tmb.fft_matrices(B, **kw),
+    # the surface of fft/core/ops: host input goes to the card by default
+    "stft": lambda **kw: tfft.stft(np.ones(64, np.float32), 16, **kw),
+    "rectangular_window": lambda **kw: tcore.rectangular_window(8, **kw),
+    "hann_window": lambda **kw: tcore.hann_window(8, **kw),
+    "hamming_window": lambda **kw: tcore.hamming_window(8, **kw),
+    "make_window": lambda **kw: tcore.make_window(np.ones(8), 8, **kw),
+    "dft": lambda **kw: tfft.dft(np.ones(5, np.complex64), **kw),
+    "naive_dft": lambda **kw: tfft.naive_dft(np.ones(5, np.complex64), **kw),
+    "dct2": lambda **kw: tfft.dct2(np.ones(8, np.float32), **kw),
+    "split_fft": lambda **kw: tfft.split_fft(np.ones(8, np.float32), np.zeros(8, np.float32), **kw),
+    "packed_rfft": lambda **kw: tfft.packed_rfft(np.ones(8, np.float32), **kw),
+    "rfft_deinterleave": lambda **kw: tfft.rfft_deinterleave(np.ones(8, np.float32), np.ones(8, np.float32), **kw),
+    "to_split": lambda **kw: tcore.to_split(np.ones(4, np.complex64), **kw),
+    "to_fixed": lambda **kw: tcore.fixed_point.to_fixed(np.ones(4) * 0.5, **kw),
+    "quantize_fixed": lambda **kw: tops.quantize_fixed(np.ones(4, np.float32), torch.int8, **kw),
+    "normalize_peak": lambda **kw: tops.normalize_peak(np.ones(4, np.float32), **kw),
+    "variance": lambda **kw: tops.variance(np.ones(4, np.float32), **kw),
+    "allclose": lambda **kw: tops.allclose(np.ones(4, np.float32), np.ones(4, np.float32), **kw),
 }
 
 
@@ -198,3 +220,35 @@ def test_engine_storage_follows_the_device(no_card):
     for engine in ("perblock", "nested", "hybrid", "chunked"):
         eng = tconv.make_engine(engine, _parts(), chunk_blocks=2, channels=C, device="cpu")
         assert eng.config.storage == "dense" and eng.device == torch.device("cpu")
+
+
+def _cli_files(tmp_path):
+    from neojax_torch.io.wav import write_wav
+
+    write_wav(str(tmp_path / "s.wav"), np.ones((1, 64), np.float32) * 0.1, 8000, bits=32)
+    write_wav(str(tmp_path / "i.wav"), np.ones((1, 16), np.float32) * 0.1, 8000, bits=32)
+    return [str(tmp_path / "s.wav"), str(tmp_path / "i.wav"), str(tmp_path / "o.wav"), "--block", "16"]
+
+
+def test_cli_without_a_card_raises(no_card, tmp_path):
+    """``--device`` defaults to ``cuda``: with no card the CLI raises the
+    RuntimeError naming ``device="cpu"``, before it reads a file."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tcli.main(_cli_files(tmp_path))
+
+
+def test_cli_cpu_on_request_runs(no_card, tmp_path):
+    assert tcli.main(_cli_files(tmp_path) + ["--device", "cpu"]) == 0
+
+
+def test_cli_defaults_to_the_card(card, tmp_path):
+    with pytest.raises((AssertionError, RuntimeError)) as err:
+        tcli.main(_cli_files(tmp_path))
+    assert 'device="cpu"' not in str(err.value) and "CUDA" in str(err.value)
+
+
+def test_stft_and_windows_keep_tensors_where_they_lie(no_card):
+    """P2: a tensor is transformed where it lies; the window follows it."""
+    out = tfft.stft(torch.ones(64), 16)
+    assert out.device.type == "cpu" and out.shape == (1, 8, 9)
+    assert tfft.dct2(torch.ones(8)).device.type == "cpu"

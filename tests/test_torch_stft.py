@@ -15,29 +15,29 @@ import torch
 
 from neojax.core import windows as jwin
 from neojax_torch.core import windows as twin
-from neojax_torch.fft import stft as tstft
 
-jstft = importlib.import_module("neojax.fft.stft")  # neojax.fft re-exports a function named stft
+jstft = importlib.import_module("neojax.fft.stft")  # both fft packages re-export a function named stft
+tstft = importlib.import_module("neojax_torch.fft.stft")
 
 
 @pytest.mark.parametrize("name", ["rectangular", "boxcar", "hann", "hamming", "HANN"])
 @pytest.mark.parametrize("size", [1, 2, 7, 64])
 def test_make_window_matches_neojax(name, size):
     want = np.asarray(jwin.make_window(name, size))
-    got = twin.make_window(name, size)
+    got = twin.make_window(name, size, device="cpu")
     assert got.dtype == torch.float32 and got.shape == (size,)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_make_window_callable_array_and_errors():
     fn = lambda n: np.linspace(0.0, 1.0, n)  # noqa: E731
-    np.testing.assert_array_equal(twin.make_window(fn, 5).numpy(), np.asarray(jwin.make_window(fn, 5)))
+    np.testing.assert_array_equal(twin.make_window(fn, 5, device="cpu").numpy(), np.asarray(jwin.make_window(fn, 5)))
     arr = np.arange(4.0)
-    np.testing.assert_array_equal(twin.make_window(arr, 4, dtype=torch.float64).numpy(), arr)
+    np.testing.assert_array_equal(twin.make_window(arr, 4, dtype=torch.float64, device="cpu").numpy(), arr)
     with pytest.raises(ValueError):
-        twin.make_window("kaiser", 8)
+        twin.make_window("kaiser", 8, device="cpu")
     with pytest.raises(ValueError):
-        twin.make_window(arr, 5)
+        twin.make_window(arr, 5, device="cpu")
 
 
 @pytest.mark.parametrize("signal,frame,overlap", [(100, 16, 8), (64, 64, 0), (1000, 100, 25), (5, 16, 4)])
@@ -68,8 +68,8 @@ def test_stft_matches_neojax(rng, opt, shape):
 
 def test_stft_errors():
     with pytest.raises(ValueError):
-        tstft.stft(np.zeros((2, 2, 8), np.float32), 8)
+        tstft.stft(np.zeros((2, 2, 8), np.float32), 8, device="cpu")
     with pytest.raises(ValueError):
-        tstft.stft(np.zeros(64, np.float32), tstft.StftOptions(16, 16, 16))
+        tstft.stft(np.zeros(64, np.float32), tstft.StftOptions(16, 16, 16), device="cpu")
     with pytest.raises(ValueError):
-        tstft.stft(np.zeros(64, np.float32), tstft.StftOptions(32, 16, 0))
+        tstft.stft(np.zeros(64, np.float32), tstft.StftOptions(32, 16, 0), device="cpu")
