@@ -108,6 +108,38 @@ Phases, each printing one JSON object per line:
      bit against the CPU; ``debug.checked``) and a split
      ``Convolver.process`` checkpointed with ``io.save_state`` /
      ``load_state`` and continued
+  7i. the distributed engines (``neojax_torch.dist``). D0, in this
+     process, one rank on NCCL: ``sharded_process`` at 256 channels over
+     1168 blocks (bit-equal to ``process``; B3 held against its plain
+     version on the operands of such a call), an NCCL ``psum`` of a
+     [2, 64, 513] card tensor and one ``weak_scaling_sweep`` point. D1, two
+     gloo ranks of worker processes of this script (``--dist-worker``) on
+     the one card (NCCL refuses two ranks on one GPU, so their collectives
+     stage through host memory, counted), in two worlds. "cut": the
+     ``PipelineConvolver`` (part = 2, four storages) and the
+     ``BinShardedConvolver`` (bin = 2, split and int8; 257 lanes a shard)
+     over 960 blocks at split and 640 quantized, SNR-gated on the last 16
+     blocks and at split within TOL of ``process``, B1 held against its
+     plain version on the ring each leaves; then ``StreamDriver`` streams
+     (per-rank npz and DCP checkpoints every 2 chunks of 128 blocks) that
+     rank 1 cuts with ``os._exit`` after chunk 2 (rank 0 ends its DCP
+     stream there, its npz stream runs on). "resume": those streams
+     resumed, bit-equal to an uninterrupted stream; ``sharded_process`` at
+     256 channels (each rank bit-equal to ``process`` over its 128; split
+     and int8, B3 held against its plain version on each call's
+     operands); ``timesharded_process`` (time = 2, 1920 blocks) against
+     one ``process`` call (split within CUT_TOL, int8 TOL; bit equality
+     printed); ``PartShardedNested`` (part = 2, S = 128, split, bf16,
+     int8) against ``process_nested``, SNR-gated, B5 on its meta ring
+     against its plain version; the channel-sharded nested, hybrid and
+     chunked engines against the single-card engine over each rank's
+     channels, B5 and B3 ``acc_add`` held on their operands. The B1/B5
+     rows carry times, bounds and the library call. Every rank zeroes
+     the launch counters before each path, reads them after it and checks
+     that its state lies on the card; every kernel a channel-sharded call
+     launches must have been held against its plain version; a worker
+     that fails or a world past 90 s fails the phase. ``--dist-only`` runs
+     phases 1-2 and this one alone (no kernels line, no ok line).
   7b. probes: T1 (``probe_ring_read``, bf16 and split) at the
      [2, 960, 64, 512] ring, both outputs, and T2 (``probe_stream``, its
      three modes, f32 and bf16 matrices) over 64 blocks, each against its
@@ -132,8 +164,8 @@ Phases, each printing one JSON object per line:
 
 Launch counters are zeroed right before each main path (phases 4+5, 5b,
 the nested and the hybrid halves of 6, 7, 7c, 7d, 7e, each reported CLI
-call of 7f (summed into one window), 7g, 7h and 7b's measurement path) and
-read right after it; each kernel of that path must have launched in its
+call of 7f (summed into one window), 7g, 7h, each path of 7i (summed over
+its ranks) and 7b's measurement path) and read right after it; each kernel of that path must have launched in its
 window (B2 and B3 with the chunk schedule counted apart, and each of their
 stage kernels by its own count).
 """
@@ -252,6 +284,14 @@ def rel_err(a, b) -> tuple[float, float]:
     b = np.asarray(b, np.float64)
     d = float(np.abs(a - b).max())
     return d, d / max(1e-30, float(np.abs(b).max()))
+
+
+def device_rel_err(a, b) -> tuple[float, float]:
+    """``rel_err`` of two tensors on their own device (float64 there too):
+    a ring of a few hundred million values takes seconds to copy to the
+    host and scan there."""
+    d = float((a.double() - b.double()).abs().max())
+    return d, d / max(1e-30, float(b.double().abs().max()))
 
 
 # the card kernels of the chunked engine's ops, by name (cuBLAS's product,
@@ -594,19 +634,32 @@ def kernel_vs_plain_on(fn, named: dict) -> dict:
     torch.cuda.synchronize()
     writes = fn.__name__.startswith("fused_")  # (out, ring[, scales]); the MACs give (re, im)
     k_out, p_out = (got[0], want[0]) if writes else (torch.cat(got[:2]), torch.cat(want[:2]))
-    d, r = rel_err(k_out.cpu(), p_out.cpu())
+    d, r = device_rel_err(k_out, p_out)
     row = {"storage": storage, "ring": list(ring.shape), "max_abs_err": d, "rel_err": r, "tol": TOL[storage]}
     assert r < TOL[storage], f"{fn.__name__} at the CLI's operands ({storage}): rel err {r}"
     if writes:
         k_ring, p_ring = k_args["fdl"], p_args["fdl"]
         if storage in INT_MAX:  # rint ties may flip by 1 LSB
             row["ring_lsb"] = int((k_ring.to(torch.int32) - p_ring.to(torch.int32)).abs().max())
-            row["scales_rel_err"] = rel_err(k_args["scales"].cpu(), p_args["scales"].cpu())[1]
+            row["scales_rel_err"] = device_rel_err(k_args["scales"], p_args["scales"])[1]
             assert row["ring_lsb"] <= 1 and row["scales_rel_err"] < 1e-5, row
         else:
-            row["ring_rel_err"] = rel_err(k_ring.float().cpu(), p_ring.float().cpu())[1]
+            row["ring_rel_err"] = device_rel_err(k_ring, p_ring)[1]
             assert row["ring_rel_err"] < TOL[storage], row
     return row
+
+
+def unheld_kernels(counts: dict, held) -> list:
+    """The launch counters of ``counts`` that went up for a wrapper of
+    ``CLI_KERNEL_SITES`` with no call of that kind in ``held`` (kinds as
+    ``last_kernel_calls`` names them) held against its plain version."""
+    missing = []
+    for name, v in counts.items():
+        wrapper = name.removesuffix("_sched")
+        if v and any(wrapper in names for _, names in CLI_KERNEL_SITES):
+            if not any(k.split("/")[0] == wrapper and (name == wrapper or "sched" in k) for k in held):
+                missing.append(name)
+    return missing
 
 
 def run_cli(dev, card) -> dict:
@@ -708,11 +761,9 @@ def run_cli(dev, card) -> dict:
             emit(phase="cli", channels=CLI_CHANNELS, frames=frames, ir_frames_44k1=n_ir, **row, **card)
             for name in expect:
                 assert counts[name] > 0, f"cli {engine} block {row['block']}: {name} was not launched"
-            for name, v in counts.items():  # every kernel the run launched, held at its operands
-                wrapper = name.removesuffix("_sched")
-                if v and any(wrapper in names for _, names in CLI_KERNEL_SITES):
-                    assert any(k.split("/")[0] == wrapper and (name == wrapper or "sched" in k) for k in checked), \
-                        f"cli {engine} block {row['block']}: {name} launched but not held against its plain version"
+            missing = unheld_kernels(counts, checked)  # every kernel the run launched, held at its operands
+            assert not missing, f"cli {engine} block {row['block']}: {missing} launched but not held against " \
+                                "its plain version"
         for row in rows:
             assert row["snr_db"] >= row["snr_class_db"], \
                 f"cli {row['engine']} block {row['block']}: SNR {row['snr_db']:.1f} dB below its class"
@@ -873,7 +924,686 @@ def run_surface(dev, card) -> dict:
     return {"transforms": rows, "fixed_point": fixed, "checked": raised, "checkpoint": row}
 
 
-def main() -> int:
+# ------------------------------------------------------------------ 7i. dist
+#
+# D0 runs in this process: a world of one rank on NCCL. D1 runs in worker
+# processes of this script (``--dist-worker``), two gloo ranks on cuda:0 —
+# NCCL refuses two ranks of one group on one card — so their collectives
+# go through host memory (``dist.mesh``'s staging, counted). D1 is two
+# worlds of about 50 s each (``DIST_STAGES``), each limited to
+# DIST_WORLD_S.
+
+DIST_CH = 256  # the channel-sharded stream: BASELINE.json's multi-host config
+DIST_NB = 1168  # blocks of the sharded path (D0 and D1)
+# the pipeline and bin-sharded paths (host-bound: their collectives stage
+# through host memory every block) stream 960 blocks at split and 640 at
+# the quantized storages, to fit the phase's budget; the SNR window is the
+# last SNR_BLOCKS blocks (944-959: every partition of the IR; 624-639:
+# rank 1's pipeline partitions from 480 on)
+DIST_PIPE_NB = {"split": 960, "bf16": 640, "int16": 640, "int8": 640}
+DIST_TS_NB = 1920  # time-sharded: 960 blocks a rank (m = P)
+DIST_PN_NB = 1280  # part-sharded nested: 10 chunks of S = 128
+DIST_DRIVER_CHUNK, DIST_DRIVER_CHUNKS = 128, 6  # StreamDriver: two B3 windows a chunk
+DIST_KILL_AFTER = 2  # rank 1 ends itself once its streams yielded this chunk
+DIST_KILLED = 17  # exit code of the rank that ends itself mid-stream
+DIST_B3_SPAN = 128  # blocks of each span of a B3 call held against its plain version
+DIST_STAGES = ("cut", "resume")  # the two D1 worlds, in order
+DIST_WORLD_S = 90  # each world's limit
+DIST_NOTE = "2 ranks on one card, gloo through host memory — not a scaling figure"
+_B3 = ("fused_stream", "window_forward", "quantize_rows", "stream_mac", "ring_writeback", "window_inverse")
+# the kernels each dist path must launch (its launch window in the summary)
+DIST_EXPECT = {
+    "dist_d0": _B3,
+    "dist_sharded_process": _B3,
+    "dist_PipelineConvolver": ("fdl_mac",),
+    "dist_BinShardedConvolver": ("fdl_mac",),
+    "dist_timesharded_process": _B3,
+    "dist_PartShardedNested": ("nested_mac",),
+    "dist_sharded_process_nested": ("nested_mac",),
+    "dist_sharded_process_hybrid": ("fused_stream", "nested_mac"),
+    "dist_sharded_process_chunked": (),
+}
+
+
+def dist_ir():
+    """The headline IR (normalized) and its partitions: [1, P_REAL, K] and
+    zero-padded to P."""
+    import torch
+    from neojax_torch import conv
+    from neojax_torch.bench import headline
+
+    ir = conv.normalize_impulse(torch.from_numpy(headline.make_ir(P_REAL, BLOCK).astype(np.float32))).numpy()
+    parts = conv.uniform_partition(ir, BLOCK)
+    pad = np.zeros((1, P - P_REAL, BLOCK + 1), parts.dtype)
+    return ir, parts, np.concatenate([parts, pad], axis=1)
+
+
+def device_signal(channels: int, blocks: int, seed: int, dev):
+    """Uniform +-1 noise [channels, blocks * BLOCK] made on the card from a
+    seed (the same on every rank)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.rand((channels, blocks * BLOCK), generator=g, device=dev) * 2 - 1
+
+
+def oracle_window(x4: np.ndarray, ir: np.ndarray, start: int) -> np.ndarray:
+    """The f64 FFT convolution of [SNR_CH, T] with the IR on the SNR window."""
+    t = x4.shape[1]
+    nfft = 1 << int(np.ceil(np.log2(t + ir.size)))
+    y = np.fft.irfft(np.fft.rfft(x4.astype(np.float64), nfft) * np.fft.rfft(ir.astype(np.float64), nfft)[None],
+                     nfft)[:, :t]
+    return snr_window(y, start)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_dist_world(world: int, stage: str, outdir: str, expect_exit=None) -> dict:
+    """Start ``world`` worker processes of this script on one gloo group,
+    wait for them within DIST_WORLD_S and return {rank: their JSON}. A
+    worker that fails or a world that overruns raises (every process is
+    stopped); ``expect_exit`` maps ranks that end themselves to their code."""
+    expect_exit = expect_exit or {}
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(outdir, f"{stage}_r{r}.log"), "w")
+        env = dict(os.environ, LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+                                       str(world), str(port), outdir, stage], stdout=log, stderr=log, env=env))
+        logs.append(log)
+    deadline = time.monotonic() + DIST_WORLD_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"dist world {stage} did not finish in {DIST_WORLD_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    out = {}
+    for r, p in enumerate(procs):
+        path = os.path.join(outdir, f"{stage}_r{r}.json")
+        if p.returncode != expect_exit.get(r, 0):
+            with open(os.path.join(outdir, f"{stage}_r{r}.log")) as f:
+                tail = f.read()[-4000:]
+            raise RuntimeError(f"dist world {stage}: rank {r} exited with {p.returncode}\n{tail}")
+        with open(path) as f:
+            out[r] = json.load(f)
+    return out
+
+
+def _chunk_digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def dist_worker(rank: int, world: int, port: int, outdir: str, stage: str) -> int:
+    """One rank of a D1 world: run ``stage``'s paths on cuda:0 and write
+    their records to ``{outdir}/{stage}_r{rank}.json`` as they finish."""
+    import torch
+    import torch.distributed as tdd
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from neojax_torch import dist as tdist
+    from neojax_torch.kernels import _build
+
+    _build.load()
+    assert _build.build_info()["built"] is False, "a worker built the kernel library (the parent builds it)"
+    assert tdist.init_distributed(f"127.0.0.1:{port}", world, rank, timeout_secs=60, backend="gloo")
+    res = _Results(os.path.join(outdir, f"{stage}_r{rank}.json"), rank=rank, stage=stage, records=[])
+    try:
+        {"cut": _dist_cut, "resume": _dist_resume}[stage](rank, res)
+    finally:
+        res.save()
+    tdd.destroy_process_group()
+    return 0
+
+
+class _Results(dict):
+    """A worker's results, rewritten to its JSON file on every ``save`` (a
+    rank that ends itself leaves what it had done)."""
+
+    def __init__(self, path: str, **kw):
+        super().__init__(**kw)
+        self.path = path
+
+    def save(self) -> None:
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self, f)
+        os.replace(tmp, self.path)
+
+
+def _record(res: _Results, rec: dict) -> dict:
+    res["records"].append(rec)
+    res.save()
+    return rec
+
+
+def _on_card_state(state) -> bool:
+    import torch
+
+    leaves = [v for val in state.values() for v in (val if isinstance(val, tuple) else (val,))]
+    return all(v.device.type == DEVICE for v in leaves if isinstance(v, torch.Tensor))
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _event_ms(fn, reps: int = 10) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _kernel_vs_plain(name, kernel, plain, library, args, storage, work) -> dict:
+    """A kernel and its plain version on the same dist operands (gated on
+    TOL), with both times, the library call's (one einsum on complex64
+    inputs built outside) and the kernel's bound."""
+    import torch
+    from neojax_torch.bench import harness, headline
+
+    got, want = kernel(*args), plain(*args)
+    d, r = rel_err(torch.stack(got).cpu(), torch.stack(want).cpu())
+    row = {"kernel": name, "storage": storage, "shape": list(args[0].shape), "max_abs_err": d, "rel_err": r,
+           "tol": TOL[storage], "ms": _event_ms(lambda: kernel(*args)), "plain_ms": _event_ms(lambda: plain(*args), 3),
+           "library_ms": _event_ms(library, 3)}
+    peak_b, peak_f = harness.hbm_peak_bytes_per_sec(), harness.f32_peak_flops_per_sec()
+    if peak_b and peak_f:
+        t, by = headline.bound(work, peak_b, peak_f)
+        row.update(bound_ms=1e3 * t, bound_by=by, share=1e3 * t / row["ms"])
+    assert r < TOL[storage], f"{name} on the dist operands ({storage}): {r}"
+    return row
+
+
+def _counts_window(fn):
+    """Run fn with the launch counters zeroed just before and read just
+    after: (fn's result, seconds, counts)."""
+    from neojax_torch import kernels
+
+    kernels.reset_launch_counts()
+    out, dt = _timed(fn)
+    return out, dt, kernels.launch_counts()
+
+
+def _oracle(sig, ir, start: int = None) -> np.ndarray:
+    """The f64 oracle of a signal's first SNR_CH channels on the SNR window
+    from block ``start`` (SNR_START)."""
+    return oracle_window(sig[:SNR_CH].cpu().numpy(), ir, SNR_START if start is None else start)
+
+
+def _snr(out, oracle, start: int = None) -> float:
+    return snr_db(snr_window(out.cpu().numpy(), SNR_START if start is None else start), oracle)
+
+
+def _warm(dev, parts_pad) -> None:
+    """One small B3 stream, to load this process's libraries and B3 outside
+    every launch window."""
+    from neojax_torch.conv import convolver as cv
+    from neojax_torch.kernels.fused_step import WINDOW
+
+    cfg_w = cv.PartitionedConfig(BLOCK, P, 4, storage="split")
+    cv.process(cfg_w, cv.filter_params(cfg_w, parts_pad, device=dev), cv.init_state(cfg_w, dev),
+               device_signal(4, 2 * WINDOW, 1, dev))
+
+
+def fused_stream_spans(fn, named: dict, span: int) -> list:
+    """A B3 call's operands cut to at most two spans of ``span`` blocks:
+    its first ``span`` blocks from its own ring, and the ``span`` blocks
+    around the ring's first wrap (window-aligned; 896-1023 at P = 960 from
+    slot 0) from the ring that ``fn``, the kernel, leaves on a copy before
+    them. A call of at most ``span`` blocks stays whole. Returns
+    [(first block, operands)]."""
+    from neojax_torch.kernels.fused_step import WINDOW
+
+    p, b = named["fdl"].shape[1], named["fdl"].shape[3]
+    nb = named["sigpad"].shape[1] // b - 1
+    if nb <= span:
+        return [(0, named)]
+    pos0 = int(named["pos0"])
+
+    def cut(start, n):
+        out = dict(named, sigpad=named["sigpad"][:, start * b : (start + n + 1) * b].contiguous(),
+                   dcfix_all=named["dcfix_all"][start : start + n].contiguous(), pos0=(pos0 + start) % p)
+        if named.get("acc_add") is not None:
+            out["acc_add"] = named["acc_add"][start : start + n].contiguous()
+        return out
+
+    spans = [(0, cut(0, span))]
+    wrap = p - pos0 if pos0 else p  # the first block written to ring slot 0
+    start = max(span, (wrap - span // 2) // WINDOW * WINDOW)
+    if start + span <= nb:
+        before = {k: _clone(v) for k, v in cut(0, start).items()}
+        fn(**before)  # the ring after blocks 0..start-1, on copies
+        spans.append((start, dict(cut(start, span), fdl=before["fdl"], scales=before.get("scales"))))
+    return spans
+
+
+def held_calls(run) -> dict:
+    """Run ``run`` once with the kernel wrappers' operands kept
+    (``last_kernel_calls``), then hold each kept call's kernel against its
+    plain version on copies of those operands (``kernel_vs_plain_on``, at
+    TOL): {kind: row}. B3 is held on two spans of its call
+    (``fused_stream_spans``, DIST_B3_SPAN blocks each): its plain version
+    loops blocks in float64, 13-16 s for a whole 1168-block call at 128 or
+    256 channels. The run is an extra call, outside every launch window."""
+    calls = {}
+    with last_kernel_calls(calls):
+        run()
+    rows = {}
+    for kind, (fn, named, seen) in calls.items():
+        if fn.__name__ != "fused_stream":
+            rows[kind] = {"calls_seen": seen, **kernel_vs_plain_on(fn, named)}
+            continue
+        b = named["fdl"].shape[3]
+        spans = [{"blocks": [s, s + op["dcfix_all"].shape[0]], **kernel_vs_plain_on(fn, op)}
+                 for s, op in fused_stream_spans(fn, named, DIST_B3_SPAN)]
+        rows[kind] = {"calls_seen": seen, "call_blocks": named["sigpad"].shape[1] // b - 1,
+                      "rel_err": max(r["rel_err"] for r in spans), "spans": spans}
+    return rows
+
+
+def _dist_cut(rank: int, res: dict) -> None:
+    """The first D1 world: the engines whose collectives stage through host
+    memory every block (pipeline, bin-sharded), then the ``StreamDriver``
+    streams, which rank 1 cuts short."""
+    import torch
+    from neojax_torch import dist as tdist
+    from neojax_torch.conv import convolver as cv
+    from neojax_torch.bench import headline
+    from neojax_torch.kernels import fdl_mac as mac_mod
+
+    dev = tdist.mesh.rank_device(None)
+    ir, parts, parts_pad = dist_ir()
+    _warm(dev, parts_pad)
+
+    # 2-3. PipelineConvolver (part = 2) and BinShardedConvolver (bin = 2), 64 channels
+    sig = device_signal(CHANNELS, DIST_PIPE_NB["split"], 12, dev)
+    oracles = {nb: _oracle(sig, ir, nb - SNR_BLOCKS) for nb in set(DIST_PIPE_NB.values())}
+    cfg_s = cv.PartitionedConfig(BLOCK, P, CHANNELS, storage="split")
+    _, single = cv.process(cfg_s, cv.filter_params(cfg_s, parts_pad, device=dev), cv.init_state(cfg_s, dev), sig)
+    filt = np.moveaxis(parts_pad, 0, 1)  # [P, 1, K]
+    for kind, mesh in (("PipelineConvolver", tdist.make_mesh(part=2)), ("BinShardedConvolver", tdist.make_mesh(bin=2))):
+        for storage in (STORAGES if kind == "PipelineConvolver" else ("split", "int8")):
+            nb = DIST_PIPE_NB[storage]
+            x = sig[:, : nb * BLOCK]
+            cfg = cv.PartitionedConfig(BLOCK, P, CHANNELS, storage=storage)
+            eng = (tdist.PipelineConvolver if kind == "PipelineConvolver" else tdist.BinShardedConvolver)(cfg, mesh)
+            f = eng.shard_filter(filt)
+            staged0 = mesh.host_staged_bytes
+            (st, out), dt, counts = _counts_window(lambda: eng.process(f, eng.init_state(), x))
+            rec = {"path": kind, "storage": storage, "channels": CHANNELS, "blocks": nb, "s": dt,
+                   "ms_per_block": 1e3 * dt / nb, "launches": counts,
+                   "host_staged_bytes": mesh.host_staged_bytes - staged0,
+                   "snr_db_vs_f64": _snr(out, oracles[nb], nb - SNR_BLOCKS), "snr_window_start": nb - SNR_BLOCKS,
+                   "state_on_card": _on_card_state(st),
+                   "note": DIST_NOTE}
+            if storage == "split":
+                rec["max_abs_err_vs_process"], rec["rel_err_vs_process"] = rel_err(out.cpu(), single.cpu())
+            # B1 against its plain version on this path's operands (the ring it leaves)
+            planes, scales = st["fdl"], st.get("scales", st.get("scl"))
+            if kind == "PipelineConvolver":
+                ell = planes.shape[1]
+                fr, fi = f[0, ell : 2 * ell], f[1, ell : 2 * ell]
+            else:
+                fr, fi = f[0, P - 1 - st["pos"] : 2 * P - 1 - st["pos"]], f[1, P - 1 - st["pos"] : 2 * P - 1 - st["pos"]]
+            sc = None if scales is None else scales[..., 0]
+            dq = 1.0 if sc is None else (sc * (1.0 / INT_MAX[storage]))[..., None]
+            xc = torch.complex(planes[0].float() * dq, planes[1].float() * dq)
+            fc = torch.complex(fr[:, 0], fi[:, 0])
+            rec["fdl_mac_vs_plain"] = _kernel_vs_plain(
+                "fdl_mac", mac_mod.fdl_mac, mac_mod.fdl_mac_reference,
+                lambda: torch.einsum("pck,pk->ck", xc, fc), (planes, fr, fi, sc), storage,
+                headline.fdl_mac_work(storage, planes.shape[1], planes.shape[2], planes.shape[3], fr.shape[1]))
+            del xc, fc
+            rec["fdl_mac_vs_plain"]["vec"] = mac_mod.mac_geometry(planes, fr, fi)[2]
+            _record(res, rec)
+            assert rec["state_on_card"] and counts["fdl_mac"] > 0, rec
+            if storage in SNR_CLASS_DB:
+                assert rec["snr_db_vs_f64"] >= SNR_CLASS_DB[storage], rec
+            if storage == "split":
+                assert rec["rel_err_vs_process"] < TOL["split"], rec
+            del st, out
+    del sig, single
+    torch.cuda.empty_cache()
+
+    # 7. StreamDriver: an uninterrupted stream, then the npz and DCP streams
+    # that rank 1 cuts short (resumed by the next world)
+    res["uninterrupted"] = _streams(rank, ("none",))["none"]
+    res.save()
+    _streams(rank, ("npz", "dcp"), kill_after=DIST_KILL_AFTER, res=res)
+
+
+def _dist_resume(rank: int, res: dict) -> None:
+    """The second D1 world: first the streams the last world cut, resumed
+    from each rank's checkpoints; then the engines whose collectives, if
+    any, come once a call or a chunk (channel-, time- and part-sharded),
+    with B3 and B5 held against their plain versions on the operands of
+    the channel-sharded calls."""
+    import torch
+    from neojax_torch import dist as tdist
+    from neojax_torch.conv import chunked as ch_lib
+    from neojax_torch.conv import convolver as cv
+    from neojax_torch.conv import hybrid as hy
+    from neojax_torch.conv import nested as ne
+    from neojax_torch.dist import partnested as pn
+    from neojax_torch.bench import headline
+    from neojax_torch.kernels import nested_mac as nm_mod
+
+    res["resumed"] = _streams(rank, ("npz", "dcp"))
+    res.save()
+    dev = tdist.mesh.rank_device(None)
+    ir, parts, parts_pad = dist_ir()
+    _warm(dev, parts_pad)
+
+    # 1. sharded_process, 256 channels over "ch"
+    mesh = tdist.make_mesh()
+    sig = device_signal(DIST_CH, DIST_NB, 11, dev)
+    sig_l = sig[mesh.block(("ch", None), sig.shape)]
+    oracle = _oracle(sig_l, ir)
+    for storage in ("split", "int8"):
+        cfg = cv.PartitionedConfig(BLOCK, P, DIST_CH, storage=storage)
+        local = tdist.sharded.local_config(cfg, mesh)
+        params = cv.filter_params(cfg, parts_pad, device=dev)
+        held, held_s = _timed(lambda: held_calls(
+            lambda: tdist.sharded_process(cfg, params, cv.init_state(local, dev), sig, mesh)))
+        (st, out), dt, counts = _counts_window(
+            lambda: tdist.sharded_process(cfg, params, cv.init_state(local, dev), sig, mesh))
+        _, ref = cv.process(local, cv.filter_params(local, parts_pad, device=dev), cv.init_state(local, dev), sig_l)
+        rec = _record(res, {"path": "sharded_process", "storage": storage, "channels": DIST_CH,
+                            "rank_channels": local.channels, "blocks": DIST_NB, "s": dt,
+                            "us_per_block": 1e6 * dt / DIST_NB, "launches": counts,
+                            "bit_equal_vs_process": bool(torch.equal(out, ref)),
+                            "snr_db_vs_f64": _snr(out, oracle), "state_on_card": _on_card_state(st),
+                            "kernels_vs_plain": held, "kernels_vs_plain_s": held_s,
+                            "not_held": unheld_kernels(counts, held)})
+        assert rec["bit_equal_vs_process"] and rec["state_on_card"] and counts["fused_stream"] > 0, rec
+        assert "fused_stream" in held and not rec["not_held"], rec
+        if storage in SNR_CLASS_DB:
+            assert rec["snr_db_vs_f64"] >= SNR_CLASS_DB[storage], rec
+    del sig, sig_l, st, out, ref, params
+    torch.cuda.empty_cache()
+
+    # 4. timesharded_process over a "time" axis of 2
+    mesh_t = tdist.Mesh(("time",), (2,))
+    sig = device_signal(CHANNELS, DIST_TS_NB, 13, dev)
+    m = DIST_TS_NB // 2
+    for storage in ("split", "int8"):
+        cfg = cv.PartitionedConfig(BLOCK, P, CHANNELS, storage=storage)
+        params = cv.filter_params(cfg, parts_pad, device=dev)
+        staged0 = mesh_t.host_staged_bytes
+        out, dt, counts = _counts_window(lambda: tdist.timesharded_process(cfg, params, sig, mesh_t))
+        staged = mesh_t.host_staged_bytes - staged0
+        _, ref = cv.process(cfg, params, cv.init_state(cfg, dev), sig)
+        ref = ref[:, rank * m * BLOCK : (rank + 1) * m * BLOCK]
+        d, r = rel_err(out.cpu(), ref.cpu())
+        tol = CUT_TOL if storage == "split" else TOL[storage]
+        rec = _record(res, {"path": "timesharded_process", "storage": storage, "channels": CHANNELS,
+                            "blocks": DIST_TS_NB, "rank_blocks": m, "s": dt, "us_per_block": 1e6 * dt / m,
+                            "launches": counts, "halo_bytes": CHANNELS * P * BLOCK * 4,
+                            "host_staged_bytes": staged, "max_abs_err_vs_process": d, "rel_err_vs_process": r,
+                            "tol": tol, "bit_equal_vs_process": bool(torch.equal(out, ref)), "note": DIST_NOTE})
+        assert r < tol and counts["fused_stream"] > 0, rec
+    del sig, out, ref
+    torch.cuda.empty_cache()
+
+    # 5. PartShardedNested (part = 2, S = 128)
+    mesh = tdist.make_mesh(part=2)
+    sig = device_signal(CHANNELS, DIST_PN_NB, 14, dev)
+    oracle = _oracle(sig, ir)
+    for storage in ("split", "bf16", "int8"):
+        cfg = cv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage=storage)
+        eng = pn.PartShardedNested(cfg, mesh, S_NESTED)
+        gparams = pn.partnested_filter_params(cfg, parts, S_NESTED, eng.d_part, device=dev)
+        params = eng.shard_params(gparams)
+        state = eng.shard_state(pn.partnested_init_state(cfg, gparams, eng.d_part))
+        del gparams
+        staged0 = mesh.host_staged_bytes
+        (st, out), dt, counts = _counts_window(lambda: eng.process(params, state, sig))
+        nparams = ne.nested_filter_params(cfg, parts, S_NESTED, device=dev)
+        _, ref = ne.process_nested(cfg, nparams, ne.nested_init_state(cfg, nparams), sig)
+        d, r = rel_err(out.cpu(), ref.cpu())
+        rec = {"path": "PartShardedNested", "storage": storage, "channels": CHANNELS, "chunk_blocks": S_NESTED,
+               "blocks": DIST_PN_NB, "s": dt, "ms_per_block": 1e3 * dt / DIST_PN_NB, "launches": counts,
+               "host_staged_bytes": mesh.host_staged_bytes - staged0, "max_abs_err_vs_process_nested": d,
+               "rel_err_vs_process_nested": r, "tol": TOL[storage], "snr_db_vs_f64": _snr(out, oracle),
+               "snr_class_db": ENGINE_SNR_CLASS_DB[storage], "state_on_card": _on_card_state(st),
+               "local_ring": list(st["fdl"].shape), "note": DIST_NOTE}
+        ell, pos_l = st["fdl"].shape[1], (st["pos"] - 1) % st["fdl"].shape[1]
+        fre = params["filt_re"][ell - 1 - pos_l : 2 * ell - 1 - pos_l, 0].float()
+        fim = params["filt_im"][ell - 1 - pos_l : 2 * ell - 1 - pos_l, 0].float()
+        x, sc = st["fdl"], st.get("scales")
+        dq = 1.0 if sc is None else (sc * (1.0 / INT_MAX[storage])).repeat_interleave(
+            x.shape[-1] // sc.shape[-1], dim=-1)
+        xc = torch.complex(x[0].float() * dq, x[1].float() * dq)
+        fc = torch.complex(fre, fim)
+        rec["nested_mac_vs_plain"] = _kernel_vs_plain(
+            "nested_mac", nm_mod.nested_mac, nm_mod.nested_mac_reference,
+            lambda: torch.einsum("pckm,pkm->ckm", xc, fc), (x, sc, fre, fim), storage,
+            headline.nested_mac_work(storage, x.shape[1], x.shape[2], x.shape[3], x.shape[4]))
+        del xc, fc
+        _record(res, rec)
+        assert rec["state_on_card"] and r < TOL[storage] and counts["nested_mac"] > 0, rec
+        assert rec["snr_db_vs_f64"] >= ENGINE_SNR_CLASS_DB[storage], rec
+        del st, out, ref, params, state, nparams
+        torch.cuda.empty_cache()
+    del sig
+
+    # 6. the channel-sharded nested, hybrid and chunked engines (ch = 2)
+    mesh = tdist.make_mesh()
+    for name, s_e, nb in (("nested", S_NESTED, NB_NESTED), ("hybrid", S_HYBRID, NB_HYBRID),
+                          ("chunked", S_CHUNKED, NB_CHUNKED)):
+        cfg = cv.PartitionedConfig(BLOCK, P_REAL, CHANNELS, storage="split")
+        local = tdist.sharded.local_config(cfg, mesh)
+        sig = device_signal(CHANNELS, nb, 15, dev)
+        sig_l = sig[mesh.block(("ch", None), sig.shape)]
+        if name == "nested":
+            build, init = ne.nested_filter_params, ne.nested_init_state
+            run = lambda p_, s_: tdist.sharded_process_nested(cfg, p_, s_, sig, mesh)
+            one = lambda p_, s_: ne.process_nested(local, p_, s_, sig_l)
+        elif name == "hybrid":
+            build, init = hy.hybrid_filter_params, hy.hybrid_init_state
+            run = lambda p_, s_: tdist.sharded_process_hybrid(cfg, p_, s_, sig, mesh)
+            one = lambda p_, s_: hy.process_hybrid(local, p_, s_, sig_l)
+        else:
+            build, init = ch_lib.chunked_filter_params, ch_lib.chunked_init_state
+            run = lambda p_, s_: tdist.sharded_process_chunked(cfg, p_, s_, sig, mesh, S_CHUNKED)
+            one = lambda p_, s_: ch_lib.process_chunked(local, p_, s_, sig_l, S_CHUNKED)
+        params = build(cfg, parts, s_e, device=dev)
+        held = held_calls(lambda: run(params, init(local, params)))
+        (st, out), dt, counts = _counts_window(lambda: run(params, init(local, params)))
+        lp = build(local, parts, s_e, device=dev)
+        _, ref = one(lp, init(local, lp))
+        d, r = rel_err(out.cpu(), ref.cpu())
+        rec = _record(res, {"path": f"sharded_process_{name}", "storage": "split", "channels": CHANNELS,
+                            "chunk_blocks": s_e, "blocks": nb, "s": dt, "us_per_block": 1e6 * dt / nb,
+                            "launches": counts, "max_abs_err_vs_engine": d, "rel_err_vs_engine": r,
+                            "bit_equal_vs_engine": bool(torch.equal(out, ref)), "state_on_card": _on_card_state(st),
+                            "kernels_vs_plain": held, "not_held": unheld_kernels(counts, held)})
+        assert r < TOL["split"] and rec["state_on_card"] and not rec["not_held"], rec
+        assert name == "chunked" or (counts["nested_mac"] > 0 and "nested_mac" in held), rec
+        assert name != "hybrid" or "fused_stream/acc_add" in held, rec
+        del st, out, ref, params, lp, sig, sig_l
+        torch.cuda.empty_cache()
+
+
+def _streams(rank: int, kinds, kill_after=None, res=None) -> dict:
+    """``StreamDriver`` over ``sharded_process`` (64 channels over "ch",
+    split): DIST_DRIVER_CHUNKS chunks of DIST_DRIVER_CHUNK blocks, one
+    stream per kind — "none" (no checkpoint), "npz" (the per-rank pair) or
+    "dcp" (the DCP pair), a checkpoint every 2 chunks — advanced in turns,
+    a chunk each. Returns {kind: [(chunk, sha256 of its output)]}.
+
+    With ``kill_after``, rank 1 ends its process once every stream has
+    yielded that chunk. Rank 0 ends its DCP stream there too, since that
+    stream's next checkpoint is a collective with the rank that is gone;
+    its npz stream, which writes this rank's files alone, runs to the end."""
+    from neojax_torch import dist as tdist
+    from neojax_torch import io
+    from neojax_torch.conv import convolver as cv
+
+    dev = tdist.mesh.rank_device(None)
+    _, _, parts_pad = dist_ir()
+    cfg = cv.PartitionedConfig(BLOCK, P, CHANNELS, storage="split")
+    mesh = tdist.make_mesh()
+    local = tdist.sharded.local_config(cfg, mesh)
+    params = tdist.shard_params(cfg, cv.filter_params(cfg, parts_pad, device=dev), mesh)
+    sig = device_signal(CHANNELS, DIST_DRIVER_CHUNK * DIST_DRIVER_CHUNKS, 16, dev)
+    step = DIST_DRIVER_CHUNK * BLOCK
+    chunks = [sig[:, i * step : (i + 1) * step] for i in range(DIST_DRIVER_CHUNKS)]
+    pairs = {"npz": (tdist.multihost.save_sharded_state, tdist.multihost.load_sharded_state),
+             "dcp": (io.save_state_dcp, io.load_state_dcp)}
+    live = {}
+    for kind in kinds:
+        kw = {}
+        if kind in pairs:
+            kw = dict(checkpoint_path=os.path.join(os.environ["NEOJAX_DIST_OUT"], f"stream_{kind}"),
+                      checkpoint_every=2, save_fn=pairs[kind][0], load_fn=pairs[kind][1])
+        driver = tdist.StreamDriver(lambda p_, s_, x: tdist.sharded_process(cfg, p_, s_, x, mesh), **kw)
+        live[kind] = driver.run(params, cv.init_state(local, dev), chunks)
+    done = {kind: [] for kind in kinds}
+    while live:
+        for kind, gen in list(live.items()):
+            try:
+                i, out, _ = next(gen)
+            except StopIteration:
+                del live[kind]
+                continue
+            done[kind].append((i, _chunk_digest(out)))
+            if res is not None:
+                res[f"progress_{kind}"] = done[kind]
+                res.save()
+            if kill_after is not None and kind == "dcp" and i >= kill_after:
+                del live[kind]
+        if kill_after is not None and rank == 1 and all(d and d[-1][0] >= kill_after for d in done.values()):
+            os._exit(DIST_KILLED)
+    return done
+
+
+def run_dist(dev, card) -> dict:
+    """7i. The distributed engines on the card (module comment above).
+    D0: world 1 on NCCL in this process; D1: two 2-rank gloo worlds of
+    worker processes. Returns {"summary", "windows": {path: counts}}."""
+    import torch
+    import torch.distributed as tdd
+    from neojax_torch import dist as tdist
+    from neojax_torch.bench import scaling
+    from neojax_torch.conv import convolver as cv
+
+    t_phase = time.perf_counter()
+    ir, parts, parts_pad = dist_ir()
+    windows, summary = {}, {"note": DIST_NOTE}
+
+    # D0: one rank on NCCL
+    assert tdist.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, timeout_secs=60, backend="nccl")
+    try:
+        mesh = tdist.make_mesh()
+        sig = device_signal(DIST_CH, DIST_NB, 11, dev)
+        cfg = cv.PartitionedConfig(BLOCK, P, DIST_CH, storage="split")
+        params = cv.filter_params(cfg, parts_pad, device=dev)
+        (st, out), dt, counts = _counts_window(
+            lambda: tdist.sharded_process(cfg, params, cv.init_state(cfg, dev), sig, mesh))
+        _, ref = cv.process(cfg, params, cv.init_state(cfg, dev), sig)
+        _, warm = _timed(lambda: tdist.sharded_process(cfg, params, cv.init_state(cfg, dev), sig, mesh))
+        held, held_s = _timed(lambda: held_calls(
+            lambda: tdist.sharded_process(cfg, params, cv.init_state(cfg, dev), sig, mesh)))
+        x = torch.randn((2, CHANNELS, BLOCK + 1), device=dev)
+        y = tdist.psum(x, mesh, "ch")
+        torch.cuda.synchronize()
+        pt = scaling.weak_scaling_sweep(device_counts=[1])[0]
+        d0 = {"backend": tdd.get_backend(), "world": tdd.get_world_size(), "channels": DIST_CH, "blocks": DIST_NB,
+              "sharded_first_call_s": dt, "sharded_us_per_block": 1e6 * warm / DIST_NB,
+              "bit_equal_vs_process": bool(torch.equal(out, ref)), "launches": counts,
+              "kernels_vs_plain": held, "kernels_vs_plain_s": held_s, "not_held": unheld_kernels(counts, held),
+              "psum_equal": bool(torch.equal(x, y)), "psum_staged_bytes": mesh.host_staged_bytes,
+              "weak_scaling_point": dataclasses.asdict(pt)}
+        emit(phase="dist", part="D0", **d0, **card)
+        windows["dist_d0"] = counts
+        assert d0["bit_equal_vs_process"] and d0["psum_equal"] and d0["psum_staged_bytes"] == 0
+        assert counts["fused_stream"] > 0 and "fused_stream" in held and not d0["not_held"], d0
+        summary["D0"] = d0
+        del sig, st, out, ref, params, x, y
+    finally:
+        tdd.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # D1: two gloo ranks on cuda:0, in two worlds: "cut" ends with rank 1
+    # leaving mid-stream, "resume" starts by resuming those streams
+    world_s, first = {}, {}
+    with tempfile.TemporaryDirectory() as outdir:
+        os.environ["NEOJAX_DIST_OUT"] = outdir
+        t0 = time.perf_counter()
+        for stage in DIST_STAGES:
+            t1 = time.perf_counter()
+            first[stage] = run_dist_world(2, stage, outdir, expect_exit={1: DIST_KILLED} if stage == "cut" else {})
+            world_s[stage] = time.perf_counter() - t1
+            for r, rank_res in first[stage].items():
+                for rec in rank_res["records"]:
+                    key = f"dist_{rec['path']}"
+                    windows.setdefault(key, {})
+                    for name, n in rec["launches"].items():
+                        windows[key][name] = windows[key].get(name, 0) + n
+                    emit(phase="dist", part="D1", world=stage, rank=r, **rec, **card)
+        d1_s = time.perf_counter() - t0
+    # each cut stream, its chunks before the cut and after the resume
+    # together, against the uninterrupted stream, chunk by chunk
+    cut, resumed = first["cut"], first["resume"]
+    for r in (0, 1):
+        want = dict(map(tuple, cut[r]["uninterrupted"]))
+        row = {"rank": r, "chunks": DIST_DRIVER_CHUNKS, "chunk_blocks": DIST_DRIVER_CHUNK,
+               "cut_after_chunk": DIST_KILL_AFTER}
+        for kind in ("npz", "dcp"):
+            before = [i for i, _ in cut[r].get(f"progress_{kind}", [])]
+            again = resumed[r]["resumed"][kind]
+            got = dict(map(tuple, cut[r].get(f"progress_{kind}", []))) | dict(map(tuple, again))
+            row[f"{kind}_last_before_cut"] = before[-1] if before else None
+            row[f"{kind}_resumed_from"] = again[0][0] if again else None
+            row[f"{kind}_bit_equal"] = got == want
+        emit(phase="dist", part="D1", path="StreamDriver kill-and-resume", **row, **card)
+        assert row["npz_bit_equal"] and row["dcp_bit_equal"], row
+        # a checkpoint every 2 chunks: the DCP stream (and rank 1's npz
+        # stream) resume from the last even chunk at or before the cut;
+        # rank 0's npz stream ran to its end
+        resume_at = DIST_KILL_AFTER - DIST_KILL_AFTER % 2
+        assert row["dcp_last_before_cut"] == DIST_KILL_AFTER and row["dcp_resumed_from"] == resume_at, row
+        assert row["npz_resumed_from"] == (resume_at if r == 1 else None), row
+    summary.update(d1_s=d1_s, world_s=world_s, phase_s=time.perf_counter() - t_phase,
+                   records=[{k: v for k, v in rec.items() if k != "launches"}
+                            for stage in DIST_STAGES for r in first[stage] for rec in first[stage][r]["records"]])
+    emit(phase="dist", part="summary", d1_s=d1_s, world_s=world_s, world_limit_s=DIST_WORLD_S,
+         phase_s=summary["phase_s"], budget_s=120, **card)
+    return {"summary": summary, "windows": windows}
+
+
+def main(dist_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -922,6 +1652,14 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, built=info["built"],
          library=os.path.relpath(info["path"], os.path.dirname(os.path.abspath(__file__))),
          ptxas=ptxas, partition_mac=mac_ptxas(log_path))
+
+    if dist_only:  # the dist phase alone, for work on it; no kernels line and no ok line
+        res = run_dist(torch.device(DEVICE), card)
+        for path, counts in res["windows"].items():
+            emit(phase="launch_counts", path=path, **counts)
+            for name in DIST_EXPECT[path]:
+                assert counts[name] > 0, f"{name} was not launched on the {path} path"
+        return 0
 
     # the card's data-sheet peaks, for each kernel's bound (None off the H100)
     peak_b, peak_f = harness.hbm_peak_bytes_per_sec(), harness.f32_peak_flops_per_sec()
@@ -972,21 +1710,30 @@ def main() -> int:
                 "stream_mac_kernel": "stream_mac", "step_mac_kernel": "step_mac",
                 "step_reduce_kernel": "step_reduce", "widths_kernel": "sched_widths"}
 
-    def stage_us(fn) -> dict:
-        """Device µs by stage of one call of fn: the median over three
-        profiled calls (a trace may miss a kernel)."""
+    b2_need = ("window_forward", "quantize_rows", "ring_writeback", "step_mac", "step_reduce", "window_inverse")
+    b3_need = ("window_forward", "quantize_rows", "stream_mac", "ring_writeback", "window_inverse")
+
+    def stage_us(fn, need=(), rounds: int = 4) -> dict:
+        """Device µs by stage of one call of fn: the median over the
+        profiled calls that show the stage. A trace may miss a kernel, so
+        fn is traced three calls at a time, up to ``rounds`` times, until
+        every stage in ``need`` was seen; a stage still unseen is left out
+        and its caller times it alone."""
         fn()
         per_call = []
-        for timeline in bench_profile.kernel_timeline(fn, 3):
-            call = {}
-            for name, us in timeline:
-                if "gemm_" in name or "split_sum" in name:
-                    label = "window_inverse" if "<true>" in name else "window_forward"
-                else:
-                    label = next((v for k, v in stage_of.items() if k in name), None)
-                if label:
-                    call[label] = call.get(label, 0.0) + us
-            per_call.append(call)
+        for _ in range(rounds):
+            for timeline in bench_profile.kernel_timeline(fn, 3):
+                call = {}
+                for name, us in timeline:
+                    if "gemm_" in name or "split_sum" in name:
+                        label = "window_inverse" if "<true>" in name else "window_forward"
+                    else:
+                        label = next((v for k, v in stage_of.items() if k in name), None)
+                    if label:
+                        call[label] = call.get(label, 0.0) + us
+                per_call.append(call)
+            if all(any(k in call for call in per_call) for k in need):
+                break
         labels = {k for call in per_call for k in call}
         return {k: float(np.median([call[k] for call in per_call if k in call])) for k in sorted(labels)}
 
@@ -1065,7 +1812,7 @@ def main() -> int:
         summary["fused_block_step"][storage] = {"max_abs_err": worst[0], "rel_err": worst[1],
                                                 "ms": step_ms, "plain_ms": step_plain,
                                                 "stages_us": stage_us(lambda: fs_mod.fused_block_step(
-                                                    frame, k_ring, rim, 3, dcfix, cs, ab, k_scl))}
+                                                    frame, k_ring, rim, 3, dcfix, cs, ab, k_scl), b2_need)}
         emit(phase="kernel_vs_plain", kernel="fused_block_step", storage=storage, tol=TOL[storage],
              positions=[0, P // 2, P - 1], **summary["fused_block_step"][storage], **card)
 
@@ -1085,7 +1832,8 @@ def main() -> int:
         check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream {storage}")
         s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl), 3)
         s_plain = cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2, abt, p_scl), 1)
-        b3_stages = stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl))
+        b3_stages = stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl),
+                             b3_need)
         summary["fused_stream"][storage] = {"max_abs_err": d, "rel_err": r, "ms": s_ms, "plain_ms": s_plain,
                                             "blocks": nb, "us_per_block": 1e3 * s_ms / nb, "stages_us": b3_stages}
         emit(phase="kernel_vs_plain", kernel="fused_stream", storage=storage, tol=TOL[storage],
@@ -1131,8 +1879,22 @@ def main() -> int:
             stages[name][storage] = {"max_abs_err": d, "rel_err": r,
                                      "plain_ms": cuda_ms(plain_fn, 1)}
         b2_stages = summary["fused_block_step"][storage]["stages_us"]
+        stage_alone = {  # each stage launched by itself on the operands above
+            "window_forward": lambda: fs_mod.window_forward(sigpad, cs2, 0, nb),
+            "quantize_rows": lambda: fs_mod.quantize_rows(w_spec, sdt),
+            "stream_mac": lambda: fs_mod.stream_mac(ring, scales, w_x, w_scl, rim, dcfix_all, pos0),
+            "ring_writeback": lambda: fs_mod.ring_writeback(w_x, w_scl, wb_ring[0], wb_scl[0], pos0),
+            "window_inverse": lambda: fs_mod.window_inverse(w_acc, abt, inv_out[0], 0),
+            "step_mac": lambda: fs_mod.step_mac(ring, scales, rim, 3),
+            "step_reduce": lambda: fs_mod.step_reduce(w_part, dcfix, mdt),
+        }
         for name in stage_calls:  # device ms of the stage within the B3 (B2) call timed above
-            stages[name][storage]["ms"] = (b2_stages if name.startswith("step_") else b3_stages)[name] / 1e3
+            traced = b2_stages if name.startswith("step_") else b3_stages
+            if name in traced:
+                stages[name][storage]["ms"] = traced[name] / 1e3
+            else:  # no trace of the call showed the stage: time it alone with CUDA events
+                stages[name][storage]["ms"] = device_ms(stage_alone[name], 20)
+                stages[name][storage]["ms_from"] = "the stage alone (CUDA events): the traces missed it"
         emit(phase="stage_vs_plain", storage=storage, tol=TOL[storage], blocks=nb, pos0=pos0,
              stages={k: v[storage] for k, v in stages.items() if storage in v}, **card)
         del w_spec, w_x, w_acc, w_part, wb_ring, inv_out
@@ -1221,7 +1983,7 @@ def main() -> int:
             "max_abs_err": d, "rel_err": r, "ms": s_ms, "plain_ms": s_plain, "blocks": nb,
             "us_per_block": 1e3 * s_ms / nb,
             "stages_us": stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt,
-                                                              k_scl, acc_add=seed))}
+                                                              k_scl, acc_add=seed), b3_need)}
         emit(phase="kernel_vs_plain", kernel="fused_stream", acc_add=True, storage=storage, partitions=ph,
              tol=TOL[storage], pos0=pos0, **summary["fused_stream_acc_add"][storage], **card)
 
@@ -1404,7 +2166,7 @@ def main() -> int:
             sp_sum["fused_block_step_sched"][key] = {
                 "max_abs_err": worst[0], "rel_err": worst[1], "max_abs_diff_vs_dense_kernel": vs_dense,
                 "stages_us": stage_us(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl,
-                                                                      sched)),
+                                                                      sched), b2_need + ("sched_widths",)),
                 "ms": cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl, sched), 20),
                 "dense_ms": cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl), 20),
                 "plain_ms": cuda_ms(lambda: fs_mod.fused_block_step_reference(frame, k_ring, rim, 3, dcfix, cs, ab,
@@ -1438,9 +2200,11 @@ def main() -> int:
             tab = fs_mod.sched_widths(sched, b, pcf)
             assert torch.equal(tab, fs_mod.sched_widths_reference(sched, b, pcf)), f"sched_widths {key}"
             b3s_stages = stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt,
-                                                              k_scl, sched))
+                                                              k_scl, sched), b3_need + ("sched_widths",))
+            widths_ms = (b3s_stages["sched_widths"] / 1e3 if "sched_widths" in b3s_stages  # else timed alone
+                         else device_ms(lambda: fs_mod.sched_widths(sched, b, pcf), 20))
             stages["sched_widths"][key] = {
-                "max_abs_err": 0.0, "rel_err": 0.0, "ms": b3s_stages["sched_widths"] / 1e3,
+                "max_abs_err": 0.0, "rel_err": 0.0, "ms": widths_ms,
                 "plain_ms": cuda_ms(lambda: fs_mod.sched_widths_reference(sched, b, pcf), 1),
                 "table": list(tab.shape)}
             sp_sum["fused_stream_sched"][key] = {
@@ -1748,6 +2512,14 @@ def main() -> int:
     kernels.reset_launch_counts()
     surface_sum = run_surface(dev, card)
     read_window("surface", ("fused_stream", *b3_stage_names))
+    torch.cuda.empty_cache()
+
+    # ---- 7i. the distributed engines: D0 (one NCCL rank here), D1 (two
+    # gloo ranks of worker processes on this card), each path's launch
+    # counts read in the rank that ran it and summed over the ranks
+    dist_sum = run_dist(dev, card)
+    for path, counts in dist_sum["windows"].items():
+        read_window(path, DIST_EXPECT[path], counts)
     torch.cuda.empty_cache()
 
     # ---- 7b. probes T1 and T2 against their plain versions, the measurement
@@ -2149,7 +2921,7 @@ def main() -> int:
          engine_times=engine_times, hybrid_stream_latency=stream_lat, chunked=chunked_sum,
          make_engine=make_engine_sum, convolve=convolve_sum, cli=cli_sum["runs"],
          executor={k: executor_sum[k] for k in ("callback_path", "executor_path")}, surface=surface_sum,
-         total_s=time.perf_counter() - t_start, **card)
+         dist=dist_sum["summary"], total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2157,4 +2929,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--dist-worker"]:
+        rank_, world_, port_, outdir_, stage_ = sys.argv[2:7]
+        sys.exit(dist_worker(int(rank_), int(world_), int(port_), outdir_, stage_))
+    sys.exit(main(dist_only="--dist-only" in sys.argv[1:]))

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from neojax_torch import conv, core, fft, io, ops
+from neojax_torch import conv, core, dist, fft, io, ops
 from neojax_torch.core.device import as_tensor
 from neojax_torch.core.units import a_weighting, amplitude_to_db, fast_log2, fast_log10
 
@@ -37,6 +37,7 @@ __all__ = [
     "convolve",
     "conv",
     "core",
+    "dist",
     "fft",
     "io",
     "ops",

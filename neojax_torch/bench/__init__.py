@@ -1,7 +1,7 @@
 """neojax_torch.bench — the measurement harness on the card: timing and
 roofline counters, the headline configuration's bytes and operations, the
-SNR-vs-sparsity quality sweep and the IR spectrum preview. (``neojax``'s
-``bench.scaling`` needs the distributed package and is not ported yet.)"""
+SNR-vs-sparsity quality sweep, the IR spectrum preview and the weak-scaling
+sweep of the channel-sharded engine."""
 
 from neojax_torch.bench.harness import (
     BenchResult,
@@ -16,6 +16,7 @@ from neojax_torch.bench.quality import (
     max_channel_rms_error,
     sparse_quality_sweep,
 )
+from neojax_torch.bench.scaling import ScalingPoint, weak_scaling_sweep
 from neojax_torch.bench.spectrum import db_histogram, power_spectrum_image
 
 __all__ = [
@@ -30,4 +31,6 @@ __all__ = [
     "sparse_quality_sweep",
     "db_histogram",
     "power_spectrum_image",
+    "ScalingPoint",
+    "weak_scaling_sweep",
 ]

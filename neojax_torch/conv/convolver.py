@@ -52,16 +52,20 @@ import torch.nn.functional as F
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv.overlap import stream_blocks, unstream_blocks
 from neojax_torch.conv.sparse import sparsity_mask
-from neojax_torch.core.device import resolve_device
+from neojax_torch.core.device import as_signal, resolve_device
 from neojax_torch.fft import api as fft_api
 from neojax_torch.fft import matmul_backend
 from neojax_torch.kernels.fdl_mac import choose_chunks, fdl_mac
 from neojax_torch.kernels.fused_step import (
     MATRIX_DTYPES,
     MAX_BLOCK,
+    WINDOW,
     fused_block_step,
     fused_chunk_rows,
     fused_stream,
+    quantize_rows,
+    ring_writeback,
+    window_forward,
 )
 from neojax_torch.kernels.sparse_mac import (
     build_chunk_schedule,
@@ -410,6 +414,45 @@ def insert_only_step(config: PartitionedConfig, state: dict, block: torch.Tensor
     return _advance(config, state, update, tail)
 
 
+def warm_ring(config: PartitionedConfig, state: dict, blocks: torch.Tensor) -> dict:
+    """The fused route's ring after P-1 ``insert_only_step`` pushes, in one
+    batched pass: the warmup frames of ``blocks`` [P, C, B] transformed,
+    quantized and written to ring slots 0..P-2 by B3's/B2's own stage
+    kernels (UPOLS: the hop-B frames ``[block j-1 | block j]`` and B3's
+    matrix; UPOLA: the zero-padded blocks 0..P-2 and B2's matrix, taken as
+    the even frames of a zero-interleaved signal), with ``dcny`` from the
+    same float64 frame sums as ``_dcfix_sequence`` / ``_fused_step``. So
+    the ring holds the rows the stream itself would have written. The
+    UPOLS tail and the UPOLA overlap are the caller's."""
+    p, b, n = config.num_partitions, config.block_size, config.transform_size
+    c = blocks.shape[1]
+    planes, scales = state["fdl"] if isinstance(state["fdl"], tuple) else (state["fdl"], None)
+    mdt = MATRIX_DTYPES[planes.dtype]
+    if config.scheme == "upols":
+        x = blocks.permute(1, 0, 2).reshape(c, p * b)  # frame j = [block j-1 | block j]
+        cs, _ = matmul_backend.packed_stream_mats(n, mdt, blocks.device)
+        frames, hop = p - 1, 1
+        f64 = blocks.double()
+        bs, na = f64.sum(-1), (f64 * _alternating(b, blocks.device)).sum(-1)
+        pairs = torch.stack([bs[:-1] + bs[1:], na[:-1] + na[1:]], dim=-1)
+    else:
+        padded = F.pad(blocks[:-1], (0, b))  # [P-1, C, N]
+        x = padded.permute(1, 0, 2).reshape(c, 2 * (p - 1) * b)  # the even frames are the blocks
+        cs, _ = matmul_backend.packed_mats(n, mdt, blocks.device)
+        frames, hop = 2 * (p - 1) - 1, 2
+        f64 = padded.double()
+        pairs = torch.stack([f64.sum(-1), (f64 * _alternating(n, blocks.device)).sum(-1)], dim=-1)
+    for i0 in range(0, frames, WINDOW):
+        wc = min(WINDOW, frames - i0)
+        spec = window_forward(x, cs, i0, wc)[(-i0) % hop :: hop].contiguous()
+        rows, scl = quantize_rows(spec, planes.dtype)
+        ring_writeback(rows, scl, planes, None if scales is None else scales[..., 0], -(-i0 // hop))
+    state = dict(state)
+    state["dcny"][: p - 1] = pairs.to(torch.float32)
+    state["pos"] = (p - 1) % p
+    return state
+
+
 def _alternating(n: int, device) -> torch.Tensor:
     alt = torch.ones(n, dtype=torch.float64, device=device)
     alt[1::2] = -1.0
@@ -600,12 +643,13 @@ def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
 def process(config: PartitionedConfig, params: dict, state: dict, signal: torch.Tensor):
     """Stream a whole signal [C, T] (or [T]) through the convolver.
 
-    Returns (new_state, out); the FDL ring, its scales and ``dcny`` are
-    updated in place."""
+    ``signal`` may be host data (numpy), which is copied to the state's
+    device, or a tensor there. Returns (new_state, out); the FDL ring, its
+    scales and ``dcny`` are updated in place."""
+    signal = as_signal(signal, state["tail"].device)
     squeeze = signal.ndim == 1
     if squeeze:
         signal = signal[None]
-    signal = signal.to(torch.float32)
 
     if (
         config.scheme == "upols"

@@ -46,7 +46,7 @@ from neojax_torch.conv import convolver as cv
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv import nested as nested_lib
 from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host
-from neojax_torch.core.device import resolve_device
+from neojax_torch.core.device import as_signal, resolve_device
 from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels.fdl_mac import fdl_mac
 from neojax_torch.kernels.fused_step import MATRIX_DTYPES, MAX_BLOCK, fused_stream
@@ -291,14 +291,15 @@ def process_hybrid(config: PartitionedConfig, params: dict, state: dict, signal:
     """Stream [C, T] (or [T]) with per-block (B-sample) latency.
 
     T is padded to a multiple of S*B (output trimmed; the returned state
-    reflects the padded stream). Returns (new_state, out); rings, scales
-    and the DC/Nyquist side-carry are updated in place.
+    reflects the padded stream). ``signal`` may be host data, copied to the
+    state's device. Returns (new_state, out); rings, scales and the
+    DC/Nyquist side-carry are updated in place.
     """
     b = config.block_size
     s = params["head_re"].shape[0] // 2
     has_tail = "tail" in params
 
-    signal = torch.as_tensor(signal).to(torch.float32)
+    signal = as_signal(signal, state["btail"].device)
     squeeze = signal.ndim == 1
     if squeeze:
         signal = signal[None]

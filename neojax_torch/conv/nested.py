@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host
-from neojax_torch.core.device import resolve_device
+from neojax_torch.core.device import as_signal, resolve_device
 from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels.nested_mac import nested_mac
 from neojax_torch.ops.quantize import int_max_for
@@ -237,8 +237,9 @@ def process_nested(config: PartitionedConfig, params: dict, state: dict, signal:
     """Process [C, T] (or [T]) through the nested-FDL path, S blocks a step.
 
     T is padded up to a multiple of S*B (output trimmed; the returned state
-    reflects the padded stream). Returns (new_state, out); the meta ring
-    and its scales are updated in place.
+    reflects the padded stream). ``signal`` may be host data, copied to the
+    state's device. Returns (new_state, out); the meta ring and its scales
+    are updated in place.
     """
     b = config.block_size
     n = config.transform_size
@@ -247,7 +248,7 @@ def process_nested(config: PartitionedConfig, params: dict, state: dict, signal:
         raise ValueError(f"chunk_blocks {chunk_blocks} != filter params' {s}")
     fwd_prec, inv_prec = _fft_precisions(config)
 
-    signal = torch.as_tensor(signal).to(torch.float32)
+    signal = as_signal(signal, state["tail"].device)
     squeeze = signal.ndim == 1
     if squeeze:
         signal = signal[None]

@@ -1,5 +1,6 @@
 """Carry params and streaming state between ``neojax`` and this package,
-for the per-block convolver and the nested, hybrid and chunked engines.
+for the per-block convolver, the nested, hybrid and chunked engines and
+the distributed engines of ``dist``.
 
 Both packages use the same dict keys and shapes, so the conversion is a
 dtype/device move plus two layout differences:
@@ -18,6 +19,13 @@ tables and its kernels read them. The tile-live table of the B4 kernel
 Like the other entry points, each ``*_from_neojax`` puts its tensors on the
 card unless given ``device`` (``"cpu"`` for the kernels' plain versions),
 and raises without a card rather than fall back to the CPU.
+
+The distributed engines' ``*_from_neojax`` take ``neojax``'s global
+arrays (as numpy) and the port engine, and return this rank's shard on the
+engine's device: :func:`local_shard` cuts a rank's block by a JAX-style
+spec, the layout ``neojax``'s ``shard_map`` gives it. :func:`gather_shards`
+goes the other way, for tests and checks: every rank's shard, assembled
+into the global array (a collective call).
 
 Inputs are numpy arrays (``np.asarray`` of the JAX arrays). bfloat16 arrays
 may arrive as numpy's ``bfloat16`` extension dtype or as float32 holding
@@ -49,6 +57,14 @@ __all__ = [
     "chunked_params_from_neojax",
     "chunked_state_from_neojax",
     "state_to_numpy",
+    "local_shard",
+    "gather_shards",
+    "pipeline_filter_from_neojax",
+    "pipeline_state_from_neojax",
+    "binsharded_filter_from_neojax",
+    "binsharded_state_from_neojax",
+    "partnested_params_from_neojax",
+    "partnested_state_from_neojax",
 ]
 
 _INT_KEYS = ("pos", "head_pos", "meta_pos", "r")
@@ -195,3 +211,106 @@ def state_to_numpy(state: dict) -> dict:
         else:
             out[key] = _numpy(value)
     return out
+
+
+# ------------------------------------------------------- distributed engines
+
+
+def local_shard(array, mesh, spec) -> np.ndarray:
+    """This rank's block of the global numpy ``array`` by a JAX-style spec,
+    e.g. ``(None, "part", "ch", None)`` (a copy)."""
+    array = np.asarray(array)
+    return np.array(array[mesh.block(spec, array.shape)])
+
+
+def gather_shards(t, mesh, spec) -> np.ndarray:
+    """The global array (numpy) whose blocks by ``spec`` are the ranks'
+    ``t``: every rank of the world calls it and gets the whole array
+    (ranks outside ``mesh`` pass None). A collective call through host
+    memory, for tests and checks only."""
+    import torch.distributed as dist
+
+    local = None if t is None else (_numpy(t) if isinstance(t, torch.Tensor) else np.asarray(t))
+    if not (dist.is_available() and dist.is_initialized()):
+        return local
+    items = [None] * dist.get_world_size()
+    dist.all_gather_object(items, (mesh.coords, local) if mesh.member else None)
+    items = [item for item in items if item is not None]
+    ref = items[0][1]
+    spec = tuple(spec) + (None,) * (ref.ndim - len(spec))
+    shape = []
+    for dim, names in zip(ref.shape, spec):
+        names = () if names is None else (names,) if isinstance(names, str) else tuple(names)
+        shape.append(dim * int(np.prod([mesh.shape[n] for n in names], dtype=int)))
+    out = np.empty(shape, ref.dtype)
+    for coords, arr in items:
+        out[mesh.block(spec, shape, coords)] = arr
+    return out
+
+
+def _planes_to_complex(filt) -> np.ndarray:
+    filt = np.asarray(filt)
+    if np.iscomplexobj(filt):
+        return filt.astype(np.complex64)
+    return (filt[0].astype(np.float32) + 1j * filt[1].astype(np.float32)).astype(np.complex64)
+
+
+def pipeline_filter_from_neojax(pipe, filt_np) -> torch.Tensor:
+    """neojax ``PipelineConvolver.shard_filter`` output (global, as numpy:
+    split planes [2, P, C, K] or complex [P, C, K]) -> this rank's filter
+    of the port's ``PipelineConvolver`` (``pipe``)."""
+    return pipe.shard_filter(_planes_to_complex(filt_np))
+
+
+def _place_numpy(state_np: dict, mesh, specs: dict, dtypes: dict, device) -> dict:
+    out = {}
+    for key, value in state_np.items():
+        if key in _INT_KEYS:
+            out[key] = int(np.asarray(value))
+        else:
+            out[key] = _tensor(local_shard(value, mesh, specs[key]), device, dtypes.get(key, torch.float32))
+    return out
+
+
+def pipeline_state_from_neojax(pipe, state_np: dict) -> dict:
+    """neojax ``PipelineConvolver`` state (global, as numpy) -> this rank's
+    state of ``pipe`` on its device (a plain slice: same layout)."""
+    sdt = fdl_lib.STORAGE_DTYPES[pipe.config.storage]
+    return _place_numpy(state_np, pipe.mesh, pipe._specs(), {"fdl": sdt, "incoming": sdt}, pipe.mesh.device)
+
+
+def binsharded_filter_from_neojax(bc, filt_np) -> torch.Tensor:
+    """neojax ``BinShardedConvolver.shard_filter`` output (global tiled,
+    padded planes [2, 2P, C|1, K_pad], as numpy) -> this rank's filter of
+    the port's ``BinShardedConvolver`` (``bc``)."""
+    filt_np = np.asarray(filt_np, np.float32)
+    spec = (None, None, "ch" if filt_np.shape[2] > 1 else None, "bin")
+    return _tensor(local_shard(filt_np, bc.mesh, spec), bc.mesh.device, torch.float32)
+
+
+def binsharded_state_from_neojax(bc, state_np: dict) -> dict:
+    """neojax ``BinShardedConvolver`` state (global, as numpy) -> this
+    rank's state of ``bc`` on its device."""
+    specs = {"tail": ("ch", None), "fdl": (None, None, "ch", "bin"), "scl": (None, "ch", "bin")}
+    return _place_numpy(state_np, bc.mesh, specs, {"fdl": fdl_lib.STORAGE_DTYPES[bc.config.storage]},
+                        bc.mesh.device)
+
+
+def partnested_params_from_neojax(eng, params_np: dict) -> dict:
+    """neojax ``partnested_filter_params`` output (global tiled
+    [D * 2L, C', K, 2S], as numpy) -> this rank's params of the port's
+    ``PartShardedNested`` (``eng``); bf16 storage keeps a bf16 filter."""
+    dtype = torch.bfloat16 if eng.config.storage == "bf16" else torch.float32
+    out = {}
+    for key, value in params_np.items():
+        spec = ("part", "ch" if np.asarray(value).shape[1] > 1 else None)
+        out[key] = _tensor(local_shard(value, eng.mesh, spec), eng.mesh.device, dtype)
+    return out
+
+
+def partnested_state_from_neojax(eng, state_np: dict) -> dict:
+    """neojax ``partnested_init_state`` / ``PartShardedNested.process``
+    state (global, as numpy) -> this rank's state of ``eng``."""
+    specs = {"tail": ("ch", None), "prev": (None, "ch"), "fdl": (None, "part", "ch"), "scales": ("part", "ch")}
+    dtypes = {"fdl": nested_lib._storage_dtype(eng.config), "prev": nested_lib._prev_dtype(eng.config)}
+    return _place_numpy(state_np, eng.mesh, specs, dtypes, eng.mesh.device)

@@ -17,7 +17,7 @@ import contextlib
 
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "as_tensors", "ieee_float32"]
+__all__ = ["resolve_device", "as_tensor", "as_tensors", "as_signal", "ieee_float32"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,6 +56,19 @@ def as_tensors(*xs, device=None, dtype: torch.dtype | None = None) -> tuple:
     if device is None:
         device = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
     return tuple(as_tensor(x, device, dtype) for x in xs)
+
+
+def as_signal(x, device: torch.device) -> torch.Tensor:
+    """A streaming engine's input signal as float32 on ``device``, the
+    device of the engine's state: host data (numpy, lists) is copied there;
+    a tensor on another device is an error naming both, never copied
+    silently."""
+    device = torch.device(device)
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"signal is on {x.device} but the state is on {device}; move one of them")
+        return x.to(torch.float32)
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def _read(obj, name):

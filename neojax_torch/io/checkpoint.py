@@ -15,8 +15,9 @@ from ``neojax`` is carried into this package's dtypes by
 ``convert.*state_from_neojax``, and this package's state goes the other way
 by ``convert.state_to_numpy``.
 
-``neojax``'s ``*_orbax`` pair (sharded multi-host checkpoints) has its
-counterpart with the distributed engines, on ``torch.distributed.checkpoint``.
+``neojax``'s ``save_state_orbax`` / ``load_state_orbax`` (sharded
+multi-host checkpoints) have their counterpart in :func:`save_state_dcp` /
+:func:`load_state_dcp`, on ``torch.distributed.checkpoint``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from neojax_torch.core.device import resolve_device
 
-__all__ = ["save_state", "load_state"]
+__all__ = ["save_state", "load_state", "save_state_dcp", "load_state_dcp"]
 
 _INT_KEYS = ("pos", "head_pos", "meta_pos", "r")
 _BF16_RECORD = np.dtype("V2")
@@ -43,15 +44,35 @@ def _host(value) -> np.ndarray:
     return np.asarray(value)
 
 
-def _flatten(state: dict) -> dict:
-    flat = {}
+def _items(state: dict):
+    """(name, value) of each leaf: a tuple entry (quantized FDL (planes,
+    scales), chunked hists) as ``key.tuple{i}``."""
     for key, val in state.items():
-        if isinstance(val, tuple):  # quantized FDL (planes, scales), chunked hists
+        if isinstance(val, tuple):
             for i, item in enumerate(val):
-                flat[f"{key}.tuple{i}"] = _host(item)
+                yield f"{key}.tuple{i}", item
         else:
-            flat[key] = _host(val)
-    return flat
+            yield key, val
+
+
+def _flatten(state: dict) -> dict:
+    return {name: _host(val) for name, val in _items(state)}
+
+
+def _regroup(flat: dict) -> dict:
+    """The inverse of :func:`_items`: ``key.tuple{i}`` leaves back into
+    tuples."""
+    state: dict = {}
+    tuples: dict = {}
+    for key, val in flat.items():
+        if ".tuple" in key:
+            base, idx = key.rsplit(".tuple", 1)
+            tuples.setdefault(base, {})[int(idx)] = val
+        else:
+            state[key] = val
+    for base, items in tuples.items():
+        state[base] = tuple(items[i] for i in sorted(items))
+    return state
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -61,19 +82,8 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _unflatten(flat: dict, device) -> dict:
-    state: dict = {}
-    tuples: dict = {}
-    for key, val in flat.items():
-        if ".tuple" in key:
-            base, idx = key.rsplit(".tuple", 1)
-            tuples.setdefault(base, {})[int(idx)] = _tensor(val, device)
-        elif key in _INT_KEYS and val.ndim == 0:
-            state[key] = int(val)
-        else:
-            state[key] = _tensor(val, device)
-    for base, items in tuples.items():
-        state[base] = tuple(items[i] for i in sorted(items))
-    return state
+    return _regroup({key: int(val) if key in _INT_KEYS and val.ndim == 0 else _tensor(val, device)
+                     for key, val in flat.items()})
 
 
 def save_state(path: str, state: dict) -> None:
@@ -87,3 +97,44 @@ def load_state(path: str, device=None) -> dict:
     device = resolve_device(device)
     with np.load(path) as f:
         return _unflatten({k: f[k] for k in f.files}, device)
+
+
+def _dcp_dict(state: dict, rank: int) -> dict:
+    """A state as ``torch.distributed.checkpoint``'s flat dict: the names of
+    :func:`_items` tagged with the rank, so every rank's shard is its own
+    entry; ints stay ints."""
+    return {f"{name}__r{rank}": val for name, val in _items(state)}
+
+
+def _dcp_rank() -> tuple[int, bool]:
+    """(this rank, whether there is no process group)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), False
+    return 0, True
+
+
+def save_state_dcp(path: str, state: dict) -> None:
+    """Checkpoint a stream state with ``torch.distributed.checkpoint`` into
+    the directory ``path`` — the counterpart of ``neojax``'s
+    ``save_state_orbax``. In a process group every rank calls it with its
+    own state shard (a collective call); each rank's entries are keyed by
+    its rank. Works in a single process too."""
+    import torch.distributed.checkpoint as dcp
+
+    rank, no_dist = _dcp_rank()
+    dcp.save(_dcp_dict(state, rank), checkpoint_id=path, no_dist=no_dist)
+
+
+def load_state_dcp(path: str, like: dict) -> dict:
+    """Load this rank's state from :func:`save_state_dcp`'s directory into
+    tensors shaped, typed and placed like ``like`` (e.g. this rank's fresh
+    state) — the counterpart of ``neojax``'s ``load_state_orbax``."""
+    import torch.distributed.checkpoint as dcp
+
+    rank, no_dist = _dcp_rank()
+    flat = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in _dcp_dict(like, rank).items()}
+    dcp.load(flat, checkpoint_id=path, no_dist=no_dist)
+    suffix = f"__r{rank}"
+    return _regroup({name[: -len(suffix)]: val for name, val in flat.items()})

@@ -61,12 +61,19 @@ def _all_finite(tensors) -> bool:
     return all(bool(torch.all(torch.isfinite(t))) for t in tensors if t.numel())
 
 
+# ops that return uninitialized memory: whatever bits they hold (NaN among
+# them) are not a result, so they are not checked
+_UNINITIALIZED = frozenset({"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"})
+
+
 class _FloatChecks(TorchDispatchMode):
     """Raise on the first op whose floating inputs are all finite and whose
     floating outputs are not (a host sync per op)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.overloadpacket.__name__ in _UNINITIALIZED:
+            return func(*args, **kwargs)
         inputs = [t for t in tree_flatten((args, kwargs))[0] if _is_float(t)]
         finite_in = _all_finite(inputs)
         out = func(*args, **kwargs)

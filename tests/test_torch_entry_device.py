@@ -6,6 +6,12 @@ engines follow their params' device (the chunked engine's resolves
 ``device`` like the others when its params hold no tensor: a fully masked
 filter).
 
+The distributed entry points follow the same rule: ``make_mesh`` and the
+engines built on its mesh (``sharded_process``, ``weak_scaling_sweep``)
+put each rank on the card unless given ``device="cpu"``. The streaming
+engines take a numpy signal onto their state's device and refuse a tensor
+that lies on another device (naming both) rather than copy it.
+
 Whether a card is visible is set per test with ``monkeypatch`` on
 ``torch.cuda.is_available``, so these tests mean the same on any machine.
 """
@@ -21,12 +27,14 @@ from neojax_torch import fft as tfft
 from neojax_torch import ops as tops
 from neojax_torch import conv as tconv
 from neojax_torch import convert
-from neojax_torch.bench import quality
+from neojax_torch import dist as tdist
+from neojax_torch.bench import quality, scaling
 from neojax_torch.conv import chunked as tch
 from neojax_torch.conv import convolver as tcv
 from neojax_torch.conv import hybrid as thy
 from neojax_torch.conv import nested as tnested
 from neojax_torch.conv.streaming import streaming_convolve
+from neojax_torch.dist import partnested as tpn
 from neojax_torch.fft import matmul_backend as tmb
 from neojax_torch.core.device import resolve_device
 
@@ -89,6 +97,7 @@ _FUNCTIONS = {
         _cfg(), convert.state_to_numpy(thy.hybrid_init_state(
             _cfg(), thy.hybrid_filter_params(_cfg(), _parts(), 2, device="cpu"))), **kw),
     "chunked_filter_params": lambda **kw: tch.chunked_filter_params(_cfg(), _parts(), 2, **kw),
+    "partnested_filter_params": lambda **kw: tpn.partnested_filter_params(_cfg(), _parts(), 2, 1, **kw),
     # a fully masked filter: no bucket, so no params tensor to follow
     "chunked_init_state": lambda **kw: tch.chunked_init_state(_cfg(), {"buckets": ()}, **kw),
     "chunked_params_from_neojax": lambda **kw: convert.chunked_params_from_neojax(
@@ -252,3 +261,59 @@ def test_stft_and_windows_keep_tensors_where_they_lie(no_card):
     out = tfft.stft(torch.ones(64), 16)
     assert out.device.type == "cpu" and out.shape == (1, 8, 9)
     assert tfft.dct2(torch.ones(8)).device.type == "cpu"
+
+
+# ------------------------------------------------ the distributed entry points
+
+_DIST = {
+    "make_mesh": lambda **kw: tdist.make_mesh(**kw),
+    "Mesh": lambda **kw: tdist.Mesh(("time",), (1,), **kw),
+    "sharded_process": lambda **kw: tdist.sharded_process(
+        _cfg(), tcv.filter_params(_cfg(), _parts(), device="cpu"), tcv.init_state(_cfg(), "cpu"),
+        np.ones((C, 2 * B), np.float32), tdist.make_mesh(**kw)),
+    "weak_scaling_sweep": lambda **kw: scaling.weak_scaling_sweep(
+        channels_per_device=1, block_size=B, num_partitions=P, chunk_blocks=2, seconds=0.002,
+        storage="split", **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DIST))
+def test_dist_without_a_card_raises(no_card, name):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _DIST[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_DIST))
+def test_dist_cpu_on_request_runs(no_card, name):
+    _DIST[name](device="cpu")
+
+
+def _engine_run(engine, signal):
+    cfg = _cfg()
+    if engine == "process":
+        params = tcv.filter_params(cfg, _parts(), device="cpu")
+        return tcv.process(cfg, params, tcv.init_state(cfg, "cpu"), signal)[1]
+    if engine == "process_nested":
+        params = tnested.nested_filter_params(cfg, _parts(), 2, device="cpu")
+        return tnested.process_nested(cfg, params, tnested.nested_init_state(cfg, params), signal)[1]
+    params = thy.hybrid_filter_params(cfg, _parts(), 2, device="cpu")
+    return thy.process_hybrid(cfg, params, thy.hybrid_init_state(cfg, params), signal)[1]
+
+
+_ENGINES = ["process", "process_nested", "process_hybrid"]
+
+
+@pytest.mark.parametrize("engine", _ENGINES)
+def test_engines_take_a_numpy_signal(no_card, engine):
+    """A host (numpy) signal goes to the state's device and gives what the
+    tensor gives there."""
+    sig = np.random.default_rng(3).uniform(-1, 1, (C, 4 * B)).astype(np.float32)
+    out = _engine_run(engine, sig)
+    assert out.device.type == "cpu"
+    assert torch.equal(out, _engine_run(engine, torch.from_numpy(sig)))
+
+
+@pytest.mark.parametrize("engine", _ENGINES)
+def test_engines_refuse_a_signal_on_another_device(no_card, engine):
+    with pytest.raises(ValueError, match="meta.*cpu"):
+        _engine_run(engine, torch.zeros((C, 4 * B), device="meta"))

@@ -277,6 +277,18 @@ def test_checked_wraps_a_convolver_step(make_noise):
     assert out.shape == (1, b) and bool(torch.isfinite(out).all())
 
 
+def test_checked_skips_uninitialized_buffers():
+    """``torch.empty`` returns whatever bits its memory held, NaN among
+    them; that is not an op turning finite inputs into NaN, so ``checked``
+    does not raise on it (memory freed full of NaN is handed out again)."""
+    n = 1 << 16
+    for _ in range(20):
+        x = torch.full((n,), float("nan"))
+        del x
+        out = tdebug.checked(lambda: torch.empty(n).fill_(1.0))()
+        assert bool(torch.all(out == 1.0))
+
+
 def test_x64_parity_within_reference_bound(make_noise):
     """The f32 partitioned convolver stays within the reference's 1e-5 bound
     of its own f64 evaluation (``tests/test_observability.py``)."""
@@ -459,19 +471,28 @@ def test_packed_rfft_odd_size_rejected():
 # ------------------------------------------------------------- namespaces
 
 
+# neojax.io's orbax pair and its counterpart on torch.distributed.checkpoint
+_ORBAX = {"save_state_orbax": "save_state_dcp", "load_state_orbax": "load_state_dcp"}
+
+
 def test_namespaces_export_what_neojax_exports():
-    """``fft``, ``core``, ``ops`` and ``io`` export ``neojax``'s names (the
-    orbax pair waits for the distributed engines); ``fft`` leaves out the
+    """``fft``, ``core``, ``ops``, ``io`` and ``dist`` export ``neojax``'s
+    names (``io``'s orbax pair as its ``torch.distributed.checkpoint``
+    counterpart), ``bench`` the weak-scaling sweep; ``fft`` leaves out the
     four-step route, which ``neojax.fft`` does not export either."""
+    import neojax_torch.bench
+
     assert set(jfft.__all__) <= set(tfft.__all__)
     assert set(jcore.__all__) <= set(tcore.__all__)
     assert set(jops.__all__) <= set(tops.__all__)
-    assert set(neojax.io.__all__) - {"save_state_orbax", "load_state_orbax"} <= set(neojax_torch.io.__all__)
+    assert {_ORBAX.get(n, n) for n in neojax.io.__all__} <= set(neojax_torch.io.__all__)
+    assert set(neojax.dist.__all__) <= set(neojax_torch.dist.__all__)
+    assert {"ScalingPoint", "weak_scaling_sweep"} <= set(neojax_torch.bench.__all__)
     assert "four_step" not in tfft.__all__
-    for mod in (tfft, tcore, tops, neojax_torch.io):
+    for mod in (tfft, tcore, tops, neojax_torch.io, neojax_torch.dist, neojax_torch.bench):
         for name in mod.__all__:
             assert hasattr(mod, name), f"{mod.__name__}.{name}"
-    assert set(neojax.__all__) - {"dist", "kernels"} <= set(neojax_torch.__all__)
+    assert set(neojax.__all__) - {"kernels"} <= set(neojax_torch.__all__)
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "examples/realtime_stream_torch.py"])
