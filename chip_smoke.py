@@ -141,7 +141,10 @@ Phases, each printing one JSON object per line:
      that fails or a world past 90 s fails the phase. ``--dist-only`` runs
      phases 1-2 and this one alone (no kernels line, no ok line).
   7b. probes: T1 (``probe_ring_read``, bf16 and split) at the
-     [2, 960, 64, 512] ring, both outputs, and T2 (``probe_stream``, its
+     [2, 960, 64, 512] ring, the non-packed [2, 960, 64, 513] one (one
+     lane a thread) and the hybrid head's [2, 64, 64, 513] (one split),
+     both outputs, each with its grid (which must be B1's on the same
+     operands) and its time beside B1's on the same ring, and T2 (``probe_stream``, its
      three modes, f32 and bf16 matrices) over 64 blocks, each against its
      plain version; then the measurement path (the tools' own row
      functions, ``neojax_torch.tools.roofline_cal`` / ``fused_probe``, at
@@ -252,8 +255,8 @@ def snr_db(out: np.ndarray, ref: np.ndarray) -> float:
 
 def mac_ptxas(log_path: str) -> list[dict]:
     """Registers and spill bytes of each instance of the partition MAC
-    (``step_mac_kernel``, ``step_reduce_kernel``) in the nvcc log, by
-    translation unit."""
+    (``step_mac_kernel``, ``step_reduce_kernel``; in ``probes.cu`` T1's
+    probe mode) in the nvcc log, by translation unit."""
     out, cur = [], None
     if not os.path.exists(log_path):
         return out
@@ -265,8 +268,8 @@ def mac_ptxas(log_path: str) -> list[dict]:
                 hit = re.search(r"(step_(?:mac|reduce)_kernel\w*?)(?:EEEv|EEvP)", name)
                 cur = None
                 if hit:
-                    cur = {"unit": "fdl_mac.cu" if "fdl_mac_cu" in name else "fused_step.cu",
-                           "kernel": hit.group(1)}
+                    unit = next((u for u in ("fdl_mac", "probes") if f"{u}_cu" in name), "fused_step")
+                    cur = {"unit": f"{unit}.cu", "kernel": hit.group(1)}
                     out.append(cur)
             elif cur is not None:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -338,6 +341,56 @@ def trace_events(fn) -> list[dict]:
 def snr_window(a, start: int) -> np.ndarray:
     """The steady-state SNR window: SNR_BLOCKS blocks of SNR_CH channels."""
     return np.asarray(a[:SNR_CH, start * BLOCK : (start + SNR_BLOCKS) * BLOCK], np.float64)
+
+
+def run_ring_read(dev, card, rng, cuda_ms, device_ms, bound_of) -> dict:
+    """7b, T1 on B1's grid: the headline ring [2, P, C, B], the non-packed
+    one (K = B + 1, one lane a thread) and the hybrid head's (P = S_HYBRID,
+    one split), split and bf16. Each row holds both outputs against the
+    plain version at TOL, asserts that T1's grid is B1's on the same
+    operands, and times T1 beside B1 on the same ring and filter plane (the
+    ratio is printed, not gated). Keys: the storage for the headline rows,
+    ``<storage>/<shape>`` for the others."""
+    import torch
+    from neojax_torch.bench import headline
+    from neojax_torch.conv import convolver as cv
+    from neojax_torch.kernels import fdl_mac as mac_mod
+    from neojax_torch.kernels import probes as pr_mod
+
+    c, b = CHANNELS, BLOCK
+    out = {}
+    for shape, p_t, k_t in (("headline", P, b), ("k513", P, b + 1), ("head", S_HYBRID, b + 1)):
+        for storage in ("split", "bf16"):
+            sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
+            ring = torch.from_numpy((10 * rng.standard_normal((2, p_t, c, k_t))).astype(np.float32)).to(dev, sdt)
+            tiled = torch.from_numpy((0.05 * rng.standard_normal((2 * p_t, k_t))).astype(np.float32)).to(dev)
+            fr = tiled[p_t - 8 : 2 * p_t - 8]  # the rotated filter of ring position 7
+            fr1 = fr[:, None]
+            _, pc = mac_mod.choose_chunks(sdt, p_t, c, k_t)
+            geo = pr_mod.ring_read_geometry(ring, fr)
+            assert geo == mac_mod.mac_geometry(ring, fr1, fr1), f"T1 {geo} is not B1's grid"
+            got = pr_mod.probe_ring_read(ring, fr, pc)
+            want = pr_mod.probe_ring_read_reference(ring, fr, pc)
+            torch.cuda.synchronize()
+            errs = [rel_err(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+            for (_, r), out_name in zip(errs, ("out0", "out1")):
+                assert r < TOL[storage], f"probe_ring_read {storage} {shape} {out_name}: rel err {r}"
+            row = {"max_abs_err": max(e[0] for e in errs), "rel_err": max(e[1] for e in errs), "p_chunk": pc,
+                   "splits": geo[0], "per": geo[1], "vec": geo[2],
+                   "ms": cuda_ms(lambda: pr_mod.probe_ring_read(ring, fr, pc), 20),
+                   "device_ms": device_ms(lambda: pr_mod.probe_ring_read(ring, fr, pc), 20),
+                   "plain_ms": cuda_ms(lambda: pr_mod.probe_ring_read_reference(ring, fr, pc), 3),
+                   "fdl_mac_ms_same_shape": cuda_ms(lambda: mac_mod.fdl_mac(ring, fr1, fr1), 20),
+                   "fdl_mac_device_ms_same_shape": device_ms(lambda: mac_mod.fdl_mac(ring, fr1, fr1), 20)}
+            row.update(vs_fdl_mac=row["ms"] / row["fdl_mac_ms_same_shape"],
+                       device_vs_fdl_mac=row["device_ms"] / row["fdl_mac_device_ms_same_shape"],
+                       **bound_of(headline.ring_read_work(storage, p_t, c, k_t, pc), row["ms"]))
+            out[storage if shape == "headline" else f"{storage}/{shape}"] = row
+            emit(phase="probes", kernel="probe_ring_read", storage=storage, shape=shape, ring=list(ring.shape),
+                 tol=TOL[storage], **row, **card)
+            del ring, tiled, fr, fr1, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_chunked(dev, card, parts, sig2, oracle2, sig, masked_oracle, mask_perc30, cuda_ms, peaks) -> dict:
@@ -2525,28 +2578,7 @@ def main(dist_only: bool = False) -> int:
     # ---- 7b. probes T1 and T2 against their plain versions, the measurement
     # path in its own launch window, a profiler trace, and every kernel's bound
     emit(phase="probes", peaks={"hbm_bytes_per_s": peak_b, "f32_flops_per_s": peak_f, "note": no_peaks})
-    probe_sum = {"probe_ring_read": {}, "probe_stream": {}}
-    for storage in ("split", "bf16"):
-        sdt = cv.fdl_lib.STORAGE_DTYPES[storage]
-        ring = torch.from_numpy((10 * rng.standard_normal((2, P, c, b))).astype(np.float32)).to(dev, sdt)
-        tiled = torch.from_numpy((0.05 * rng.standard_normal((2 * P, b))).astype(np.float32)).to(dev)
-        fr = tiled[P - 8 : 2 * P - 8]  # the rotated filter of ring position 7
-        _, pc = mac_mod.choose_chunks(sdt, P, c, b)
-        got = pr_mod.probe_ring_read(ring, fr, pc)
-        want = pr_mod.probe_ring_read_reference(ring, fr, pc)
-        torch.cuda.synchronize()
-        errs = [rel_err(g.cpu(), w.cpu()) for g, w in zip(got, want)]
-        for (_, r), out_name in zip(errs, ("out0", "out1")):
-            assert r < TOL[storage], f"probe_ring_read {storage} {out_name}: rel err {r}"
-        fr1 = fr[:, None]
-        row = {"max_abs_err": max(e[0] for e in errs), "rel_err": max(e[1] for e in errs), "p_chunk": pc,
-               "ms": cuda_ms(lambda: pr_mod.probe_ring_read(ring, fr, pc), 20),
-               "plain_ms": cuda_ms(lambda: pr_mod.probe_ring_read_reference(ring, fr, pc), 3),
-               "fdl_mac_ms_same_shape": cuda_ms(lambda: mac_mod.fdl_mac(ring, fr1, fr1), 20)}
-        probe_sum["probe_ring_read"][storage] = row
-        emit(phase="probes", kernel="probe_ring_read", storage=storage, ring=list(ring.shape),
-             tol=TOL[storage], **row, **card)
-        del ring, got, want
+    probe_sum = {"probe_ring_read": run_ring_read(dev, card, rng, cuda_ms, device_ms, bound_of), "probe_stream": {}}
     nb = 64
     sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(dev)
     for mname, mdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -2576,8 +2608,7 @@ def main(dist_only: bool = False) -> int:
     short = (64, 256)
     meas = {}
     for storage in ("split", "bf16"):
-        meas[f"dma_only/{storage}"] = roofline_cal.dma_only_row(storage, short)
-        meas[f"mac_kernel/{storage}"] = roofline_cal.mac_kernel_row(storage, short)
+        meas.update(roofline_cal.ring_rows(storage, short))
     for mode, mats in (("empty", ("float32",)), ("win_fwd", ("float32", "bfloat16")),
                        ("win_fwd_inv", ("float32", "bfloat16"))):
         for mat in mats:
@@ -2905,6 +2936,10 @@ def main(dist_only: bool = False) -> int:
     for row in rows:
         if row["name"] == "probe_stream":
             row.update(mode="win_fwd_inv, f32 matrices", replaces_also="tools/fused_probe.py:65")
+        if row["name"] == "probe_ring_read":  # T1: step_mac.cuh's probe mode on B1's grid
+            t1 = heads["probe_ring_read"]
+            row.update(kernel_body="neojax_torch/csrc/step_mac.cuh", splits=t1["splits"], vec=t1["vec"],
+                       vs_fdl_mac=t1["vs_fdl_mac"], device_ms=t1["device_ms"])
         if row["name"] in ("fdl_mac", "sparse_fdl_mac"):  # B1/B4 run the partition MAC of step_mac.cuh
             other = "fdl_mac/hybrid_head" if row["name"] == "fdl_mac" else "sparse_fdl_mac/k513"
             row.update(kernel_body="neojax_torch/csrc/step_mac.cuh",

@@ -1,10 +1,8 @@
 // Measurement probes T1 and T2: B1's ring read and B3's partial pipelines.
 //
-// T1 neo_probe_ring_read replaces tools/roofline_cal.py :: dma_only (Pallas
-// body _stripped): B1's read of the ring with its compute stripped. It runs
-// on B1's grid ((K / 128) k-tiles x C channels, one thread per lane, the P
-// loop in registers), so its time is B1's read time. It loads every
-// element of both planes of all P rows:
+// T1 neo_probe_ring_read replaces tools/roofline_cal.py :: dma_only (line
+// 143; Pallas body _stripped): B1's read of the ring with its compute
+// stripped. It loads every element of both planes of all P rows:
 //
 //   out0[c, k] = sum_j fdl[0, j*pc, c, k] * fr[j*pc, k]     (j < P / pc)
 //   out1[c, k] = sum of every other loaded element of (c, k): all of
@@ -12,7 +10,15 @@
 //
 // out0 is the TPU probe's function at choose_chunks' geometry (pc rows a
 // chunk); out1 keeps the compiler from eliding a load and lets both be
-// checked. Bound: bytes (the ring, 252 MB f32 at [2, 960, 64, 512]).
+// checked. Its grid is B1's by construction: it is step_mac.cuh's
+// partition MAC in its kProbe mode, at the (S splits, slots a split, V
+// lanes a thread) that kernels.fdl_mac.mac_geometry gives B1 on the same
+// ring and filter (kernels/probes.py :: ring_read_geometry): the same
+// (lane tile, channel, P split) grid and CTAs, the same vector loads of the
+// ring, and with S > 1 the splits' partial (out0, out1) added in split
+// order by step_reduce_kernel (no atomics). Bound: bytes, the ring read
+// once (252.0 MB split, 126.1 MB bf16 at [2, 960, 64, 512]: 0.0752 /
+// 0.0377 ms at 3.35 TB/s, bench.headline.ring_read_work).
 //
 // T2 replaces tools/fused_probe.py :: run_empty (body k_empty) and run_tf
 // (body k_tf): B3's partial pipelines. Since B3 runs as stage kernels
@@ -21,35 +27,22 @@
 // product followed by neo_probe_fold's fold, "win_fwd_inv" is the forward
 // and then B3's inverse product; "empty" is neo_probe_fold's zero fill of
 // the output, the floor of one launch.
-#include "common.cuh"
+#include "step_mac.cuh"
 
 namespace {
 
 using namespace neo;
 
-constexpr int kReadThreads = 128;  // B1's CTA width (fdl_mac.cu)
-
 template <typename T>
-__global__ void __launch_bounds__(kReadThreads) ring_read_kernel(
-    const T* __restrict__ fdl, const float* __restrict__ fr, float* __restrict__ out0,
-    float* __restrict__ out1, int P, int C, int K, int pc) {
-  const int k = blockIdx.x * kReadThreads + threadIdx.x;
-  const int c = blockIdx.y;
-  if (k >= K) return;
-  const size_t row = static_cast<size_t>(C) * K;
-  const size_t plane = static_cast<size_t>(P) * row;
-  const T* xr = fdl + static_cast<size_t>(c) * K + k;
-  const T* xi = xr + plane;
-  const float* f = fr + k;
-  float a0 = 0.0f, a1 = 0.0f;
-  for (int p0 = 0; p0 < P; p0 += pc) {
-    a0 += to_f32(xr[p0 * row]) * f[static_cast<size_t>(p0) * K];
-    a1 += to_f32(xi[p0 * row]);
-#pragma unroll 4
-    for (int p = p0 + 1; p < p0 + pc; ++p) a1 += to_f32(xr[p * row]) + to_f32(xi[p * row]);
-  }
-  out0[static_cast<size_t>(c) * K + k] = a0;
-  out1[static_cast<size_t>(c) * K + k] = a1;
+int ring_read(const void* fdl, const void* fr, void* out, void* part, int P, int C, int K, int pc, int S,
+              int per, int vec, cudaStream_t st) {
+  const float* f = static_cast<const float*>(fr);
+  const StepArgs<T, float> g{static_cast<const T*>(fdl), nullptr, f, f, K, 0, nullptr, nullptr,
+                             static_cast<float*>(S == 1 ? out : part), P, C, K, pc, per, 1, 1};
+  int err = launch_step_mac<T, float, kProbe>(g, S, vec, st);
+  if (!err && S > 1)
+    err = launch_step_reduce<float>(part, nullptr, out, S, C, K, K, static_cast<long long>(C) * K, st);
+  return err;
 }
 
 constexpr int kFoldThreads = 256;
@@ -76,28 +69,21 @@ __global__ void __launch_bounds__(kFoldThreads) fold_kernel(const float* __restr
 
 }  // namespace
 
-// storage: 0 split (f32 ring) or 1 bf16; fr [P, K] f32; pc divides P.
-extern "C" int neo_probe_ring_read(int storage, const void* fdl, const void* fr, void* out0,
-                                   void* out1, int P, int C, int K, int pc, void* stream) {
-  if (P < 1 || C < 1 || K < 1 || C > 65535 || pc < 1 || P % pc)
+// out [2, C, K] f32 (out0, out1) of fdl [2, P, C, K] (storage 0 split: f32,
+// 1 bf16) and fr [P, K] f32; pc divides P; S splits of per slots (part
+// [S, 2, C, K] f32 when S > 1, else null); vec lanes a thread (1 or 4,
+// K % vec == 0, ring and fr aligned to vec elements).
+extern "C" int neo_probe_ring_read(int storage, const void* fdl, const void* fr, void* out, void* part,
+                                   int P, int C, int K, int pc, int S, int per, int vec, void* stream) {
+  if (P < 1 || C < 1 || K < 1 || C > 65535 || pc < 1 || P % pc || S < 1 || S > 65535 || per < 1 ||
+      static_cast<long long>(S) * per < P || (S > 1) != (part != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((K + kReadThreads - 1) / kReadThreads, C);
   switch (storage) {
-    case kSplit:
-      ring_read_kernel<float><<<grid, kReadThreads, 0, s>>>(
-          static_cast<const float*>(fdl), static_cast<const float*>(fr),
-          static_cast<float*>(out0), static_cast<float*>(out1), P, C, K, pc);
-      break;
-    case kBf16:
-      ring_read_kernel<__nv_bfloat16><<<grid, kReadThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(fdl), static_cast<const float*>(fr),
-          static_cast<float*>(out0), static_cast<float*>(out1), P, C, K, pc);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kSplit: return ring_read<float>(fdl, fr, out, part, P, C, K, pc, S, per, vec, s);
+    case kBf16: return ring_read<__nv_bfloat16>(fdl, fr, out, part, P, C, K, pc, S, per, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // mode 0: zero out [C, nb * B]; mode 1: fold spec [wc, C, 2B] into blocks

@@ -1,6 +1,7 @@
 // The one-block partition MAC shared by B1 (fdl_mac.cu: the unfused MAC and
-// its tile-sparse form B4) and B2 (fused_step.cu: step_mac), and the
-// fixed-order reduce of its P splits:
+// its tile-sparse form B4) and B2 (fused_step.cu: step_mac), the fixed-order
+// reduce of its P splits, and the probe T1 (probes.cu: the MAC's read with
+// the compute stripped, kProbe below):
 //
 //   part[s, c, k] = sum over the slots p of split s of
 //                   ring[p, c, k] * filt[p, c', k]            (complex)
@@ -38,6 +39,13 @@
 // term is an exact zero of the dense sum (the masked filter is zero there),
 // in the dense summation order: a scheduled MAC equals the dense one on the
 // masked filter bit for bit, apart from the sign of zero.
+//
+// kProbe (T1, probes.cu) is the MAC's read with its arithmetic stripped, on
+// the same grid, index math and loads: a thread reads its split's slots of
+// the ring as mac_slots does and, per chunk of pc slots, the filter's re
+// row at the chunk's head (p % pc == 0) only; re += x_re * f_re at a head,
+// im += x_im there and x_re + x_im at every other slot. A head may fall
+// anywhere in a split, so the loop walks the chunks a split touches.
 #pragma once
 
 #include "common.cuh"
@@ -64,7 +72,7 @@ struct alignas(sizeof(E) * V) Pack {
 constexpr int kStepThreads = 128;  // threads of a CTA (lanes of one channel, or rows of channels)
 constexpr int kReduceThreads = 256;
 
-enum StepSched : int { kDense = 0, kWidths = 1, kTiles = 2 };
+enum StepSched : int { kDense = 0, kWidths = 1, kTiles = 2, kProbe = 3 };
 
 template <typename T, typename M>
 struct StepArgs {
@@ -84,6 +92,12 @@ __device__ __forceinline__ unsigned low_bits(int n) {
   return n <= 0 ? 0u : n >= 32 ? ~0u : (1u << n) - 1u;
 }
 
+// the V elements at e, one vector load (e aligned to V elements)
+template <typename E, int V>
+__device__ __forceinline__ Pack<E, V> load_pack(const E* e) {
+  return *reinterpret_cast<const Pack<E, V>*>(e);
+}
+
 // slots [a, b) into the V accumulators of lanes k0.. of channel c;
 // kMasked: only the lanes whose bit is set in live
 template <typename T, typename M, int V, bool kMasked>
@@ -96,10 +110,10 @@ __device__ __forceinline__ void mac_slots(float (&ar)[V], float (&ai)[V], const 
   const size_t plane = static_cast<size_t>(g.P) * row;
 #pragma unroll(V >= 16 ? 2 : 4)
   for (int p = a; p < b; ++p) {
-    const Pack<T, V> xr = *reinterpret_cast<const Pack<T, V>*>(xbase + p * row);
-    const Pack<T, V> xi = *reinterpret_cast<const Pack<T, V>*>(xbase + p * row + plane);
-    const Pack<M, V> fr = *reinterpret_cast<const Pack<M, V>*>(fbase_re + p * g.f_row);
-    const Pack<M, V> fi = *reinterpret_cast<const Pack<M, V>*>(fbase_im + p * g.f_row);
+    const Pack<T, V> xr = load_pack<T, V>(xbase + p * row);
+    const Pack<T, V> xi = load_pack<T, V>(xbase + p * row + plane);
+    const Pack<M, V> fr = load_pack<M, V>(fbase_re + p * g.f_row);
+    const Pack<M, V> fi = load_pack<M, V>(fbase_im + p * g.f_row);
     const float s = kQuant ? sbase[static_cast<size_t>(p) * g.C] * kInvMax : 1.0f;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -110,6 +124,37 @@ __device__ __forceinline__ void mac_slots(float (&ar)[V], float (&ai)[V], const 
         i *= s;
       }
       cmac(ar[v], ai[v], r, i, to_f32(fr.v[v]), to_f32(fi.v[v]));
+    }
+  }
+}
+
+// kProbe: slots [a, b) read as mac_slots reads them, the compute stripped
+// (header); the filter's re row is loaded at the chunk heads only
+template <typename T, typename M, int V>
+__device__ __forceinline__ void probe_slots(float (&ar)[V], float (&ai)[V], const StepArgs<T, M>& g,
+                                            const T* xbase, const M* fbase_re, int a, int b) {
+  const size_t row = static_cast<size_t>(g.C) * g.K;
+  const size_t plane = static_cast<size_t>(g.P) * row;
+  for (int ch = a / g.pc; ch * g.pc < b; ++ch) {
+    int lo = max(a, ch * g.pc);
+    const int hi = min(b, (ch + 1) * g.pc);
+    if (lo == ch * g.pc) {  // the chunk's head lies in this split
+      const Pack<T, V> xr = load_pack<T, V>(xbase + lo * row);
+      const Pack<T, V> xi = load_pack<T, V>(xbase + lo * row + plane);
+      const Pack<M, V> fr = load_pack<M, V>(fbase_re + lo * g.f_row);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        ar[v] = fmaf(to_f32(xr.v[v]), to_f32(fr.v[v]), ar[v]);
+        ai[v] += to_f32(xi.v[v]);
+      }
+      ++lo;
+    }
+#pragma unroll(V >= 16 ? 2 : 4)
+    for (int p = lo; p < hi; ++p) {
+      const Pack<T, V> xr = load_pack<T, V>(xbase + p * row);
+      const Pack<T, V> xi = load_pack<T, V>(xbase + p * row + plane);
+#pragma unroll
+      for (int v = 0; v < V; ++v) ai[v] += to_f32(xr.v[v]) + to_f32(xi.v[v]);
     }
   }
 }
@@ -130,7 +175,9 @@ __global__ void __launch_bounds__(kStepThreads) step_mac_kernel(StepArgs<T, M> g
   float ar[V], ai[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) ar[v] = ai[v] = 0.0f;
-  if (kSched == kDense) {
+  if constexpr (kSched == kProbe) {
+    probe_slots<T, M, V>(ar, ai, g, xbase, fre, p_beg, p_end);
+  } else if (kSched == kDense) {
     mac_slots<T, M, V, false>(ar, ai, g, xbase, fre, fim, sbase, p_beg, p_end, kAll);
   } else {
     for (int ch = p_beg / g.pc; ch * g.pc < p_end; ++ch) {

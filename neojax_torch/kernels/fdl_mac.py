@@ -107,8 +107,9 @@ def _aligned(fdl, filt_re, filt_im, vec: int) -> bool:
 
 def mac_geometry(fdl, filt_re, filt_im, k_tile: int | None = None) -> tuple[int, int, int]:
     """(splits S, slots a split, lanes a thread V) of B1/B4 on these
-    operands: :func:`step_geometry` at 4-lane loads, V = 1 where a pointer
-    is not aligned to V elements or V does not divide B4's ``k_tile``."""
+    operands, and of the probe T1 (``probes.ring_read_geometry``):
+    :func:`step_geometry` at 4-lane loads, V = 1 where a pointer is not
+    aligned to V elements or V does not divide B4's ``k_tile``."""
     _, p, c, k = fdl.shape
     s_n, per, vec = step_geometry(p, c, k, _MAC_VEC_BYTES, _MIN_SPLIT, _MAC_CTAS)
     if vec > 1 and (not _aligned(fdl, filt_re, filt_im, vec) or (k_tile or vec) % vec):

@@ -1,16 +1,22 @@
 """Measurement probes T1 and T2 (``csrc/probes.cu``): B1's ring read and
 B3's partial pipelines, each beside its plain PyTorch version.
 
-T1 :func:`probe_ring_read` replaces ``tools/roofline_cal.py`` · ``dma_only``
-(Pallas body ``_stripped``): B1's read of the ring with the compute
-stripped, on B1's grid and thread-per-lane mapping, so that its time is
-B1's read time. It loads every element of both planes:
+T1 :func:`probe_ring_read` replaces ``tools/roofline_cal.py:143`` ·
+``dma_only`` (Pallas body ``_stripped``): B1's read of the ring with the
+compute stripped. It loads every element of both planes:
 
     out0[c, k] = sum_j fdl[0, j*pc, c, k] * fr[j*pc, k]      (j < P / pc)
     out1[c, k] = the sum of every other loaded element of (c, k)
 
 ``out0`` is the TPU probe's function at ``choose_chunks``' geometry; ``out1``
-keeps every load alive and checkable. Storages: split (f32) and bf16.
+keeps every load alive and checkable. Storages: split (f32) and bf16. Its
+grid is B1's by construction: the kernel is B1's partition MAC
+(``csrc/step_mac.cuh``) in its probe mode, at the geometry
+:func:`ring_read_geometry` takes from ``fdl_mac.mac_geometry`` on the same
+operands (S splits of the P slots, V lanes a thread, the splits' partial
+sums added in split order), so its time is B1's read time. Bound: bytes,
+the ring read once (``bench.headline.ring_read_work``: 252.0 MB split and
+126.1 MB bf16 at [2, 960, 64, 512], 0.0752 and 0.0377 ms at 3.35 TB/s).
 
 T2 :func:`probe_stream` replaces ``tools/fused_probe.py`` · ``run_empty``
 (body ``k_empty``) and ``run_tf`` (body ``k_tf``): B3's own stage kernels
@@ -37,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from neojax_torch.kernels import _build
-from neojax_torch.kernels.fdl_mac import STORAGE_CODES
+from neojax_torch.kernels.fdl_mac import STORAGE_CODES, mac_geometry
 from neojax_torch.kernels import fused_step as fs
 from neojax_torch.kernels.fused_step import MAX_BLOCK
 
@@ -47,6 +53,7 @@ __all__ = [
     "probe_ring_read_reference",
     "probe_stream",
     "probe_stream_reference",
+    "ring_read_geometry",
 ]
 
 PROBE_MODES = {"empty": 0, "win_fwd": 1, "win_fwd_inv": 2}
@@ -76,13 +83,21 @@ def probe_ring_read_reference(fdl, fr, pc: int):
     return out0.float(), out1.float()
 
 
+def ring_read_geometry(fdl, fr) -> tuple[int, int, int]:
+    """(splits S, slots a split, lanes a thread V) of T1 on these operands:
+    B1's (``fdl_mac.mac_geometry``) on the same ring with ``fr`` as its
+    filter planes."""
+    return mac_geometry(fdl, fr, fr)
+
+
 def probe_ring_read(fdl, fr, pc: int):
     """T1: read the whole ring [2, P, C, K] on B1's grid.
 
     fdl : [2, P, C, K] f32 or bf16
     fr  : [P, K] f32 (a rotated filter plane; only the chunk heads are read)
     pc  : rows a chunk (``fdl_mac.choose_chunks``), dividing P
-    returns (out0, out1), each [C, K] f32 (module docstring)
+    returns (out0, out1), each [C, K] f32 (module docstring); on the card
+    the two planes of one [2, C, K] result
     """
     pc = int(pc)
     _check_ring_read(fdl, fr, pc)
@@ -91,15 +106,16 @@ def probe_ring_read(fdl, fr, pc: int):
     if fdl.device.type != "cuda":
         raise ValueError(f"probe_ring_read: unsupported device {fdl.device}")
     _, p, c, k = fdl.shape
-    out0 = torch.empty((c, k), dtype=torch.float32, device=fdl.device)
-    out1 = torch.empty((c, k), dtype=torch.float32, device=fdl.device)
+    s_n, per, vec = ring_read_geometry(fdl, fr)
+    out = torch.empty((2, c, k), dtype=torch.float32, device=fdl.device)
+    part = torch.empty((s_n, 2, c, k), dtype=torch.float32, device=fdl.device) if s_n > 1 else None
     code = _build.load().neo_probe_ring_read(
-        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), fr.data_ptr(), out0.data_ptr(), out1.data_ptr(),
-        p, c, k, pc, _build.stream_of(fdl),
+        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), fr.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(), p, c, k, pc, s_n, per, vec, _build.stream_of(fdl),
     )
     _build.check(code, "probe_ring_read")
     probe_ring_read.launches += 1
-    return out0, out1
+    return out[0], out[1]
 
 
 probe_ring_read.launches = 0

@@ -12,12 +12,17 @@ in turns (A, B, B, A), each in its own process:
 
 It imports ``neojax_torch`` from ``--tree`` (run it as a file, not with
 ``-m``, so that nothing of the package is imported before). Each row is
-one JSON line: ``dev_us``, the median over five calls of the summed device
-time of the call's kernels (``bench.profile.kernel_timeline``); ``host_us``,
+one JSON line: ``out_sha``, a digest of the bytes of the first call's
+outputs (the inputs are drawn alike in every tree, so two trees whose
+kernels sum alike print the same digest); ``dev_us``, the median over five
+calls of the summed device time of the call's kernels
+(``bench.profile.kernel_timeline``); ``host_us``,
 the median host time of one call from an idle card to its return (the
 enqueue, not the kernel); ``loop_us``, the wall time a call of 200 back to
 back (the larger of host and device time, as a loop of calls sees it);
-and the card's name and power limit. A last row times the hybrid engine
+and the card's name and power limit. The probe T1 (``probe_ring_read``)
+is timed on the same rings as B1 (headline split and bf16, K = 513, the
+hybrid head), each row beside B1's. A last row times the hybrid engine
 with its unfused head (bf16: one B1 call a block) in µs a block.
 Without a card it exits non-zero.
 
@@ -31,6 +36,7 @@ at least 32 slots instead of 64).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -59,7 +65,7 @@ def main(argv=None) -> int:
         return 2
     from neojax_torch.bench import profile
     from neojax_torch.fft import matmul_backend as mb
-    from neojax_torch.kernels import _build, fdl_mac as mac, fused_step as fs, sparse_mac as sm
+    from neojax_torch.kernels import _build, fdl_mac as mac, fused_step as fs, probes as pr, sparse_mac as sm
 
     _build.load()
     dev = torch.device("cuda")
@@ -101,9 +107,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return 1e6 * (time.perf_counter() - t0) / n
 
+    def sha(outs):
+        h = hashlib.sha256()
+        for t in outs if isinstance(outs, (tuple, list)) else (outs,):
+            if isinstance(t, torch.Tensor):
+                h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     def emit(kernel, fn, **kw):
-        row = {"tree": args.label, "kernel": kernel, **kw, "dev_us": dev_us(fn), "host_us": host_us(fn),
-               "loop_us": loop_us(fn), "card": card}
+        first = sha(fn())
+        row = {"tree": args.label, "kernel": kernel, **kw, "out_sha": first, "dev_us": dev_us(fn),
+               "host_us": host_us(fn), "loop_us": loop_us(fn), "card": card}
         line = json.dumps(row)
         print(line, flush=True)
         if out:
@@ -117,6 +131,12 @@ def main(argv=None) -> int:
                 fr, fi = tiled[0, p - 8 : 2 * p - 8], tiled[1, p - 8 : 2 * p - 8]  # ring position 7
                 emit("fdl_mac", lambda: mac.fdl_mac(ring, fr, fi, scales), ring=[p, c, k], storage=storage, cf=cf,
                      **tag)
+                if storage in ("split", "bf16") and cf == 1 and not tag:  # T1 on B1's ring and filter plane
+                    fr0 = fr[:, 0]
+                    pc = mac.choose_chunks(dtypes[storage], p, c, k)[1]
+                    geo = pr.ring_read_geometry(ring, fr0) if hasattr(pr, "ring_read_geometry") else None
+                    emit("probe_ring_read", lambda: pr.probe_ring_read(ring, fr0, pc), ring=[p, c, k],
+                         storage=storage, p_chunk=pc, geometry=geo)
             if p == 960 and storage != "bf16":
                 mask = np.zeros((p, k), bool)
                 mask[: int(0.3 * p)] = True
@@ -160,7 +180,7 @@ def main(argv=None) -> int:
         dcfix = torch.randn((2, c), device=dev, generator=gen)
 
         def step():
-            fs.fused_block_step(frame, ring, rim, 3, dcfix, cs, ab, scales)
+            return fs.fused_block_step(frame, ring, rim, 3, dcfix, cs, ab, scales)
 
         emit("fused_block_step", step, storage=storage, step_mac_us=dev_us(step, "step_mac"))
         del ring, scales

@@ -6,8 +6,12 @@ Port of ``tools/roofline_cal.py``. Rows:
   ``achievable``            the read-heavy tensor-op rate
                             (``bench.harness.hbm_achievable_bytes_per_sec``)
   ``dma_only/{bf16,split}`` T1 (``kernels.probes.probe_ring_read``): B1's
-                            ring read with the compute stripped, at
-                            ``choose_chunks``' geometry
+                            ring read with the compute stripped, on B1's
+                            grid (its ``splits``, slots ``per`` split and
+                            lanes a thread ``vec``, from
+                            ``fdl_mac.mac_geometry`` on the same operands),
+                            chunk heads at ``choose_chunks``' geometry;
+                            ``vs_mac``: its µs over B1's on the same ring
   ``mac_kernel/{bf16,split}`` B1 (``kernels.fdl_mac.fdl_mac``) proper
   ``fused_stream/{bf16,int8,split}`` the per-block convolver's ``process``
                             (B3) at P = 960, and the floor rows
@@ -17,7 +21,9 @@ T1 and B1 take the rotated filter of the iteration's ring position (a
 contiguous slice of the tiled-reversed filter), as the JAX tool does.
 Every row is slope-timed: two lengths (iterations, or blocks of the
 stream), per iteration = (t2 - t1) / (n2 - n1), so a fixed per-call cost
-cancels; ``t`` is the minimum over repeats of a CUDA-event time. Each row
+cancels; ``t`` is the minimum over repeats of a CUDA-event time. A cost
+each iteration pays does not cancel: where the host's enqueue of one
+iteration outlasts its kernels, the row reads the host's time. Each row
 has GB/s over its bytes model (T1/B1: the ring's bytes; streams:
 ``bench.headline.perblock_bytes`` of the fused path, which at P = 32
 counts bytes a ring resident on chip would not move — the same caveat as
@@ -40,7 +46,7 @@ from neojax_torch.bench import harness
 from neojax_torch.bench import headline
 from neojax_torch.conv import convolver as cv
 from neojax_torch.kernels.fdl_mac import choose_chunks, fdl_mac
-from neojax_torch.kernels.probes import probe_ring_read
+from neojax_torch.kernels.probes import probe_ring_read, ring_read_geometry
 
 DEVICE = "cuda"  # the tool measures on the card
 BLOCK, CHANNELS, P = headline.BLOCK, headline.CHANNELS, headline.P_PAD
@@ -67,9 +73,11 @@ def _ring(storage: str, seed: int = 0):
 
 
 def dma_only_row(storage: str, iters: tuple[int, int] = ITERS) -> dict:
-    """T1 over ``iters`` ring positions."""
+    """T1 over ``iters`` ring positions, with its grid at position 0 (every
+    position's filter slice is 16-byte aligned at K = 512, so all share it)."""
     fdl, tiled = _ring(storage)
     _, pc = choose_chunks(fdl.dtype, P, CHANNELS, BLOCK)
+    s_n, per, vec = ring_read_geometry(fdl, tiled[0, P - 1 : 2 * P - 1])
 
     def run(n):
         for i in range(n):
@@ -77,7 +85,7 @@ def dma_only_row(storage: str, iters: tuple[int, int] = ITERS) -> dict:
             probe_ring_read(fdl, tiled[0, P - 1 - pos : 2 * P - 1 - pos], pc)
 
     dt = harness.slope_seconds(run, iters)
-    return _row(dt, fdl.numel() * fdl.element_size(), p_chunk=pc)
+    return _row(dt, fdl.numel() * fdl.element_size(), p_chunk=pc, splits=s_n, per=per, vec=vec)
 
 
 def mac_kernel_row(storage: str, iters: tuple[int, int] = ITERS) -> dict:
@@ -92,6 +100,13 @@ def mac_kernel_row(storage: str, iters: tuple[int, int] = ITERS) -> dict:
 
     dt = harness.slope_seconds(run, iters)
     return _row(dt, fdl.numel() * fdl.element_size())
+
+
+def ring_rows(storage: str, iters: tuple[int, int] = ITERS) -> dict:
+    """``dma_only/<storage>`` (T1, with ``vs_mac``) and ``mac_kernel/<storage>`` (B1)."""
+    dma, mac = dma_only_row(storage, iters), mac_kernel_row(storage, iters)
+    dma["vs_mac"] = dma["us_per_iter"] / mac["us_per_iter"]
+    return {f"dma_only/{storage}": dma, f"mac_kernel/{storage}": mac}
 
 
 def fused_stream_row(storage: str, p: int, blocks: tuple[int, int]) -> dict:
@@ -122,8 +137,7 @@ def main(argv=None) -> int:
     rows = {"spec_peak_gbps": peak / 1e9 if peak else None,
             "achievable": {"gbps": ach / 1e9, "roofline_fraction": ach / peak if peak else None}}
     for storage in ("bf16", "split"):
-        rows[f"dma_only/{storage}"] = dma_only_row(storage)
-        rows[f"mac_kernel/{storage}"] = mac_kernel_row(storage)
+        rows.update(ring_rows(storage))
     for storage, p in STREAM_ROWS:
         key = f"fused_stream/{storage}" if p == P else f"fused_stream_floor/{storage}/P{p}"
         rows[key] = fused_stream_row(storage, p, STREAM_BLOCKS[p])

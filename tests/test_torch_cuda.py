@@ -483,13 +483,23 @@ def test_sparse_convolver_cuda_route_matches_cpu_route(cuda, rng, monkeypatch, s
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p,c,k", [(24, 3, 200), (960, 2, 512), (5, 1, 7)])
-def test_probe_ring_read_kernel_matches_plain(cuda, rng, dt, p, c, k):
+@pytest.mark.parametrize("p,c,k,fr_off", [
+    (24, 3, 200, 0), (960, 2, 512, 0), (5, 1, 7, 0),
+    (960, 4, 513, 0),   # the non-packed ring: V = 1
+    (64, 64, 513, 0),   # the hybrid head's ring: one split, written by the probe itself
+    (150, 64, 256, 0),  # chunk heads off the split boundaries (75 slots a split, pc 30 / 50)
+    (960, 2, 512, 1),   # a misaligned filter view: V = 1
+])
+def test_probe_ring_read_kernel_matches_plain(cuda, rng, dt, p, c, k, fr_off):
+    """T1 on B1's grid (S splits and the ordered reduce, V = 4 or 1) against
+    its float64 plain version."""
     from neojax_torch.kernels import probes
 
     fdl = torch.from_numpy(rng.standard_normal((2, p, c, k)).astype(np.float32)).to(cuda, dt)
-    fr = torch.from_numpy(rng.standard_normal((p, k)).astype(np.float32)).to(cuda)
+    flat = torch.from_numpy(rng.standard_normal(fr_off + p * k).astype(np.float32)).to(cuda)
+    fr = flat[fr_off:].view(p, k)
     _, pc = mac.choose_chunks(dt, p, c, k)
+    assert probes.ring_read_geometry(fdl, fr) == mac.mac_geometry(fdl, fr[:, None], fr[:, None])
     before = probes.probe_ring_read.launches
     got = probes.probe_ring_read(fdl, fr, pc)
     want = probes.probe_ring_read_reference(fdl, fr, pc)

@@ -6,6 +6,10 @@
   ``choose_chunks`` chunk times the filter's first row of that chunk,
   summed over chunks) at neojax's chunk geometry; ``out1`` the sum of every
   other element. float64 sums here and there: rtol 1e-6 (the f32 output).
+  The shapes include rings whose chunk heads do not line up with the
+  kernel's P splits (slots a split not a multiple of ``pc``). T1's grid
+  (``probes.ring_read_geometry``) is held equal to B1's
+  (``fdl_mac.mac_geometry``) on the same operands.
 - T2 ``probe_stream``: the TPU probe's ``k_tf`` per block (the frame rounded
   to the matrix dtype, times neojax's packed forward matrices; ``sre +
   sim``, or the tail-half inverse of the matrix-dtype-rounded spectrum) and
@@ -35,7 +39,7 @@ def _round(x: np.ndarray, dt) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p,c,k", [(24, 3, 40), (960, 2, 16), (7, 1, 5)])
+@pytest.mark.parametrize("p,c,k", [(24, 3, 40), (960, 2, 16), (7, 1, 5), (150, 64, 256), (200, 2, 16)])
 def test_ring_read_plain_matches_tpu_probe(rng, dt, p, c, k):
     _, pc = jmac.choose_chunks(_JDT[dt], p, c, k)
     assert tmac.choose_chunks(dt, p, c, k)[1] == pc
@@ -50,6 +54,33 @@ def test_ring_read_plain_matches_tpu_probe(rng, dt, p, c, k):
     assert out0.dtype == out1.dtype == torch.float32 and out0.shape == out1.shape == (c, k)
     np.testing.assert_allclose(out0.numpy(), want0, rtol=1e-6, atol=1e-6 * np.abs(want0).max())
     np.testing.assert_allclose(out1.numpy(), want1, rtol=1e-6, atol=1e-6 * np.abs(want1).max())
+
+
+def _ring_view(p, c, k, dt, offset=0):
+    """A ring [2, P, C, K] of dtype dt that starts ``offset`` elements into
+    its storage (a zero-stride view: the geometry reads shape and pointer)."""
+    return torch.zeros(offset + 1, dtype=dt)[offset:].expand(2, p, c, k)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,c,k,ring_off,fr_off,want", [
+    (960, 64, 512, 0, 0, (15, 64, 4)),   # the headline ring
+    (960, 64, 513, 0, 0, (15, 64, 1)),   # the non-packed ring: K % 4 != 0
+    (64, 64, 513, 0, 0, (1, 64, 1)),     # the hybrid head's ring: one split
+    (24, 3, 40, 0, 0, (1, 24, 4)),       # fewer than 128 slots: one split
+    (960, 64, 512, 0, 1, (15, 64, 1)),   # the filter slice misaligned
+    (960, 64, 512, 2, 0, (15, 64, 1)),   # the ring misaligned
+])
+def test_ring_read_geometry_is_b1s(dt, p, c, k, ring_off, fr_off, want):
+    """T1 runs at the (S, slots a split, V) that B1 runs at on the same ring
+    and filter: the rotated filter of ring position 7, as the smoke slices it."""
+    ring = _ring_view(p, c, k, dt, ring_off)
+    tiled = torch.zeros(fr_off + 4 * p * k)[fr_off:].view(2, 2 * p, k)
+    fr, fi = tiled[0, p - 8 : 2 * p - 8], tiled[1, p - 8 : 2 * p - 8]
+    got = probes.ring_read_geometry(ring, fr)
+    assert got == tmac.mac_geometry(ring, fr[:, None], fr[:, None]) == want
+    if not (ring_off or fr_off):  # B1 with its own im plane: the same grid
+        assert got == tmac.mac_geometry(ring, fr[:, None], fi[:, None])
 
 
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
