@@ -664,6 +664,27 @@ def last_kernel_calls(calls: dict):
             setattr(mod, name, fn)
 
 
+def exact_ring(plain, x, ring, rim, pos, dcfix, cs, inv, scales=None, **kw):
+    """The ring (and scales) a fused kernel's are held against, or None.
+    With bf16 matrices the transform kernels compute the f32 DFT of the
+    bf16-rounded frames, whose twiddles are more exact than the bf16 matrix
+    (ROADMAP §C), so the ring and its scales (the spectrum's peak) go
+    against the plain version ``plain`` (B2's or B3's) rerun on copies with
+    those rounded frames and the f32 forward matrix; the output stays held
+    against the plain run as it is. None with f32 matrices: the plain run's
+    own ring is the reference."""
+    import torch
+    from neojax_torch.fft import matmul_backend as mb
+
+    if cs.dtype != torch.bfloat16:
+        return None
+    mats = mb.packed_mats if cs.ndim == 3 else mb.packed_stream_mats
+    r, s = ring.clone(), None if scales is None else scales.clone()
+    plain(x.to(torch.bfloat16).float(), r, rim, pos, dcfix, mats(cs.shape[1], torch.float32, cs.device)[0],
+          inv, s, **kw)
+    return r, s
+
+
 def kernel_vs_plain_on(fn, named: dict) -> dict:
     """A kernel wrapper and its plain version on copies of one call's
     operands: max|kernel - plain| / max|plain| of the output at the ring's
@@ -691,10 +712,16 @@ def kernel_vs_plain_on(fn, named: dict) -> dict:
     row = {"storage": storage, "ring": list(ring.shape), "max_abs_err": d, "rel_err": r, "tol": TOL[storage]}
     assert r < TOL[storage], f"{fn.__name__} at the CLI's operands ({storage}): rel err {r}"
     if writes:
-        k_ring, p_ring = k_args["fdl"], p_args["fdl"]
+        k_ring, p_ring, p_scl = k_args["fdl"], p_args["fdl"], p_args.get("scales")
+        o = {k: _clone(v) for k, v in named.items() if k in params}
+        x, pos, dcfix, inv = (o.pop(k) for k in (("frame", "pos", "dcfix", "ab") if "frame" in o
+                                                  else ("sigpad", "pos0", "dcfix_all", "abt")))
+        exact = exact_ring(plain, x, o.pop("fdl"), o.pop("filt_rim"), pos, dcfix, o.pop("cs"), inv, **o)
+        if exact is not None:
+            p_ring, p_scl = exact
         if storage in INT_MAX:  # rint ties may flip by 1 LSB
             row["ring_lsb"] = int((k_ring.to(torch.int32) - p_ring.to(torch.int32)).abs().max())
-            row["scales_rel_err"] = device_rel_err(k_args["scales"], p_args["scales"])[1]
+            row["scales_rel_err"] = device_rel_err(k_args["scales"], p_scl)[1]
             assert row["ring_lsb"] <= 1 and row["scales_rel_err"] < 1e-5, row
         else:
             row["ring_rel_err"] = device_rel_err(k_ring, p_ring)[1]
@@ -1758,8 +1785,9 @@ def main(dist_only: bool = False) -> int:
         return ev0.elapsed_time(ev1) / reps
 
     # B2/B3 run as stage kernels: a call's device time by stage, from its
-    # kernel timeline (the transform kernels name forward and inverse apart)
-    stage_of = {"quantize_kernel": "quantize_rows", "writeback_kernel": "ring_writeback",
+    # kernel timeline (fft_forward_kernel / fft_inverse_kernel: the transforms)
+    stage_of = {"fft_forward": "window_forward", "fft_inverse": "window_inverse",
+                "quantize_kernel": "quantize_rows", "writeback_kernel": "ring_writeback",
                 "stream_mac_kernel": "stream_mac", "step_mac_kernel": "step_mac",
                 "step_reduce_kernel": "step_reduce", "widths_kernel": "sched_widths"}
 
@@ -1778,10 +1806,7 @@ def main(dist_only: bool = False) -> int:
             for timeline in bench_profile.kernel_timeline(fn, 3):
                 call = {}
                 for name, us in timeline:
-                    if "gemm_" in name or "split_sum" in name:
-                        label = "window_inverse" if "<true>" in name else "window_forward"
-                    else:
-                        label = next((v for k, v in stage_of.items() if k in name), None)
+                    label = next((v for k, v in stage_of.items() if k in name), None)
                     if label:
                         call[label] = call.get(label, 0.0) + us
                 per_call.append(call)
@@ -1807,7 +1832,9 @@ def main(dist_only: bool = False) -> int:
             scales = None
         return ring, scales
 
-    def check_ring(storage, k_ring, p_ring, k_scl, p_scl, what):
+    def check_ring(storage, k_ring, p_ring, k_scl, p_scl, what, exact=None):
+        if exact is not None:  # bf16 matrices: exact_ring's reference
+            p_ring, p_scl = exact
         if storage in INT_MAX:
             lsb = int((k_ring.to(torch.int32) - p_ring.to(torch.int32)).abs().max())
             assert lsb <= 1, f"{what}: int ring differs by {lsb} LSB"
@@ -1858,7 +1885,8 @@ def main(dist_only: bool = False) -> int:
             torch.cuda.synchronize()
             d, r = rel_err(ky.cpu(), py.cpu())
             assert r < TOL[storage], f"fused_block_step {storage} pos={pos}: rel err {r}"
-            check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_block_step {storage} pos={pos}")
+            check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_block_step {storage} pos={pos}",
+                       exact_ring(fs_mod.fused_block_step_reference, frame, ring, rim, pos, dcfix, cs, ab, scales))
             worst = max(worst, (d, r), key=lambda x: x[1])
         step_ms = cuda_ms(lambda: fs_mod.fused_block_step(frame, k_ring, rim, 3, dcfix, cs, ab, k_scl), 20)
         step_plain = cuda_ms(lambda: fs_mod.fused_block_step_reference(frame, p_ring, rim, 3, dcfix, cs, ab, p_scl), 3)
@@ -1882,7 +1910,8 @@ def main(dist_only: bool = False) -> int:
         torch.cuda.synchronize()
         d, r = rel_err(ko.cpu(), po.cpu())
         assert r < TOL[storage], f"fused_stream {storage}: rel err {r}"
-        check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream {storage}")
+        check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream {storage}",
+                   exact_ring(fs_mod.fused_stream_reference, sigpad, ring, rim, pos0, dcfix_all, cs2, abt, scales))
         s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl), 3)
         s_plain = cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2, abt, p_scl), 1)
         b3_stages = stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl),
@@ -1953,6 +1982,43 @@ def main(dist_only: bool = False) -> int:
         del w_spec, w_x, w_acc, w_part, wb_ring, inv_out
         del ring, scales, k_ring, p_ring
         torch.cuda.empty_cache()
+
+    # ---- 3a. the transform kernels (shared-memory FFTs) at the main path's
+    # shapes, with f32 and bf16 matrices: B3's window, B2's block, the hybrid
+    # head's chunk, the largest fused block and a block with an odd factor
+    transforms = {}
+    for shape, tb, wc in (("b3_window", BLOCK, 64), ("b2_block", BLOCK, 1), ("hybrid_head", BLOCK, S_HYBRID),
+                          ("b1024", 1024, 64), ("b768_odd3", 768, 64)):
+        tn = 2 * tb
+        sig_t = torch.from_numpy(rng.uniform(-1, 1, (c, (wc + 1) * tb)).astype(np.float32)).to(dev)
+        acc_t = torch.from_numpy(rng.standard_normal((wc, c, tn)).astype(np.float32)).to(dev)
+        for mdt in (torch.float32, torch.bfloat16):
+            tol = TOL["split"] if mdt == torch.float32 else TOL["bf16"]
+            if shape == "b2_block":  # B2's operands: the frame, [2, N, B] and all N samples
+                fwd, inv = mb.packed_mats(tn, mdt, dev)
+                inv = inv.reshape(tn, tn)
+            else:
+                fwd, inv = mb.packed_stream_mats(tn, mdt, dev)
+            out_t = [torch.zeros((c, wc * inv.shape[1]), device=dev) for _ in range(2)]
+            calls = {"window_forward": (lambda: fs_mod.window_forward(sig_t, fwd, 0, wc),
+                                        lambda: fs_mod.window_forward_reference(sig_t, fwd, 0, wc),
+                                        headline.transform_work(wc * c, tn, c * (wc + 1) * tb * 4, tn)),
+                     "window_inverse": (lambda: fs_mod.window_inverse(acc_t, inv, out_t[0], 0),
+                                        lambda: fs_mod.window_inverse_reference(acc_t, inv, out_t[1], 0),
+                                        headline.transform_work(wc * c, tn, wc * c * tn * 4, inv.shape[1]))}
+            for name, (kernel_fn, plain_fn, work) in calls.items():
+                got, want = kernel_fn(), plain_fn()
+                torch.cuda.synchronize()
+                d, r = rel_err(got.cpu(), want.cpu())
+                assert r < tol, f"{name} {shape} {mdt}: rel err {r}"
+                ms = device_ms(kernel_fn, 20)
+                transforms[f"{name}/{shape}/{str(mdt)[6:]}"] = {
+                    "block": tb, "blocks": wc, "channels": c, "max_abs_err": d, "rel_err": r, "tol": tol,
+                    "ms": ms, "plain_ms": cuda_ms(plain_fn, 1), **bound_of(work, ms)}
+            del out_t
+        del sig_t, acc_t
+    emit(phase="transform_shapes", rows=transforms, **card)
+    torch.cuda.empty_cache()
 
     # ---- 3b. the nested and hybrid engines' kernels at their shapes
     k = BLOCK + 1
@@ -2027,7 +2093,9 @@ def main(dist_only: bool = False) -> int:
         torch.cuda.synchronize()
         d, r = rel_err(ko.cpu(), po.cpu())
         assert r < TOL[storage], f"fused_stream acc_add {storage}: rel err {r}"
-        check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream acc_add {storage}")
+        check_ring(storage, k_ring, p_ring, k_scl, p_scl, f"fused_stream acc_add {storage}",
+                   exact_ring(fs_mod.fused_stream_reference, sigpad, ring, rim, pos0, dcfix_all, cs2, abt, scales,
+                              acc_add=seed))
         s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl,
                                                    acc_add=seed), 3)
         s_plain = cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix_all, cs2,
@@ -2210,7 +2278,9 @@ def main(dist_only: bool = False) -> int:
                 torch.cuda.synchronize()
                 d, r = rel_err(ky.cpu(), py.cpu())
                 assert r < TOL[storage], f"fused_block_step sched {key} pos={pos}: rel err {r}"
-                check_ring(storage, rings[0], rings[1], scl[0], scl[1], f"fused_block_step sched {key}")
+                check_ring(storage, rings[0], rings[1], scl[0], scl[1], f"fused_block_step sched {key}",
+                           exact_ring(fs_mod.fused_block_step_reference, frame, ring, rim, pos, dcfix, cs, ab,
+                                      scales, sched=sched))
                 assert torch.equal(rings[0], rings[2]), f"fused_block_step sched {key}: ring differs from dense"
                 worst = max(worst, (d, r), key=lambda x: x[1])
                 vs_dense = max(vs_dense, rel_err(ky.cpu(), dy.cpu())[0])
@@ -2242,7 +2312,9 @@ def main(dist_only: bool = False) -> int:
             torch.cuda.synchronize()
             d, r = rel_err(ko.cpu(), po.cpu())
             assert r < TOL[storage], f"fused_stream sched {key}: rel err {r}"
-            check_ring(storage, rings[0], rings[1], scl[0], scl[1], f"fused_stream sched {key}")
+            check_ring(storage, rings[0], rings[1], scl[0], scl[1], f"fused_stream sched {key}",
+                       exact_ring(fs_mod.fused_stream_reference, sigpad, ring, rim, pos0, dcfix_all, cs2, abt,
+                                  scales, sched=sched))
             assert torch.equal(rings[0], rings[2]), f"fused_stream sched {key}: ring differs from dense"
             k_ring, k_scl = rings[0], scl[0]
             s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl,
@@ -2588,13 +2660,26 @@ def main(dist_only: bool = False) -> int:
             got = pr_mod.probe_stream(sigpad, cs2, abt, mode)
             want = pr_mod.probe_stream_reference(sigpad, cs2, abt, mode)
             torch.cuda.synchronize()
+            extra = {}
             if mode == "empty":
                 d = r = float(got.abs().max())
                 assert d == 0.0, f"probe_stream empty/{mname} wrote {d}"
             else:
+                if mdt == torch.bfloat16:
+                    # the transforms compute in f32 with f32 twiddles, more
+                    # exactly than bf16 matrices (ROADMAP §C): T2 is held
+                    # at its rounding points (frames, spectrum to bf16) on
+                    # the f32 matrices; the bf16-matrix plain version's
+                    # distance is printed beside
+                    extra["rel_err_vs_bf16_matrix_plain"] = rel_err(got.cpu(), want.cpu())[1]
+                    cs32, abt32 = mb.packed_stream_mats(n, torch.float32, dev)
+                    spec = sigpad.to(mdt).double().unfold(1, n, b)[:, :nb] @ cs32.double()
+                    want = (spec[..., :b] + spec[..., b:] if mode == "win_fwd"
+                            else spec.float().to(mdt).double() @ abt32.double()).float().reshape(c, nb * b)
+                    del spec
                 d, r = rel_err(got.cpu(), want.cpu())
                 assert r < tol, f"probe_stream {mode}/{mname}: rel err {r}"
-            row = {"max_abs_err": d, "rel_err": r, "blocks": nb,
+            row = {"max_abs_err": d, "rel_err": r, **extra, "blocks": nb,
                    "ms": cuda_ms(lambda: pr_mod.probe_stream(sigpad, cs2, abt, mode), 5),
                    "plain_ms": cuda_ms(lambda: pr_mod.probe_stream_reference(sigpad, cs2, abt, mode), 2)}
             row["us_per_block"] = 1e3 * row["ms"] / nb
@@ -2674,11 +2759,19 @@ def main(dist_only: bool = False) -> int:
     sig_l = torch.randn((c, 65 * b), device=dev, generator=gen)
     frames = sig_l.unfold(1, n, b)[:, :64].transpose(0, 1).reshape(64 * c, n).contiguous()
     acc_l = torch.randn((64 * c, n), device=dev, generator=gen)
-    lib["window_forward"] = {"library_ms": cuda_ms(lambda: torch.matmul(frames, cs_l), 20),
-                             "library_call": "torch.matmul of the window's frames [4096, 1024] (built outside) "
-                                             "and cs [1024, 1024], f32 (allow_tf32 False)"}
-    lib["window_inverse"] = {"library_ms": cuda_ms(lambda: torch.matmul(acc_l, abt_l), 20),
-                             "library_call": "torch.matmul of the accumulators [4096, 1024] and abt [1024, 512], f32"}
+    spec_l = torch.complex(acc_l[:, : b + 1], acc_l[:, 1 : b + 2]).contiguous()  # B+1 bins, built outside
+    lib["window_forward"] = {"library_ms": device_ms(lambda: torch.fft.rfft(frames, dim=-1), 20),
+                             "library_call": "torch.fft.rfft (cuFFT) of the window's frames [4096, 1024] f32, "
+                                             "built outside the timed region",
+                             "matmul_ms": device_ms(lambda: torch.matmul(frames, cs_l), 20),
+                             "matmul_call": "torch.matmul of the same frames and cs [1024, 1024], f32 "
+                                            "(allow_tf32 False)"}
+    lib["window_inverse"] = {"library_ms": device_ms(lambda: torch.fft.irfft(spec_l, n=n, dim=-1), 20),
+                             "library_call": "torch.fft.irfft (cuFFT) of [4096, 513] complex64 bins, built "
+                                             "outside the timed region, to all 1024 samples",
+                             "matmul_ms": device_ms(lambda: torch.matmul(acc_l, abt_l), 20),
+                             "matmul_call": "torch.matmul of the accumulators [4096, 1024] and abt [1024, 512], "
+                                            "f32"}
     ring_l = torch.randn((2, P, c, b), device=dev, generator=gen)
     x_l = torch.randn((2, 64, c, b), device=dev, generator=gen)
     idx_l = (P - 5 + torch.arange(64, device=dev)) % P
@@ -2687,7 +2780,7 @@ def main(dist_only: bool = False) -> int:
     lib["step_mac"] = {"library_ms": lib["fdl_mac"]["library_ms"],
                        "library_call": "the B1 row's complex einsum: the same MAC over the same ring (one "
                                        "sum; the kernel's P splits are summed by step_reduce)"}
-    del cs_l, abt_l, sig_l, frames, acc_l, ring_l, x_l
+    del cs_l, abt_l, sig_l, frames, acc_l, spec_l, ring_l, x_l
     for name, note in (("quantize_rows", "a peak scale, rint and clamp per row are several calls"),
                        ("stream_mac", "a causal complex convolution along time over a ring and the staged "
                                       "rows, with per-row scales: no one call"),
@@ -2952,7 +3045,7 @@ def main(dist_only: bool = False) -> int:
                             "B2's block" if row["name"].startswith("step_") else "B3's window of 64 blocks")
     emit(phase="summary", snr_db_vs_f64=snrs, engine_snr_db_vs_f64=engine_snrs,
          sparse_snr_db_vs_masked_f64=sparse_snrs, sparse_times=sparse_times, sparse_masks=mask_stats,
-         times=times, measurement=meas, stages=stages,
+         times=times, measurement=meas, stages=stages, transform_shapes=transforms,
          engine_times=engine_times, hybrid_stream_latency=stream_lat, chunked=chunked_sum,
          make_engine=make_engine_sum, convolve=convolve_sum, cli=cli_sum["runs"],
          executor={k: executor_sum[k] for k in ("callback_path", "executor_path")}, surface=surface_sum,

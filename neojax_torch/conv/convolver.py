@@ -28,7 +28,7 @@ Routes. On a packed split-plane ring with block <= 1024 and the kernel MAC
 (the default), ``process`` runs the whole UPOLS stream through
 ``kernels.fused_stream`` (B3) and ``step`` runs ``kernels.fused_block_step``
 (B2); otherwise ``step`` transforms on ``torch.fft`` and reduces through
-``kernels.fdl_mac`` (B1) or, with ``mac_backend="torch"``, plain tensor
+``kernels.fdl_mac`` (B1) or, with ``mac_backend="xla"`` (or ``"torch"``), plain tensor
 ops. Each kernel wrapper launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch version for CPU tensors.
 
@@ -95,6 +95,11 @@ __all__ = [
 
 
 
+# mac_backend -> whether the kernel route runs (the JAX package's spellings
+# first, then the port's own)
+_MAC_ROUTES = {"auto": True, "pallas": True, "xla": False, "kernel": True, "torch": False}
+
+
 @dataclasses.dataclass(frozen=True)
 class PartitionedConfig:
     block_size: int
@@ -102,13 +107,20 @@ class PartitionedConfig:
     channels: int
     scheme: str = "upols"  # "upols" | "upola"
     storage: str = "dense"  # "dense" | "split" | "bf16" | "int16" | "int8"
+    # ``fft.api`` backend ("xla", "matmul", "auto"; None: the process
+    # default) of the transforms that have a choice: the dense storage's and
+    # the non-packed split layout's. The packed layout has one route (the
+    # kernels, or ``torch.fft`` around the plain MAC) and ignores it.
+    fft_backend: str | None = None
     # "ring": ring buffer + write position (one-row insert, contiguous
     # rotated-filter slice). "shift": newest-first shift layout.
     layout: str = "ring"
-    # Partition MAC engine of the split-plane storages: "kernel" (B1,
+    # Partition MAC engine of the split-plane storages, in the JAX
+    # package's spelling: "auto" and "pallas" take the kernel route (B1,
     # ``kernels.fdl_mac``, whose wrapper runs its plain version on CPU
-    # tensors) or "torch" (plain float32 tensor ops, ``conv.fdl.fdl_mac_split``).
-    mac_backend: str = "kernel"
+    # tensors), "xla" plain float32 tensor ops (``conv.fdl.fdl_mac_split``).
+    # "kernel" and "torch" are the port's own names of the two routes.
+    mac_backend: str = "auto"
     # Fused per-block kernels (B2/B3). None = auto: on for packed ring
     # layouts with block <= 1024 and the kernel MAC.
     fused: bool | None = None
@@ -138,7 +150,7 @@ class PartitionedConfig:
             raise ValueError(f"unknown storage: {self.storage!r}")
         if self.layout not in ("ring", "shift"):
             raise ValueError(f"unknown layout: {self.layout!r}")
-        if self.mac_backend not in ("kernel", "torch"):
+        if self.mac_backend not in _MAC_ROUTES:
             raise ValueError(f"unknown mac_backend: {self.mac_backend!r}")
         if self.packed and (self.storage == "dense" or self.layout != "ring" or self.block_size % 2):
             raise ValueError(
@@ -333,8 +345,14 @@ def init_state(config: PartitionedConfig, device=None) -> dict:
     return state
 
 
+def _kernel_route(config: PartitionedConfig) -> bool:
+    """Whether ``mac_backend`` asks for the kernel route: the one reading of
+    its spellings, which the nested and hybrid engines ask too."""
+    return _MAC_ROUTES[config.mac_backend]
+
+
 def _use_kernel_mac(config: PartitionedConfig) -> bool:
-    return config.storage != "dense" and config.mac_backend == "kernel"
+    return config.storage != "dense" and _kernel_route(config)
 
 
 def _use_fused(config: PartitionedConfig, params: dict) -> bool:
@@ -374,7 +392,7 @@ def _spectrum_and_push(config: PartitionedConfig, state: dict, frame: torch.Tens
     pos = state.get("pos")
 
     if config.storage == "dense":
-        spec = fft_api.rfft(frame, n=n)[..., :k]
+        spec = fft_api.rfft(frame, n=n, backend=config.fft_backend)[..., :k]
         if ring:
             new_fdl = fdl_lib.fdl_ring_push_dense(state["fdl"], spec, pos)
         else:
@@ -386,7 +404,7 @@ def _spectrum_and_push(config: PartitionedConfig, state: dict, frame: torch.Tens
         new_fdl, new_dcny = fdl_lib.fdl_packed_push(state["fdl"], state["dcny"], spec_re, spec_im, pos)
         return {"fdl": new_fdl, "dcny": new_dcny}, (spec_re, spec_im)
 
-    spec = fft_api.rfft(frame, n=n)[..., :k]
+    spec = fft_api.rfft(frame, n=n, backend=config.fft_backend)[..., :k]
     spec_re, spec_im = spec.real, spec.imag
     if ring:
         new_fdl = fdl_lib.fdl_ring_push_split(state["fdl"], spec_re, spec_im, pos)
@@ -500,7 +518,7 @@ def _chunk_sched(params: dict):
 def _split_mac(config: PartitionedConfig, params: dict, new_fdl, pos):
     """The split-plane partition MAC-reduce of one block: rotated filter
     slice + the B1 kernel, B4 over a sparse filter's tile schedule, or
-    plain tensor ops (``mac_backend="torch"``). Returns (acc_re, acc_im)."""
+    plain tensor ops (``mac_backend="xla"``). Returns (acc_re, acc_im)."""
     p = config.num_partitions
     if config.layout == "ring":
         filt_re = fdl_lib.rotated_filter(params["filt_re"], pos, p)
@@ -547,7 +565,7 @@ def step(config: PartitionedConfig, params: dict, state: dict, block: torch.Tens
         if config.storage == "dense":
             filt = fdl_lib.rotated_filter(params["filt"], pos, p) if ring else params["filt"]
             acc = fdl_lib.fdl_mac_dense(new_fdl, filt)
-            y = fft_api.irfft(acc, n=n)
+            y = fft_api.irfft(acc, n=n, backend=config.fft_backend)
         else:
             acc_re, acc_im = _split_mac(config, params, new_fdl, pos)
             if config.use_packed:
@@ -559,7 +577,7 @@ def step(config: PartitionedConfig, params: dict, state: dict, block: torch.Tens
                 acc_im[:, 0] = acc_dcny[:, 1]
                 y = matmul_backend.irfft_packed_split(acc_re, acc_im, n)
             else:
-                y = fft_api.irfft(torch.complex(acc_re, acc_im), n=n)
+                y = fft_api.irfft(torch.complex(acc_re, acc_im), n=n, backend=config.fft_backend)
 
     if config.scheme == "upols":
         out = y[..., b:]
@@ -681,6 +699,7 @@ class Convolver:
         self,
         scheme: str = "upols",
         storage: str | None = None,
+        fft_backend: str | None = None,
         sparsity: Any = None,
         require_sparsity: bool = False,
         device=None,
@@ -692,6 +711,7 @@ class Convolver:
             storage = "dense" if self.device.type == "cpu" else "split"
         self._scheme = scheme
         self._storage = storage
+        self._fft_backend = fft_backend
         # Sparse-convolver semantics (``sparse_convolver.hpp:16-21``): the
         # sparse aliases REQUIRE a sparsity predicate or mask in filter().
         self._default_sparsity = sparsity
@@ -740,6 +760,7 @@ class Convolver:
             channels=channels,
             scheme=self._scheme,
             storage=self._storage,
+            fft_backend=self._fft_backend,
         )
         self.params = filter_params(self.config, partitions, sparsity=sparsity, device=self.device)
         self.reset()

@@ -20,7 +20,7 @@ Two heads, as in the JAX package:
   the kernel MAC): one B3 launch (``kernels.fused_stream``) per chunk of
   S blocks, the precomputed tail frames entering through its ``acc_add``
   seed and their exact DC/Nyquist through ``dcfix_all``;
-- the **unfused head** (bf16, ``mac_backend="torch"``, or params without
+- the **unfused head** (bf16, ``mac_backend="xla"``, or params without
   ``head_packed``): per block rfft -> ring insert -> S-partition MAC (B1,
   ``kernels.fdl_mac``, or plain tensor ops) -> + tail frame -> irfft.
 
@@ -87,9 +87,9 @@ def _has_packed_head(config: PartitionedConfig) -> bool:
 
 def _use_fused_head(config: PartitionedConfig) -> bool:
     """The head runs through B3: a CUDA tensor launches the kernel, a CPU
-    tensor runs its plain version. ``mac_backend="torch"`` keeps the
-    unfused head with plain tensor ops."""
-    return _has_packed_head(config) and config.mac_backend == "kernel"
+    tensor runs its plain version. ``mac_backend="xla"`` (or ``"torch"``)
+    keeps the unfused head with plain tensor ops."""
+    return _has_packed_head(config) and cv._kernel_route(config)
 
 
 def hybrid_filter_params(config: PartitionedConfig, partitions, chunk_blocks: int, mask=None,
@@ -183,7 +183,7 @@ def hybrid_init_state(config: PartitionedConfig, params: dict, device=None) -> d
 def _head_block(config: PartitionedConfig, params: dict, hfdl, hpos: int, btail: torch.Tensor,
                 block: torch.Tensor, tail_frame):
     """One unfused head block: rfft -> head-ring insert (in place) ->
-    S-partition MAC (B1, or plain tensor ops with ``mac_backend="torch"``)
+    S-partition MAC (B1, or plain tensor ops with ``mac_backend="xla"``)
     -> + the precomputed tail frame [2, C, K] -> irfft.
 
     Returns (out [C, B], spec_re, spec_im [C, K])."""
@@ -197,7 +197,7 @@ def _head_block(config: PartitionedConfig, params: dict, hfdl, hpos: int, btail:
     hfdl = fdl_lib.fdl_ring_push_split(hfdl, sre, sim, hpos)
     fr = fdl_lib.rotated_filter(params["head_re"], hpos, s)
     fi = fdl_lib.rotated_filter(params["head_im"], hpos, s)
-    if config.mac_backend == "kernel":
+    if cv._kernel_route(config):
         planes, scales = hfdl if isinstance(hfdl, tuple) else (hfdl, None)
         acc_re, acc_im = fdl_mac(planes, fr, fi, None if scales is None else scales[..., 0])
     else:

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from neojax_torch.conv import fdl as fdl_lib
-from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host
+from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host, _kernel_route
 from neojax_torch.core.device import as_signal, resolve_device
 from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels.nested_mac import nested_mac
@@ -134,8 +134,8 @@ def _fft_precisions(config: PartitionedConfig) -> tuple[str, str]:
 
 def _use_nested_kernel(config: PartitionedConfig) -> bool:
     """B5 runs the shared-filter meta MAC unless the plain tensor-op route
-    is asked for (``mac_backend="torch"``, the JAX package's ``"xla"``)."""
-    return config.mac_backend == "kernel"
+    is asked for (``mac_backend="xla"``, or the port's ``"torch"``)."""
+    return _kernel_route(config)
 
 
 def _static_dims(params: dict) -> tuple[int, int, bool]:
@@ -205,7 +205,7 @@ def _meta_mac(config: PartitionedConfig, params: dict, fdl: torch.Tensor, scales
     (acc_re, acc_im) [C, K, 2S] f32.
 
     A shared filter runs B5 (``kernels.nested_mac``) on the rotated filter
-    view, or plain tensor ops with ``mac_backend="torch"``. A per-channel
+    view, or plain tensor ops with ``mac_backend="xla"``. A per-channel
     filter gathers the ring by age and sums in plain tensor ops: that is
     the JAX package's own route for it (its Pallas kernel takes shared
     filters only), not a fallback.

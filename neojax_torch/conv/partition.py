@@ -23,9 +23,10 @@ def num_partitions(ir_len: int, block_size: int) -> int:
     return idiv(ir_len - block_size, block_size) + 1
 
 
-def uniform_partition(impulse_response, block_size: int) -> np.ndarray:
+def uniform_partition(impulse_response, block_size: int, backend=None) -> np.ndarray:
     """IR [len] or [ch, len] (numpy or tensor) -> partitioned spectra
-    [ch, P, B+1] complex64 numpy."""
+    [ch, P, B+1] complex64 numpy. ``backend`` is accepted as the JAX
+    package accepts it, and ignored: partitioning is a host numpy rfft."""
     if isinstance(impulse_response, torch.Tensor):
         impulse_response = impulse_response.detach().cpu().numpy()
     ir = np.asarray(impulse_response, dtype=np.float32)

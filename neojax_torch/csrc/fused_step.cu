@@ -18,7 +18,7 @@
 // ring out of the loop and batches the MAC over time. B3 walks its nb
 // blocks in windows of W (kernels/fused_step.py :: WINDOW):
 //
-//   1. transform.cu: the window's forward DFTs as one product
+//   1. transform.cu: the window's forward DFTs, one shared-memory FFT a row
 //   2. quantize_kernel: spectra -> staged rows X_new [W, 2, C, B] in the
 //      storage dtype and their scales [W, C]
 //   3. stream_mac_kernel: the time-batched MAC. Block i's sum
@@ -33,7 +33,7 @@
 //      Bound: operations (16.1 GFLOP for 64 blocks at the headline shape).
 //   4. writeback_kernel: X_new and its scales into the ring slots, in their
 //      own launch after the MAC (the last write wins when W > P)
-//   5. transform.cu: the inverse as one product, straight into the output
+//   5. transform.cu: the inverse FFTs, straight into the output
 //
 // B2 (one block) has no reuse across blocks: its MAC is bound by the ring's
 // bytes. It writes the new row first (writeback_kernel, in place), then
@@ -460,34 +460,32 @@ extern "C" int neo_fs_step_reduce(int mat_bf16, const void* part, const void* dc
                   : launch_step_reduce<float>(part, dcfix, acc, S, C, K, 2 * K, K, st);
 }
 
-extern "C" int neo_transform(int mat_bf16, int inverse, const void* a, int a_inner, long long a_so, long long a_si,
-                             const void* mat, int m_split, long long m_plane, long long m_ld,
-                             void* out, int o_inner, long long o_so, long long o_si, void* part,
-                             int ksplit, int kchunk, int R, int K, int Ncol, void* stream);
+extern "C" int neo_transform(int mat_bf16, int inverse, const void* in, int i_inner, long long i_so,
+                             long long i_si, void* out, int o_inner, long long o_so, long long o_si,
+                             const void* tw, int rows, int B, int n_out, void* stream);
 
 // B2 in one call: the stage launches of one block on one stream (a block's
 // device time is ~0.1 ms, so a launch per stage from the host would cost
-// more than the work). frame [C, N], cs [2, N, B], ab [2, B, N], y [C, N];
-// c_idx / c_flags the [P, L] chunk tables or null. The wrapper allocates the
-// staging: spec, acc [C, 2B] f32; gpart [ks, C, N] f32 (ks > 1, else null);
-// x [2, C, B] storage dtype; scl [C] f32 (int storages, else null); mpart
-// [S, 2, C, B] f32; tab [P, P / pc] int32 (with a schedule, else null).
-// ks / kchunk are the transforms' depth split, S / per / vec step_mac's
-// geometry. counts [7] gets one added per stage as its launch
+// more than the work). frame [C, N], y [C, N]; tw the transforms' twiddles
+// W_N^q [N] float2; c_idx / c_flags the [P, L] chunk tables or null. The
+// wrapper allocates the staging: spec, acc [C, 2B] f32; x [2, C, B] storage
+// dtype; scl [C] f32 (int storages, else null); mpart [S, 2, C, B] f32; tab
+// [P, P / pc] int32 (with a schedule, else null). S / per / vec are
+// step_mac's geometry. counts [7] gets one added per stage as its launch
 // succeeds: window_forward, quantize_rows, ring_writeback, sched_widths,
 // step_mac, step_reduce, window_inverse.
 extern "C" int neo_fused_block_step(int storage, const void* frame, void* fdl, const void* rim,
-                                    void* scales, const void* dcfix, const void* cs, const void* ab,
-                                    void* y, const void* c_idx, const void* c_flags, void* spec,
-                                    void* gpart, void* x, void* scl, void* mpart, void* acc, void* tab,
-                                    int* counts, int P, int C, int B, int Cf, int pos, int L, int pc,
-                                    int n_codes, int ks, int kchunk, int S, int per, int vec, void* stream) {
+                                    void* scales, const void* dcfix, const void* tw, void* y,
+                                    const void* c_idx, const void* c_flags, void* spec, void* x, void* scl,
+                                    void* mpart, void* acc, void* tab, int* counts, int P, int C, int B,
+                                    int Cf, int pos, int L, int pc, int n_codes, int S, int per, int vec,
+                                    void* stream) {
   const bool quant = storage == kInt16 || storage == kInt8;
   const bool sched = c_idx != nullptr;
   if (bad_ring(P, C, B) || pos < 0 || pos >= P || (Cf != 1 && Cf != C) || quant != (scales != nullptr) ||
       quant != (scl != nullptr) || sched != (c_flags != nullptr) || sched != (tab != nullptr) ||
-      (sched && (L < 1 || pc < 1 || P % pc)) || (ks > 1) != (gpart != nullptr) || !spec || !x ||
-      !mpart || !acc || !counts || storage < kSplit || storage > kInt8)
+      (sched && (L < 1 || pc < 1 || P % pc)) || !tw || !spec || !x || !mpart || !acc || !counts ||
+      storage < kSplit || storage > kInt8)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = 2 * B;
   const bool mat_bf16 = storage == kBf16 || storage == kInt8;
@@ -499,9 +497,8 @@ extern "C" int neo_fused_block_step(int storage, const void* frame, void* fdl, c
     err = code;
     if (!err) ++counts[which];
   };
-  // 1. forward: row c at frame + c * N; cs column j at plane j / B
-  stage(0, neo_transform(mat_bf16, 0, frame, C, B, n, cs, B, static_cast<long long>(n) * B, B, spec, 1, n,
-                         0, gpart, ks, kchunk, C, n, n, stream));
+  // 1. forward: row c at frame + c * N, spectrum row c at spec + c * 2B
+  stage(0, neo_transform(mat_bf16, 0, frame, 1, n, 0, spec, 1, n, 0, tw, C, B, n, stream));
   // 2-3. quantize into the staged row, then insert it as ring row pos
   if (!err) stage(1, neo_fs_quantize(storage, spec, x, scl, C, C, B, stream));
   if (!err) stage(2, neo_fs_writeback(storage, x, scl, fdl, scales, P, C, B, 1, pos, stream));
@@ -513,9 +510,7 @@ extern "C" int neo_fused_block_step(int storage, const void* frame, void* fdl, c
                              Cf == 1 ? 0 : n, sched ? wtab + static_cast<size_t>(pos) * (P / pc) : nullptr,
                              mpart, P, C, B, sched ? pc : 1, S, per, vec, stream));
   if (!err) stage(5, neo_fs_step_reduce(mat_bf16, mpart, dcfix, acc, S, C, B, stream));
-  // 5. inverse: ab as [2B, N]
-  if (!err)
-    stage(6, neo_transform(mat_bf16, 1, acc, 1, n, 0, ab, n, 0, n, y, 1, n, 0, gpart, ks, kchunk, C, n, n,
-                           stream));
+  // 5. inverse: all N samples of each channel
+  if (!err) stage(6, neo_transform(mat_bf16, 1, acc, 1, n, 0, y, 1, n, 0, tw, C, B, n, stream));
   return err;
 }

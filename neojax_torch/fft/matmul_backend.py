@@ -1,12 +1,14 @@
 """DFT matrices: the packed ones of the fused kernels, the plain ones of the
 ``"matmul"`` transform backend, and the split transforms.
 
-The fused per-block kernels (``neojax_torch.kernels.fused_step``) evaluate
-the block's forward and inverse real DFT as GEMVs against dense matrices in
-the *packed* spectrum layout of ``neojax.fft.matmul_backend``: B = N/2
-lanes, lane 0 of the re-plane holds DC.re and lane 0 of the im-plane holds
-Nyquist.re (both imaginary parts vanish for real input). All matrices are
-built in float64 numpy and cast to float32 once per (size, dtype, device).
+The fused per-block kernels (``neojax_torch.kernels.fused_step``) take
+the block's forward and inverse real DFT as dense matrices in the *packed*
+spectrum layout of ``neojax.fft.matmul_backend``: B = N/2 lanes, lane 0 of
+the re-plane holds DC.re and lane 0 of the im-plane holds Nyquist.re (both
+imaginary parts vanish for real input). Their plain versions multiply by
+these matrices; their CUDA kernels compute the same DFT as FFTs and accept
+only these matrices. All matrices are built in float64 numpy and cast to
+float32 once per (size, dtype, device).
 
 The engines' transforms outside the kernels run on ``torch.fft`` (cuFFT on
 the card, in float32): the packed split layout (:func:`rfft_packed_split`
@@ -51,6 +53,12 @@ __all__ = [
     "packed_mats_np",
     "packed_mats",
     "packed_stream_mats",
+    "rfft_packed_matrices",
+    "irfft_packed_matrices",
+    "rfft_cat_matrices",
+    "irfft_cat_matrices",
+    "rfft_split_cat",
+    "irfft_split_cat",
     "rfft_packed_split",
     "irfft_packed_split",
     "PRECISIONS",
@@ -176,6 +184,47 @@ def _irfft_packed_mats_np(n: int):
     b2 = bm[:bb].copy()
     b2[0] = a[bb]
     return a2, b2
+
+
+def rfft_packed_matrices(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed forward matrices (c, s), each [N, B] float32 on ``device``
+    (None: the card): spec_re = x @ c, spec_im = x @ s, with the im-plane's
+    lane 0 the Nyquist column. Cached: callers must not write to them."""
+    cs, _ = packed_mats(n, torch.float32, resolve_device(device))
+    return cs[0], cs[1]
+
+
+def irfft_packed_matrices(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed inverse matrices (a, b), each [B, N] float32 on ``device``
+    (None: the card), 1/N folded in: y = re @ a + im @ b. Cached: callers
+    must not write to them."""
+    _, ab = packed_mats(n, torch.float32, resolve_device(device))
+    return ab[0], ab[1]
+
+
+def rfft_cat_matrices(n: int, device=None) -> torch.Tensor:
+    """[N, 2K] forward matrix, columns [cos | sin]: one product gives the
+    lane-packed spectrum [re | im]."""
+    return torch.cat(rfft_matrices(n, device), dim=1)
+
+
+def irfft_cat_matrices(n: int, device=None) -> torch.Tensor:
+    """[2K, N] inverse matrix of a lane-packed [re | im] (1/N folded)."""
+    return torch.cat(irfft_matrices(n, device), dim=0)
+
+
+def rfft_split_cat(x: torch.Tensor, n: int):
+    """:func:`rfft_split` as one product against :func:`rfft_cat_matrices`.
+    Returns (re, im) views of the lane-packed output."""
+    sp = _product(x, rfft_cat_matrices(n, x.device))
+    k = n // 2 + 1
+    return sp[..., :k], sp[..., k:]
+
+
+def irfft_split_cat(re: torch.Tensor, im: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`irfft_split` (normalized inverse) as one product of the
+    lane-packed accumulator against :func:`irfft_cat_matrices`."""
+    return _product(torch.cat([re, im], dim=-1), irfft_cat_matrices(n, re.device))
 
 
 def packed_mats_np(n: int):

@@ -47,11 +47,12 @@ def num_stft_frames(signal_size: int, frame_size: int, overlap_size: int) -> int
     return idiv(signal_size - frame_size + overlap_size, frame_size - overlap_size) + 1
 
 
-def stft(x, options: StftOptions | int, device=None) -> torch.Tensor:
+def stft(x, options: StftOptions | int, backend: str | None = None, device=None) -> torch.Tensor:
     """STFT of ``x`` ([len] or [ch, len], a tensor or an array) ->
-    [ch, frames, bins] complex. A tensor is transformed where it lies
-    (unless ``device`` is given); host data goes to ``device`` (None: the
-    card, ``core.device.as_tensor``).
+    [ch, frames, bins] complex. ``backend`` is ``fft.api``'s (None: the
+    process default). A tensor is transformed where it lies (unless
+    ``device`` is given); host data goes to ``device`` (None: the card,
+    ``core.device.as_tensor``).
 
     Rank-1 input produces a single-channel cube with the channel axis kept,
     matching the reference's matrix-in / cube-out contract.
@@ -88,4 +89,4 @@ def stft(x, options: StftOptions | int, device=None) -> torch.Tensor:
     # transform-length window).
     framed = F.pad(framed, (0, transform - frame))
     win = make_window(options.window, transform, dtype=framed.dtype, device=framed.device)
-    return fft_api.rfft(framed * win, n=transform)
+    return fft_api.rfft(framed * win, n=transform, backend=backend)

@@ -46,16 +46,15 @@ _SIGNATURES = {
     # storage, fdl, filt_re, filt_im, scales, live, acc, part, P, C, K, Cf, pc,
     # k_tile, nk, S, per, vec, stream
     "neo_fdl_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # mat_bf16, inverse, a, a_inner, a_s_outer, a_s_inner, mat, m_split, m_plane,
-    # m_ld, out, o_inner, o_s_outer, o_s_inner, part, ksplit, kchunk, R, K, Ncol, stream
-    "neo_transform": [_I, _I, _P, _I, _L, _L, _P, _I, _L, _L,
-                      _P, _I, _L, _L, _P, _I, _I, _I, _I, _I, _P],
-    # storage, frame, fdl, rim, scales, dcfix, cs, ab, y, c_idx, c_flags, spec,
-    # gpart, x, scl, mpart, acc, tab, counts, P, C, B, Cf, pos, L, pc, n_codes,
-    # ks, kchunk, S, per, vec, stream
+    # mat_bf16, inverse, in, i_inner, i_s_outer, i_s_inner, out, o_inner,
+    # o_s_outer, o_s_inner, tw, rows, B, n_out, stream
+    "neo_transform": [_I, _I, _P, _I, _L, _L, _P, _I, _L, _L, _P, _I, _I, _I, _P],
+    # storage, frame, fdl, rim, scales, dcfix, tw, y, c_idx, c_flags, spec, x,
+    # scl, mpart, acc, tab, counts, P, C, B, Cf, pos, L, pc, n_codes, S, per,
+    # vec, stream
     "neo_fused_block_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _P],
+                             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
     # storage, s, x, scl, rows, C, B, stream
     "neo_fs_quantize": [_I, _P, _P, _P, _I, _I, _I, _P],
     # storage, x, scl, fdl, scales, P, C, B, wc, pos_first, stream

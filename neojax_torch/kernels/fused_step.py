@@ -28,8 +28,9 @@ MAC ``sum_a filt[a] X[i - a]`` (``filt[a] = filt_rim[P - 1 - a]`` for the
 tiled filter) is a causal convolution along time. So B3 walks its nb blocks in windows of
 :data:`WINDOW` blocks, each window five stage launches on one stream:
 
-1. :func:`window_forward` — the window's frames x ``cs`` as one product
-   (FFMA for f32 matrices, bf16 tensor cores for bf16 ones)
+1. :func:`window_forward` — the window's frames through the packed real
+   DFT, one shared-memory FFT a row (f32; frames rounded to the matrix
+   dtype first)
 2. :func:`quantize_rows` — spectra -> staged rows ``X_new [W, 2, C, B]`` in
    the storage dtype, scales ``[W, C]``
 3. :func:`stream_mac` — the time-batched MAC: history rows inside the
@@ -37,7 +38,7 @@ tiled filter) is a causal convolution along time. So B3 walks its nb blocks in w
    its own scale; lane 0 := ``dcfix``; rounded to the matrix dtype
 4. :func:`ring_writeback` — ``X_new`` into ring slots ``(pos0 + i) % P``
    after the MAC (the last write wins when W > P)
-5. :func:`window_inverse` — the accumulators x ``abt`` as one product,
+5. :func:`window_inverse` — the accumulators through the inverse FFT,
    straight into the output
 
 B2 is one block: :func:`window_forward`, :func:`quantize_rows`,
@@ -63,6 +64,13 @@ tiles that are dead for all their blocks and lanes, and mask the rest, in
 the dense kernels' order: masked filter bins are zero, so the scheduled
 kernels equal the dense ones on the masked filter.
 
+The transform kernels compute the DFT itself, so B2, B3 and the two
+transform stages take only the packed DFT matrices of
+``fft.matmul_backend`` as their ``cs``/``ab``/``abt`` operands
+(:func:`_check_dft`; a departure from the TPU kernels, which multiply by
+whatever matrix they are given). With bf16 matrices the FFT's f32
+twiddles are more exact than the bf16-rounded matrix.
+
 Every stage function runs its plain PyTorch version (float64 products,
 operands rounded where the kernel rounds them; named ``*_reference``) for
 CPU tensors and launches its kernel, or raises, for CUDA tensors; each
@@ -78,6 +86,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -124,7 +133,6 @@ MATRIX_DTYPES = {
 _INT_MAX = {torch.int8: 127.0, torch.int16: 32767.0}
 MAX_BLOCK = 1024  # the largest block the pipeline takes (the TPU kernels' bound)
 WINDOW = 64  # blocks a window of B3's staged pipeline (staging ~17 MB at the headline shape)
-_CARD_TILES = 264  # transform: output tiles below which the depth is split (two per SM)
 
 # Bytes per partition chunk of the chunk schedule, as neojax sizes its TPU
 # DMA chunks (``neojax.kernels.fused_step._CHUNK_TARGET``), so both packages
@@ -218,48 +226,114 @@ def _quant_scale(scales, dtype):
 
 
 def _mat_geometry(mat):
-    """(depth K, columns, C column map (split, plane, ld)) of a transform
-    matrix: [K, n] as it is, or B2's forward planes [2, N, B] side by side."""
+    """(depth N, columns) of a transform matrix: [K, n] as it is, or B2's
+    forward planes [2, N, B] side by side."""
     if mat.ndim == 2:
-        return mat.shape[0], mat.shape[1], (mat.shape[1], 0, mat.shape[1])
+        return mat.shape[0], mat.shape[1]
     _, k, b = mat.shape
-    return k, 2 * b, (b, k * b, b)
+    return k, 2 * b
 
 
 def _mat2d(mat):
     return mat if mat.ndim == 2 else torch.cat([mat[0], mat[1]], dim=-1)
 
 
-@functools.lru_cache(maxsize=64)
-def _depth_split(rows: int, depth: int, cols: int) -> tuple[int, int]:
-    """(splits, depths a split) of a transform: the depth is split when the
-    64 x 64 output tiles alone cannot fill the card (B2's 64 rows)."""
-    tiles = -(-rows // 64) * -(-cols // 64)
-    if tiles >= _CARD_TILES or depth <= 64:
-        return 1, depth
-    ks = min(-(-_CARD_TILES // tiles), depth // 64)
-    per = -(-depth // ks)
-    chunk = -(-per // 32) * 32  # whole depth slices of the bf16 kernel
-    return -(-depth // chunk), chunk
+def fft_radices(b: int) -> tuple[int, list[int]]:
+    """(odd factor m, radices) of the transform kernels' B-point complex FFT
+    (``csrc/transform.cu`` :: ``cfft``): a direct m-point stage when m > 1,
+    then radix-8 stages, radix 4 where 4 or 16 points remain, radix 2 where
+    2 do."""
+    m = b
+    while m % 2 == 0:
+        m //= 2
+    rest, radices = b // m, []
+    while rest > 1:
+        r = 2 if rest == 2 else 4 if rest in (4, 16) else 8
+        radices.append(r)
+        rest //= r
+    return m, radices
 
 
-def _transform(inverse: bool, a, a_map, mat, out, o_map, rows: int, depth: int, cols: int):
-    """Launch the transform kernel: out(r, j) = sum_t round_M(A(r, t)) Mat(t, j)
-    with the row maps ``(inner, s_outer, s_inner)`` (elements)."""
-    _, _, m_map = _mat_geometry(mat)
-    ks, chunk = _depth_split(rows, depth, cols)
-    part = torch.empty((ks, rows, cols), dtype=torch.float32, device=out.device) if ks > 1 else None
+@functools.lru_cache(maxsize=16)
+def _twiddles(n: int, device: str) -> torch.Tensor:
+    """The transform kernels' twiddles as float32 [T, 2] (re, im) on
+    ``device``, computed in float64 on the host: W_N^q = exp(-2 pi i q / N)
+    for q < N (the real pass and the odd stage), then each radix-R stage's
+    table W_{Ns R}^{k r} at [(r - 1) Ns + k], k < Ns, 1 <= r < R, Ns the
+    product of the earlier stages' radices (and the odd factor)."""
+    b = n // 2
+    m, radices = fft_radices(b)
+    q = [np.arange(n) / n]
+    ns = m
+    for r in radices:
+        k = np.arange(ns)
+        q.append((np.arange(1, r)[:, None] * k[None, :]).ravel() / (ns * r))
+        ns *= r
+    ang = -2.0 * np.pi * np.concatenate(q)
+    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)).to(device)
+
+
+def twiddles(n: int, device) -> torch.Tensor:
+    """:func:`_twiddles` for a device (cached; callers must not write to it)."""
+    return _twiddles(n, str(torch.device(device)))
+
+
+# operands found equal to the packed DFT matrix: id -> (weakref, version)
+_DFT_EQUAL: dict[int, tuple] = {}
+
+
+def _check_dft(mat, n: int, inverse: bool) -> None:
+    """Raise ``ValueError`` unless ``mat`` is the packed DFT matrix of N = n
+    in its dtype, in one of the forms the fused kernels take (forward: B3's
+    ``cs [N, 2B]`` or B2's ``[2, N, B]``; inverse: B3's tail half ``abt
+    [2B, B]``, B2's ``ab [2, B, N]`` or ``ab`` as ``[2B, N]``): the cached
+    tensor of ``matmul_backend.packed_mats`` / ``packed_stream_mats``, a
+    view of its memory, or a tensor equal to it. The kernels compute the
+    DFT, not a product with an arbitrary matrix. An equal tensor is
+    compared once: it is remembered by identity and version, so a caller
+    that passes the same operand every block pays no device sync."""
+    from neojax_torch.fft.matmul_backend import packed_mats, packed_stream_mats
+
+    b = n // 2
+    if inverse:
+        forms = {(2 * b, b): lambda: packed_stream_mats(n, mat.dtype, mat.device)[1],
+                 (2 * b, n): lambda: packed_mats(n, mat.dtype, mat.device)[1].reshape(2 * b, n),
+                 (2, b, n): lambda: packed_mats(n, mat.dtype, mat.device)[1]}
+    else:
+        forms = {(n, 2 * b): lambda: packed_stream_mats(n, mat.dtype, mat.device)[0],
+                 (2, n, b): lambda: packed_mats(n, mat.dtype, mat.device)[0]}
+    make = forms.get(tuple(mat.shape))
+    if make is None or mat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"not a packed {'inverse' if inverse else 'forward'} DFT matrix of N = {n}: "
+                         f"{mat.dtype} {tuple(mat.shape)}")
+    ref = make()
+    if mat is ref or (mat.data_ptr() == ref.data_ptr() and mat.stride() == ref.stride()):
+        return
+    seen = _DFT_EQUAL.get(id(mat))
+    if seen is not None and seen[0]() is mat and seen[1] == mat._version:
+        return
+    if not torch.equal(mat, ref):
+        raise ValueError(f"the {'inverse' if inverse else 'forward'} matrix is not the packed DFT of "
+                         f"N = {n} (matmul_backend.packed_mats / packed_stream_mats): the kernels "
+                         "compute the DFT, not a product with an arbitrary matrix")
+    if len(_DFT_EQUAL) > 256:
+        _DFT_EQUAL.clear()
+    _DFT_EQUAL[id(mat)] = (weakref.ref(mat), mat._version)
+
+
+def _transform(inverse: bool, bf16: bool, a, a_map, out, o_map, rows: int, b: int, n_out: int):
+    """Launch the transform kernel over ``rows`` rows of block ``b`` with the
+    row maps ``(inner, s_outer, s_inner)`` (elements)."""
     code = _build.load().neo_transform(
-        int(mat.dtype == torch.bfloat16), int(inverse), a.data_ptr(), *a_map, mat.data_ptr(), *m_map,
-        out.data_ptr(), *o_map, 0 if part is None else part.data_ptr(), ks, chunk,
-        rows, depth, cols, _build.stream_of(out),
+        int(bf16), int(inverse), a.data_ptr(), *a_map, out.data_ptr(), *o_map,
+        twiddles(2 * b, out.device).data_ptr(), rows, b, n_out, _build.stream_of(out),
     )
     _build.check(code, "transform")
 
 
 def window_forward_reference(x, mat, i0: int, wc: int, out=None):
-    """Plain :func:`window_forward` (float64 products)."""
-    depth, cols, _ = _mat_geometry(mat)
+    """Plain :func:`window_forward` (float64 products with ``mat``)."""
+    depth, _ = _mat_geometry(mat)
     b = depth // 2
     frames = x[:, i0 * b : (i0 + wc + 1) * b].unfold(1, depth, b)  # [C, wc, N]
     spec = (frames.to(mat.dtype).double() @ _mat2d(mat).double()).float().transpose(0, 1)
@@ -270,17 +344,20 @@ def window_forward_reference(x, mat, i0: int, wc: int, out=None):
 
 
 def window_forward(x, mat, i0: int, wc: int, out=None):
-    """Forward packed DFTs of ``wc`` blocks from block ``i0``, as one product.
+    """Forward packed real DFTs of ``wc`` blocks from block ``i0``: the
+    frames' product with the packed forward matrix.
 
     x   : [C, L] f32, frames of N = 2B samples at hop B (B3's ``sigpad``, or
           B2's ``frame`` as one block)
-    mat : the forward matrix, [N, 2B] (B3's ``cs``) or [2, N, B] (B2's), f32
-          or bf16; the frames are rounded to its dtype
+    mat : the packed forward DFT matrix, [N, 2B] (B3's ``cs``) or [2, N, B]
+          (B2's), f32 or bf16; the frames are rounded to its dtype. The
+          kernel computes the DFT (one shared-memory FFT a row, f32), so on
+          the card ``mat`` must be that matrix (``_check_dft``)
     out : optional [wc, C, 2B] f32 destination
     returns spectra [wc, C, 2B] f32 (re | im lanes)
     """
     c, length = x.shape
-    depth, cols, _ = _mat_geometry(mat)
+    depth, cols = _mat_geometry(mat)
     b = depth // 2
     if x.dtype != torch.float32 or mat.dtype not in (torch.float32, torch.bfloat16) or cols != 2 * b:
         raise ValueError("window_forward takes f32 frames and an f32/bf16 [N, 2B] or [2, N, B] matrix")
@@ -288,10 +365,14 @@ def window_forward(x, mat, i0: int, wc: int, out=None):
         raise ValueError(f"blocks [{i0}, {i0 + wc}) need {(i0 + wc + 1) * b} samples, have {length}")
     if _check_common([x, mat, out], "window_forward"):
         return window_forward_reference(x, mat, i0, wc, out)
+    if b % 2 or b > MAX_BLOCK:
+        raise ValueError(f"the transform kernel takes an even block <= {MAX_BLOCK}, got {b}")
+    _check_dft(mat, depth, inverse=False)
     if out is None:
         out = torch.empty((wc, c, cols), dtype=torch.float32, device=x.device)
-    # row (i, c) of the product starts at sample c * L + (i0 + i) * B
-    _transform(False, x[:, i0 * b :], (c, b, length), mat, out, (1, cols, 0), wc * c, depth, cols)
+    # row (i, c) starts at sample c * L + (i0 + i) * B of x, at i * C + c of out
+    _transform(False, mat.dtype == torch.bfloat16, x[:, i0 * b :], (c, b, length), out, (1, cols, 0),
+               wc * c, b, depth)
     window_forward.launches += 1
     return out
 
@@ -300,7 +381,7 @@ window_forward.launches = 0
 
 
 def window_inverse_reference(acc, inv, out, i0: int):
-    """Plain :func:`window_inverse` (float64 products)."""
+    """Plain :func:`window_inverse` (float64 products with ``inv``)."""
     wc, c, _ = acc.shape
     n_out = inv.shape[1]
     y = (acc.to(inv.dtype).double() @ inv.double()).float()  # [wc, C, n_out]
@@ -309,11 +390,14 @@ def window_inverse_reference(acc, inv, out, i0: int):
 
 
 def window_inverse(acc, inv, out, i0: int):
-    """Inverse packed DFTs of a window's accumulators, as one product.
+    """Inverse packed real DFTs of a window's accumulators: their product
+    with the packed inverse matrix.
 
     acc : [wc, C, 2B] f32, rounded to the matrix dtype on the way in
-    inv : [2B, n_out] (B3's tail-half ``abt`` [2B, B]; B2's ``ab`` [2, B, N]
-          reshaped to [2B, N]), f32 or bf16
+    inv : the packed inverse DFT matrix [2B, n_out] (B3's tail-half ``abt``
+          [2B, B]; B2's ``ab`` [2, B, N] reshaped to [2B, N]), f32 or bf16.
+          The kernel computes the inverse DFT (one shared-memory FFT a row,
+          f32), so on the card ``inv`` must be that matrix (``_check_dft``)
     out : [C, nbo * n_out] f32; block i goes to columns (i0 + i) * n_out on
     returns out
     """
@@ -325,9 +409,13 @@ def window_inverse(acc, inv, out, i0: int):
         raise ValueError("window_inverse takes acc [wc, C, 2B] f32, inv [2B, n] and out [C, >= (i0+wc) n] f32")
     if _check_common([acc, inv, out], "window_inverse"):
         return window_inverse_reference(acc, inv, out, i0)
-    # row (i, c) of the product lands at column (i0 + i) * n_out of out's row c
-    _transform(True, acc, (1, depth, 0), inv, out[:, i0 * n_out :], (c, n_out, out.shape[1]),
-               wc * c, depth, n_out)
+    b = depth // 2
+    if b % 2 or b > MAX_BLOCK:
+        raise ValueError(f"the transform kernel takes an even block <= {MAX_BLOCK}, got {b}")
+    _check_dft(inv, depth, inverse=True)
+    # row (i, c) of acc lands at column (i0 + i) * n_out of out's row c
+    _transform(True, inv.dtype == torch.bfloat16, acc, (1, depth, 0), out[:, i0 * n_out :],
+               (c, n_out, out.shape[1]), wc * c, b, n_out)
     window_inverse.launches += 1
     return out
 
@@ -797,6 +885,8 @@ def fused_block_step(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None, sche
         raise ValueError(f"dcfix must be float32 [2, {c}]")
     cpu = _check_common([frame, fdl, filt_rim, dcfix, cs, ab, scales], "fused_block_step")
     pc = _check_sched(sched, fdl)
+    _check_dft(cs, n, inverse=False)
+    _check_dft(ab, n, inverse=True)
     if cpu:  # the staged plain versions
         spec = window_forward(frame, cs, 0, 1)
         x, scl = quantize_rows(spec, fdl.dtype)
@@ -807,32 +897,30 @@ def fused_block_step(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None, sche
         return (y, fdl) if scales is None else (y, fdl, scales)
     # the same stage kernels, launched by one C call: a block's device time
     # is about 0.1 ms, less than a host round trip per stage would cost
-    ks, chunk = _depth_split(c, n, n)
     s_n, per, vec = _step_geometry(fdl)
     if vec > 1 and not _step_aligned(fdl, filt_rim, vec):
         vec = 1
     # the staging regions, 256-byte aligned in one buffer (one allocation a
     # call: each torch.empty costs host time on a ~0.1 ms step): spec, the
-    # transforms' depth-split sums, the staged row, its scales, step_mac's
-    # partial sums, the accumulator, the widths table; 0 bytes where absent
-    sizes = (4 * c * n, 4 * ks * c * n if ks > 1 else 0, 2 * c * b * fdl.element_size(),
-             4 * c if scales is not None else 0, 4 * s_n * 2 * c * b, 4 * c * n,
-             4 * p * (p // pc) if sched is not None else 0)
+    # staged row, its scales, step_mac's partial sums, the accumulator, the
+    # widths table; 0 bytes where absent
+    sizes = (4 * c * n, 2 * c * b * fdl.element_size(), 4 * c if scales is not None else 0,
+             4 * s_n * 2 * c * b, 4 * c * n, 4 * p * (p // pc) if sched is not None else 0)
     offsets, total = [], 0
     for size in sizes:
         offsets.append(total if size else None)
         total += -(-size // 256) * 256
     ws = torch.empty(total, dtype=torch.uint8, device=frame.device)
-    spec, gpart, x, scl, mpart, acc, tab = (0 if o is None else ws.data_ptr() + o for o in offsets)
+    spec, x, scl, mpart, acc, tab = (0 if o is None else ws.data_ptr() + o for o in offsets)
     y = torch.empty((c, n), dtype=torch.float32, device=frame.device)
     c_idx, c_flags = (0, 0) if sched is None else (sched[0].data_ptr(), sched[1].data_ptr())
     counts = (ctypes.c_int * len(_STEP_STAGES))()  # the C call adds one per stage it launched
     code = _build.load().neo_fused_block_step(
         STORAGE_CODES[fdl.dtype], frame.data_ptr(), fdl.data_ptr(), filt_rim.data_ptr(),
-        0 if scales is None else scales.data_ptr(), dcfix.data_ptr(), cs.data_ptr(), ab.data_ptr(),
-        y.data_ptr(), c_idx, c_flags, spec, gpart, x, scl, mpart, acc, tab, counts, p, c, b,
+        0 if scales is None else scales.data_ptr(), dcfix.data_ptr(), twiddles(n, frame.device).data_ptr(),
+        y.data_ptr(), c_idx, c_flags, spec, x, scl, mpart, acc, tab, counts, p, c, b,
         filt_rim.shape[1], pos, 0 if sched is None else sched[0].shape[1], pc or 1, len(lane_widths(b)),
-        ks, chunk, s_n, per, vec, _build.stream_of(frame),
+        s_n, per, vec, _build.stream_of(frame),
     )
     for stage, launched in zip(_STEP_STAGES, counts):
         stage.launches += launched
@@ -889,6 +977,8 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
     pos0 = int(pos0) % p
     cpu = _check_common([sigpad, fdl, filt_rim, dcfix_all, cs, abt, scales, acc_add], "fused_stream")
     pc = _check_sched(sched, fdl)
+    _check_dft(cs, n, inverse=False)
+    _check_dft(abt, n, inverse=True)
 
     dev = sigpad.device
     widths = None if sched is None else (sched_widths(sched, b, pc), pc)

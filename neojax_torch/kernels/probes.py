@@ -24,11 +24,11 @@ T2 :func:`probe_stream` replaces ``tools/fused_probe.py`` · ``run_empty``
 point:
 
     "empty"       : out = 0 (one zero-fill launch: the launch floor)
-    "win_fwd"     : B3's forward product (``window_forward``), then a fold
-                    launch, out = spec[:B] + spec[B:]
-    "win_fwd_inv" : B3's forward product, then its tail-half inverse
-                    product (``window_inverse``), which rounds the
-                    spectrum to the matrix dtype on the way in
+    "win_fwd"     : B3's forward transform (``window_forward``), then a
+                    fold launch, out = spec[:B] + spec[B:]
+    "win_fwd_inv" : B3's forward transform, then its tail-half inverse
+                    (``window_inverse``), which rounds the spectrum to
+                    the matrix dtype on the way in
 
 on B3's matrix layout (``cs [N, 2B]``, ``abt [2B, B]``, f32 or bf16; the
 frame is rounded to the matrix dtype first, as in B3).

@@ -4,10 +4,10 @@
 Port of ``tools/fused_probe.py``. Rows, each in µs a block:
 
   ``empty_grid``                  T2 ``empty``: one launch writing zeros
-  ``win_fwd/{float32,bfloat16}``  T2 ``win_fwd``: B3's windowed forward product
-                                  (+ a fold of its output)
-  ``win_fwd_inv/{...}``           T2 ``win_fwd_inv``: + B3's tail-half inverse
-                                  product
+  ``win_fwd/{float32,bfloat16}``  T2 ``win_fwd``: B3's windowed forward
+                                  transform (+ a fold of its output)
+  ``win_fwd_inv/{...}``           T2 ``win_fwd_inv``: + B3's tail-half
+                                  inverse
   ``b3_zero_sched/{bf16,split}/P{32,960}``  B3 with an all-zero chunk schedule
                                   (every flag 0): the whole fixed path —
                                   window, forward DFT, quantize, the MAC

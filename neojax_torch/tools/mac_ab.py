@@ -26,6 +26,15 @@ hybrid head), each row beside B1's. A last row times the hybrid engine
 with its unfused head (bf16: one B1 call a block) in µs a block.
 Without a card it exits non-zero.
 
+``--rows transforms`` times only the transform rows (``--rows macs`` all
+but them): ``window_forward`` and ``window_inverse`` on B3's headline
+window of 64 blocks (64 channels, B = 512) with f32 and bf16 matrices, B2's
+one block (``fused_block_step``, split) and a B3 split call of 64 blocks
+(``fused_stream`` on the headline ring). The transforms of two trees may
+round apart (a matrix product against an FFT), so each of these rows also
+carries ``plain_rel_err``: max|out - plain| / max|plain| of its output
+against the tree's own plain version on the same inputs.
+
 ``--variants`` (a tree whose ``kernels.fdl_mac`` has ``_MAC_VEC_BYTES``)
 first times B1 and B4 on the headline ring at the geometries the kept one
 was chosen against, each row with its ``variant``: ``vec16`` (V = 16 /
@@ -56,6 +65,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="append the JSON lines here too")
     ap.add_argument("--variants", action="store_true",
                     help="also time B1/B4 at the geometries the kept one was chosen against")
+    ap.add_argument("--rows", choices=("all", "macs", "transforms"), default="all",
+                    help="the MAC rows, the transform rows, or both")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -114,8 +125,13 @@ def main(argv=None) -> int:
                 h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
-    def emit(kernel, fn, **kw):
-        first = sha(fn())
+    def emit(kernel, fn, plain=None, **kw):
+        got = fn()
+        first = sha(got)
+        if plain is not None:  # the output against the plain version, before the timing calls
+            want = plain()
+            got, want = (t[0] if isinstance(t, (tuple, list)) else t for t in (got, want))
+            kw["plain_rel_err"] = float((got.double() - want.double()).abs().max() / want.double().abs().max())
         row = {"tree": args.label, "kernel": kernel, **kw, "out_sha": first, "dev_us": dev_us(fn),
                "host_us": host_us(fn), "loop_us": loop_us(fn), "card": card}
         line = json.dumps(row)
@@ -155,6 +171,41 @@ def main(argv=None) -> int:
                      ring=[p, c, k], storage=storage, mask="band30", pos=p - 1, **tag)
             del ring, scales
             torch.cuda.empty_cache()
+
+    if args.rows in ("all", "transforms"):
+        p, c, b = 960, 64, 512
+        n = 2 * b
+        sig = torch.rand((c, 65 * b), device=dev, generator=gen) * 2 - 1
+        acc = torch.randn((64, c, n), device=dev, generator=gen)
+        outs = [torch.zeros((c, 64 * b), device=dev) for _ in range(2)]
+        for mdt in (torch.float32, torch.bfloat16):
+            cs, abt = mb.packed_stream_mats(n, mdt, dev)
+            emit("window_forward", lambda: fs.window_forward(sig, cs, 0, 64),
+                 lambda: fs.window_forward_reference(sig, cs, 0, 64), rows=64 * c, block=b, matrix=str(mdt)[6:])
+            emit("window_inverse", lambda: fs.window_inverse(acc, abt, outs[0], 0),
+                 lambda: fs.window_inverse_reference(acc, abt, outs[1], 0), rows=64 * c, block=b,
+                 matrix=str(mdt)[6:])
+        ring, _ = ring_of("split", p, c, b)
+        rings = [ring.clone() for _ in range(2)]
+        rim = torch.randn((2 * p, 1, n), device=dev, generator=gen) * 0.05
+        cs, ab = mb.packed_mats(n, torch.float32, dev)
+        cs2, abt = mb.packed_stream_mats(n, torch.float32, dev)
+        frame = torch.rand((c, n), device=dev, generator=gen) * 2 - 1
+        dcfix = torch.randn((2, c), device=dev, generator=gen)
+        dcfix_all = torch.randn((64, 2, c), device=dev, generator=gen)
+        emit("fused_block_step", lambda: fs.fused_block_step(frame, rings[0], rim, 3, dcfix, cs, ab),
+             lambda: fs.fused_block_step_reference(frame, rings[1], rim, 3, dcfix, cs, ab), storage="split",
+             transform_rows=True)
+        rings = [ring.clone() for _ in range(2)]
+        emit("fused_stream", lambda: fs.fused_stream(sig, rings[0], rim, p - 5, dcfix_all, cs2, abt),
+             lambda: fs.fused_stream_reference(sig, rings[1], rim, p - 5, dcfix_all, cs2, abt), storage="split",
+             blocks=64)
+        del ring, rings, sig, acc, outs
+        torch.cuda.empty_cache()
+        if args.rows == "transforms":
+            if out:
+                out.close()
+            return 0
 
     if args.variants:
         kept = mac._MAC_VEC_BYTES, mac._MIN_SPLIT  # read by kernels.fdl_mac.mac_geometry at each call

@@ -203,7 +203,10 @@ def test_convolver_errors(rng):
     with pytest.raises(ValueError):
         tcv.PartitionedConfig(B, P, C, storage="split", layout="shift", fused=True)
     with pytest.raises(ValueError):
-        tcv.PartitionedConfig(B, P, C, mac_backend="pallas")
+        tcv.PartitionedConfig(B, P, C, mac_backend="bogus")
+    # the JAX package's spellings map onto the port's two routes
+    for name, kernel in (("auto", True), ("pallas", True), ("xla", False), ("kernel", True), ("torch", False)):
+        assert tcv._use_kernel_mac(tcv.PartitionedConfig(B, P, C, storage="split", mac_backend=name)) is kernel
 
 
 def test_filter_pads_partitions_and_default_storage():

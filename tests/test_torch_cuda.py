@@ -75,6 +75,20 @@ def _ring(rng, storage, p, c, k, dev):
     return ring, None
 
 
+def _ring_plain(mdt, x, fwd):
+    """(x, fwd) of the plain run the ring and its scales are held against.
+    With bf16 matrices the transform kernels compute the f32 DFT of the
+    bf16-rounded frames, whose twiddles are more exact than the bf16 matrix
+    (ROADMAP §C): the ring and scales (the spectrum's peak) then go against
+    the plain pipeline on the f32 forward matrix of those rounded frames,
+    while the output stays held against the plain version as it is."""
+    if mdt != torch.bfloat16:
+        return x, fwd
+    n = fwd.shape[1]
+    mats = mb.packed_mats if fwd.ndim == 3 else mb.packed_stream_mats
+    return x.to(torch.bfloat16).float(), mats(n, torch.float32, fwd.device)[0]
+
+
 def _same_ring(storage, a, b, sa, sb):
     if storage in _INT_MAX:
         assert int((a.int() - b.int()).abs().max()) <= 1
@@ -115,11 +129,14 @@ def test_fused_block_step_kernel_matches_plain(cuda, rng, storage, cf, b):
         k_ring, p_ring = ring.clone(), ring.clone()
         k_s = None if scales is None else scales.clone()
         p_s = None if scales is None else scales.clone()
+        r_ring, r_s = ring.clone(), None if scales is None else scales.clone()
         ky = fs.fused_block_step(frame, k_ring, rim, pos, dcfix, cs, ab, k_s)[0]
         py = fs.fused_block_step_reference(frame, p_ring, rim, pos, dcfix, cs, ab, p_s)[0]
+        x_r, cs_r = _ring_plain(mdt, frame, cs)
+        fs.fused_block_step_reference(x_r, r_ring, rim, pos, dcfix, cs_r, ab, r_s)
         torch.cuda.synchronize()
         assert _rel(ky, py) < _TOL[storage]
-        _same_ring(storage, k_ring, p_ring, k_s, p_s)
+        _same_ring(storage, k_ring, r_ring, k_s, r_s)
         ring, scales = p_ring, p_s
 
 
@@ -137,11 +154,14 @@ def test_fused_stream_kernel_matches_plain(cuda, rng, storage, cf):
     k_ring, p_ring = ring.clone(), ring.clone()
     k_s = None if scales is None else scales.clone()
     p_s = None if scales is None else scales.clone()
+    x_r, cs_r = _ring_plain(mdt, sigpad, cs)
     ko = fs.fused_stream(sigpad, k_ring, rim, pos0, dcfix, cs, abt, k_s)[0]
     po = fs.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix, cs, abt, p_s)[0]
+    r_ring, r_s = ring.clone(), None if scales is None else scales.clone()
+    fs.fused_stream_reference(x_r, r_ring, rim, pos0, dcfix, cs_r, abt, r_s)
     torch.cuda.synchronize()
     assert _rel(ko, po) < _TOL[storage]
-    _same_ring(storage, k_ring, p_ring, k_s, p_s)
+    _same_ring(storage, k_ring, r_ring, k_s, r_s)
 
 
 @pytest.mark.cuda
@@ -195,11 +215,14 @@ def test_fused_stream_acc_add_matches_plain(cuda, rng, storage):
     k_ring, p_ring = ring.clone(), ring.clone()
     k_s = None if scales is None else scales.clone()
     p_s = None if scales is None else scales.clone()
+    x_r, cs_r = _ring_plain(mdt, sigpad, cs)
     ko = fs.fused_stream(sigpad, k_ring, rim, pos0, dcfix, cs, abt, k_s, acc_add=seed)[0]
     po = fs.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix, cs, abt, p_s, acc_add=seed)[0]
+    r_ring, r_s = ring.clone(), None if scales is None else scales.clone()
+    fs.fused_stream_reference(x_r, r_ring, rim, pos0, dcfix, cs_r, abt, r_s, acc_add=seed)
     torch.cuda.synchronize()
     assert _rel(ko, po) < _TOL[storage]
-    _same_ring(storage, k_ring, p_ring, k_s, p_s)
+    _same_ring(storage, k_ring, r_ring, k_s, r_s)
 
 
 @pytest.mark.cuda
@@ -396,12 +419,13 @@ def test_fused_block_step_sched_matches_plain_and_dense(cuda, rng, monkeypatch, 
     params, ring, scales = _sparse_fused_inputs(cuda, rng, storage, cf, p, c, b)
     sched = (params["sp_c_idx"], params["sp_c_flags"])
     assert int((params["sp_c_flags"] == 1).sum(1).min()) < p // fs.fused_chunk_rows(ring.dtype, p, c, b)
-    cs, ab = mb.packed_mats(2 * b, fs.MATRIX_DTYPES[_DT[storage]], cuda)
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    cs, ab = mb.packed_mats(2 * b, mdt, cuda)
     for pos in (0, 7, p - 1):
         frame = torch.from_numpy(rng.uniform(-1, 1, (c, 2 * b)).astype(np.float32)).to(cuda)
         dcfix = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32)).to(cuda)
-        rings = [ring.clone() for _ in range(3)]
-        scl = [None if scales is None else scales.clone() for _ in range(3)]
+        rings = [ring.clone() for _ in range(4)]
+        scl = [None if scales is None else scales.clone() for _ in range(4)]
         before = fs.fused_block_step.sched_launches
         stages_before = _stage_counts()
         ky = fs.fused_block_step(frame, rings[0], params["filt_rim"], pos, dcfix, cs, ab, scl[0], sched)[0]
@@ -409,6 +433,8 @@ def test_fused_block_step_sched_matches_plain_and_dense(cuda, rng, monkeypatch, 
         py = fs.fused_block_step_reference(frame, rings[1], params["filt_rim"], pos, dcfix, cs, ab, scl[1],
                                            sched)[0]
         dy = fs.fused_block_step(frame, rings[2], params["filt_rim"], pos, dcfix, cs, ab, scl[2])[0]
+        x_r, cs_r = _ring_plain(mdt, frame, cs)
+        fs.fused_block_step_reference(x_r, rings[3], params["filt_rim"], pos, dcfix, cs_r, ab, scl[3], sched)
         torch.cuda.synchronize()
         assert fs.fused_block_step.sched_launches == before + 1
         # the counts the C call made as it launched: every B2 stage and the widths once
@@ -416,7 +442,7 @@ def test_fused_block_step_sched_matches_plain_and_dense(cuda, rng, monkeypatch, 
             "window_forward": 1, "quantize_rows": 1, "ring_writeback": 1, "sched_widths": 1, "step_mac": 1,
             "step_reduce": 1, "window_inverse": 1, "stream_mac": 0}
         assert _rel(ky, py) < _TOL[storage]
-        _same_ring(storage, rings[0], rings[1], scl[0], scl[1])
+        _same_ring(storage, rings[0], rings[3], scl[0], scl[3])
         assert torch.equal(ky, dy) and torch.equal(rings[0], rings[2])
 
 
@@ -428,18 +454,21 @@ def test_fused_stream_sched_matches_plain_and_dense(cuda, rng, monkeypatch, stor
     p, c, b, nb, pos0 = 24, 3, 256, 30, 20  # wraps the ring
     params, ring, scales = _sparse_fused_inputs(cuda, rng, storage, cf, p, c, b)
     sched = (params["sp_c_idx"], params["sp_c_flags"])
-    cs, abt = mb.packed_stream_mats(2 * b, fs.MATRIX_DTYPES[_DT[storage]], cuda)
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    cs, abt = mb.packed_stream_mats(2 * b, mdt, cuda)
     sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(cuda)
     dcfix = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(cuda)
-    rings = [ring.clone() for _ in range(3)]
-    scl = [None if scales is None else scales.clone() for _ in range(3)]
+    rings = [ring.clone() for _ in range(4)]
+    scl = [None if scales is None else scales.clone() for _ in range(4)]
     ko = fs.fused_stream(sigpad, rings[0], params["filt_rim"], pos0, dcfix, cs, abt, scl[0], sched)[0]
     po = fs.fused_stream_reference(sigpad, rings[1], params["filt_rim"], pos0, dcfix, cs, abt, scl[1],
                                    sched)[0]
     do = fs.fused_stream(sigpad, rings[2], params["filt_rim"], pos0, dcfix, cs, abt, scl[2])[0]
+    x_r, cs_r = _ring_plain(mdt, sigpad, cs)
+    fs.fused_stream_reference(x_r, rings[3], params["filt_rim"], pos0, dcfix, cs_r, abt, scl[3], sched)
     torch.cuda.synchronize()
     assert _rel(ko, po) < _TOL[storage]
-    _same_ring(storage, rings[0], rings[1], scl[0], scl[1])
+    _same_ring(storage, rings[0], rings[3], scl[0], scl[3])
     assert torch.equal(ko, do) and torch.equal(rings[0], rings[2])
 
 
@@ -521,6 +550,13 @@ def test_probe_stream_kernel_matches_plain(cuda, rng, dt, mode, c, b, nb):
     before = probes.probe_stream.launches
     got = probes.probe_stream(sig, cs, abt, mode)
     want = probes.probe_stream_reference(sig, cs, abt, mode)
+    if dt == torch.bfloat16 and mode != "empty":
+        # the transforms compute in f32 with f32 twiddles (ROADMAP §C): T2
+        # at its rounding points (frames, spectrum to bf16) on f32 matrices
+        cs32, abt32 = mb.packed_stream_mats(2 * b, torch.float32, cuda)
+        spec = sig.to(dt).double().unfold(1, 2 * b, b)[:, :nb] @ cs32.double()
+        want = (spec[..., :b] + spec[..., b:] if mode == "win_fwd"
+                else spec.float().to(dt).double() @ abt32.double()).float().reshape(c, nb * b)
     torch.cuda.synchronize()
     assert probes.probe_stream.launches == before + 1
     if mode == "empty":
@@ -612,9 +648,12 @@ def test_fused_stream_ragged_shapes(cuda, rng, storage, p, c, b, nb, pos0):
     ko = fs.fused_stream(sigpad, k_ring, rim, pos0, dcfix, cs, abt, k_s)[0]
     after = _stage_counts()
     po = fs.fused_stream_reference(sigpad, p_ring, rim, pos0, dcfix, cs, abt, p_s)[0]
+    r_ring, r_s = ring.clone(), None if scales is None else scales.clone()
+    x_r, cs_r = _ring_plain(mdt, sigpad, cs)
+    fs.fused_stream_reference(x_r, r_ring, rim, pos0, dcfix, cs_r, abt, r_s)
     torch.cuda.synchronize()
     assert _rel(ko, po) < _TOL[storage]
-    _same_ring(storage, k_ring, p_ring, k_s, p_s)
+    _same_ring(storage, k_ring, r_ring, k_s, r_s)
     windows = -(-nb // fs.WINDOW)
     for name in ("window_forward", "quantize_rows", "stream_mac", "ring_writeback", "window_inverse"):
         assert after[name] - before[name] == windows, name
@@ -637,16 +676,119 @@ def test_fused_block_step_ragged_shapes(cuda, rng, storage, p, c, b):
         k_s = None if scales is None else scales.clone()
         p_s = None if scales is None else scales.clone()
         before = _stage_counts()
+        r_ring, r_s = ring.clone(), None if scales is None else scales.clone()
         ky = fs.fused_block_step(frame, k_ring, rim, pos, dcfix, cs, ab, k_s)[0]
         after = _stage_counts()
         py = fs.fused_block_step_reference(frame, p_ring, rim, pos, dcfix, cs, ab, p_s)[0]
+        x_r, cs_r = _ring_plain(mdt, frame, cs)
+        fs.fused_block_step_reference(x_r, r_ring, rim, pos, dcfix, cs_r, ab, r_s)
         torch.cuda.synchronize()
         assert _rel(ky, py) < _TOL[storage]
-        _same_ring(storage, k_ring, p_ring, k_s, p_s)
+        _same_ring(storage, k_ring, r_ring, k_s, r_s)
         for name in ("window_forward", "quantize_rows", "ring_writeback", "step_mac", "step_reduce",
                      "window_inverse"):
             assert after[name] - before[name] == 1, name
         assert after["sched_widths"] == before["sched_widths"]  # no schedule, no widths launch
+
+
+# ------------------------------------------------- the FFT transform kernels
+
+_FFT_TOL = {torch.float32: 1e-6, torch.bfloat16: _TOL["bf16"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 48, 256, 512, 1024])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("wc", [1, 7, 64])
+@pytest.mark.parametrize("c", [1, 64])
+def test_fft_transforms_match_plain(cuda, rng, b, mdt, wc, c):
+    """``window_forward`` / ``window_inverse`` (shared-memory FFTs) against
+    their plain versions, the float64 products with the packed matrices:
+    both forward forms (B3's [N, 2B], B2's [2, N, B]) and both inverse
+    forms (B3's tail half, B2's all N samples), within 1e-6 of the peak for
+    f32 matrices and ``_TOL["bf16"]`` for bf16 ones (B = 48: the odd factor
+    3 through the direct stage)."""
+    n, i0 = 2 * b, 3
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, (i0 + wc + 1) * b)).astype(np.float32)).to(cuda)
+    cs_s, abt = mb.packed_stream_mats(n, mdt, cuda)
+    cs_b, ab = mb.packed_mats(n, mdt, cuda)
+    before = _stage_counts()
+    for mat in (cs_s, cs_b):
+        got = fs.window_forward(sig, mat, i0, wc)
+        assert _rel(got, fs.window_forward_reference(sig, mat, i0, wc)) < _FFT_TOL[mdt]
+    acc = torch.from_numpy(rng.standard_normal((wc, c, n)).astype(np.float32)).to(cuda)
+    for inv in (abt, ab.reshape(n, n)):
+        n_out = inv.shape[1]
+        out_k = fs.window_inverse(acc, inv, torch.full((c, (i0 + wc + 1) * n_out), 7.0, device=cuda), i0)
+        out_p = fs.window_inverse_reference(acc, inv, torch.full((c, (i0 + wc + 1) * n_out), 7.0, device=cuda), i0)
+        assert _rel(out_k, out_p) < _FFT_TOL[mdt]
+        assert bool((out_k[:, : i0 * n_out] == 7.0).all()) and bool((out_k[:, (i0 + wc) * n_out :] == 7.0).all())
+    after = _stage_counts()
+    assert (after["window_forward"] - before["window_forward"], after["window_inverse"] - before["window_inverse"]) == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [48, 512])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fft_rows_bits_do_not_depend_on_the_launch(cuda, rng, b, mdt):
+    """A row's bits are its own: one window of 64 blocks against 1 + 63,
+    and one channel launched alone against its row of 64 channels, for
+    both transforms."""
+    n, c = 2 * b, 64
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, 65 * b)).astype(np.float32)).to(cuda)
+    cs, abt = mb.packed_stream_mats(n, mdt, cuda)
+    whole = fs.window_forward(sig, cs, 0, 64)
+    split = torch.cat([fs.window_forward(sig, cs, 0, 1), fs.window_forward(sig, cs, 1, 63)])
+    alone = fs.window_forward(sig[5:6].contiguous(), cs, 0, 64)
+    assert torch.equal(whole, split) and torch.equal(whole[:, 5:6], alone)
+    acc = torch.from_numpy(rng.standard_normal((64, c, n)).astype(np.float32)).to(cuda)
+    o1 = fs.window_inverse(acc, abt, torch.empty((c, 64 * b), device=cuda), 0)
+    o2 = torch.empty((c, 64 * b), device=cuda)
+    fs.window_inverse(acc[:1], abt, o2, 0)
+    fs.window_inverse(acc[1:], abt, o2, 1)
+    o3 = fs.window_inverse(acc[:, 5:6].contiguous(), abt, torch.empty((1, 64 * b), device=cuda), 0)
+    assert torch.equal(o1, o2) and torch.equal(o1[5:6], o3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [48, 512])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fft_b2_and_b3_forward_bits_agree(cuda, rng, b, mdt):
+    """B2 and B3 transform the same frame to the same bits: the stage with
+    B2's [2, N, B] matrix on the frame against B3's [N, 2B] on the signal,
+    and, for the split storage (whose ring holds the spectrum as it is), the
+    ring row B2's one C call writes against the one B3 writes."""
+    n, c, p, i0 = 2 * b, 64, 4, 9
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, 12 * b)).astype(np.float32)).to(cuda)
+    frame = sig[:, i0 * b : i0 * b + n].contiguous()
+    cs_s, abt = mb.packed_stream_mats(n, mdt, cuda)
+    cs_b, ab = mb.packed_mats(n, mdt, cuda)
+    assert torch.equal(fs.window_forward(sig, cs_s, i0, 1), fs.window_forward(frame, cs_b, 0, 1))
+    if mdt != torch.float32:
+        return
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, 1, n))).astype(np.float32)).to(cuda)
+    dcfix = torch.zeros((2, c), device=cuda)
+    r2 = torch.zeros((2, p, c, b), device=cuda)
+    r3 = torch.zeros((2, p, c, b), device=cuda)
+    fs.fused_block_step(frame, r2, rim, 2, dcfix, cs_b, ab)
+    fs.fused_stream(frame, r3, rim, 2, dcfix[None], cs_s, abt)
+    torch.cuda.synchronize()
+    assert torch.equal(r2[:, 2], r3[:, 2]) and bool(r2[:, 2].abs().max() > 0)
+
+
+@pytest.mark.cuda
+def test_fft_kernels_take_only_the_dft(cuda, rng):
+    """On the card the transforms take only the packed DFT matrices: an
+    equal copy passes (compared once), any other matrix raises."""
+    b = 64
+    sig = torch.from_numpy(rng.uniform(-1, 1, (2, 4 * b)).astype(np.float32)).to(cuda)
+    cs = mb.packed_stream_mats(2 * b, torch.float32, cuda)[0]
+    copy = cs.clone()
+    assert torch.equal(fs.window_forward(sig, copy, 0, 2), fs.window_forward(sig, cs, 0, 2))
+    bad = cs.clone()
+    bad[3, 5] += 1.0
+    with pytest.raises(ValueError, match="packed DFT"):
+        fs.window_forward(sig, bad, 0, 2)
 
 
 @pytest.fixture

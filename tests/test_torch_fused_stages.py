@@ -130,6 +130,96 @@ def test_window_inverse_matches_blockwise(rng, storage):
     assert bool((untouched == 7.0).all())
 
 
+# ----------------------------------------- the transforms' contract (DFT)
+
+
+def _packed_rfft(x, b):
+    """np.fft.rfft of real frames [..., 2B] in the packed layout, float64:
+    re lanes 0..B-1 | im lanes 1..B-1 with the Nyquist real part in im
+    lane 0."""
+    spec = np.fft.rfft(x, axis=-1)
+    im = spec.imag[..., :b].copy()
+    im[..., 0] = spec.real[..., b]
+    return np.concatenate([spec.real[..., :b], im], axis=-1)
+
+
+def _packed_irfft(row, b):
+    """The real 2B-point inverse (1/N) of packed rows [..., 2B], float64."""
+    re, im = row[..., :b], row[..., b:]
+    spec = np.concatenate([re + 1j * np.concatenate([np.zeros_like(im[..., :1]), im[..., 1:]], axis=-1),
+                           im[..., :1] + 0j], axis=-1)
+    return np.fft.irfft(spec, n=2 * b, axis=-1)
+
+
+@pytest.mark.parametrize("b", [8, 48, 96, 512, 1024])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_transform_plain_versions_are_the_packed_dft(rng, b, mdt):
+    """The plain transform stages (the kernels' contract) equal numpy's
+    real FFT in float64, packed, for both matrix forms each way: the frames
+    rounded to the matrix dtype, then within 1e-6 of the peak for f32
+    matrices (their float32 rounding) and ``_TOL['bf16']`` for bf16 ones
+    (B = 48, 96: the odd factor 3 the kernels' direct stage takes)."""
+    n, c, wc, i0 = 2 * b, 2, 3, 1
+    tol = _EXACT if mdt == torch.float32 else _TOL["bf16"]
+    x = torch.from_numpy(rng.uniform(-1, 1, (c, (i0 + wc + 1) * b)).astype(np.float32))
+    xr = x.to(mdt).double().numpy()
+    want = np.stack([_packed_rfft(xr[:, (i0 + i) * b : (i0 + i + 2) * b], b) for i in range(wc)])
+    for mat in (tmb.packed_stream_mats(n, mdt, "cpu")[0], tmb.packed_mats(n, mdt, "cpu")[0]):
+        assert _rel(tfs.window_forward(x, mat, i0, wc), want) < tol
+    acc = torch.from_numpy(rng.standard_normal((wc, c, n)).astype(np.float32))
+    full = _packed_irfft(acc.to(mdt).double().numpy(), b)  # [wc, C, N]
+    for inv, part in ((tmb.packed_stream_mats(n, mdt, "cpu")[1], full[..., b:]),
+                      (tmb.packed_mats(n, mdt, "cpu")[1].reshape(n, n), full)):
+        n_out = inv.shape[1]
+        out = tfs.window_inverse(acc, inv, torch.zeros((c, (i0 + wc) * n_out)), i0)
+        got = out[:, i0 * n_out :].reshape(c, wc, n_out).transpose(0, 1)
+        assert _rel(got, part) < tol
+
+
+@pytest.mark.parametrize("b", [8, 48, 96, 130, 512, 1000, 1024])
+def test_fft_twiddle_tables_follow_the_radix_plan(b):
+    """``fft_radices`` factors B as the kernels' stages take it, and each
+    stage's twiddle table holds W_{Ns R}^{k r} at [(r - 1) Ns + k] after
+    the N base twiddles W_N^q (float64 on the host, stored as f32)."""
+    n = 2 * b
+    m, radices = tfs.fft_radices(b)
+    assert m % 2 == 1 and m * int(np.prod(radices)) == b and set(radices) <= {2, 4, 8}
+    tw = tfs.twiddles(n, "cpu").double().numpy()
+    w = tw[:, 0] + 1j * tw[:, 1]
+    np.testing.assert_allclose(w[:n], np.exp(-2j * np.pi * np.arange(n) / n), atol=1e-7)
+    off, ns = n, m
+    for r in radices:
+        k = np.arange(ns)
+        for j in range(1, r):
+            np.testing.assert_allclose(w[off + (j - 1) * ns + k], np.exp(-2j * np.pi * j * k / (ns * r)), atol=1e-7)
+        off, ns = off + (r - 1) * ns, ns * r
+    assert off == len(w) and ns == b
+
+
+def test_fused_kernels_take_only_the_packed_dft(rng):
+    """B2 and B3 take the packed DFT matrices only (the kernels compute the
+    DFT): the cached tensors, equal copies (compared once), views of their
+    memory; any other matrix raises, on the CPU route too."""
+    ring, _ = _ring(rng, "split", 4)
+    rim = _rim(rng, "split", 4)
+    sig = torch.from_numpy(rng.uniform(-1, 1, (C, 6 * B)).astype(np.float32))
+    dcfix = torch.zeros((5, 2, C))
+    cs, abt = tmb.packed_stream_mats(2 * B, torch.float32, "cpu")
+    want = tfs.fused_stream(sig, ring.clone(), rim, 0, dcfix, cs, abt)[0]
+    got = tfs.fused_stream(sig, ring.clone(), rim, 0, dcfix, cs.clone(), abt.clone())[0]
+    assert torch.equal(got, want)
+    for bad_cs, bad_abt in ((cs + 1e-3, abt), (cs, abt * 2), (torch.eye(2 * B), abt),
+                            (cs.to(torch.bfloat16).float(), abt)):
+        with pytest.raises(ValueError, match="packed DFT"):
+            tfs.fused_stream(sig, ring.clone(), rim, 0, dcfix, bad_cs, bad_abt)
+    cs_b, ab = tmb.packed_mats(2 * B, torch.float32, "cpu")
+    frame = sig[:, : 2 * B].contiguous()
+    tfs.fused_block_step(frame, ring.clone(), rim, 1, dcfix[0], cs_b, ab)
+    with pytest.raises(ValueError, match="packed DFT"):
+        tfs.fused_block_step(frame, ring.clone(), rim, 1, dcfix[0], cs_b, ab.flip(-1).contiguous())
+    tfs._check_dft(ab.reshape(2 * B, 2 * B), 2 * B, inverse=True)  # a view of the cached memory
+
+
 @pytest.mark.parametrize("storage", _STORAGES)
 def test_quantize_rows_matches_numpy(rng, storage):
     """Peak scale per (block, channel), ``x / scale * int_max``, rint,

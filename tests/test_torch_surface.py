@@ -509,3 +509,171 @@ def test_port_scripts_import_no_jax(script):
                  else [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level else [])
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "neojax"), f"{script}: {name}"
+
+
+# ------------------------------------------------------- signature parity
+
+# The JAX-only parameters the port leaves out, by name (ROADMAP §C):
+# ``precision=`` of fft.matmul_backend (its products are IEEE float32),
+# ``mats=`` (the port caches its matrices per device), ``interpret`` and
+# ``shared_filter`` of the kernel wrappers, ``make_mesh(devices=)``.
+_JAX_ONLY = {
+    "neojax.fft.matmul_backend": {"precision", "mats"},
+    "*": {"mats"},
+    "neojax.kernels.fused_step": {"interpret", "shared_filter"},
+    "neojax.kernels.fdl_mac": {"interpret"},
+    "neojax.kernels.sparse_mac": {"interpret"},
+    "neojax.kernels.nested_mac": {"interpret"},
+    "neojax.dist.mesh": {"devices"},
+    "neojax.dist": {"devices"},
+}
+# names the port does not carry: ``dist.mesh.P`` (jax's PartitionSpec), the
+# Pallas entry points (the port's kernels are ``fdl_mac``,
+# ``sparse_fdl_mac`` and ``nested_mac``), the TPU-only 8-lane filter
+# layout, and the orbax pair (``save_state_dcp``/``load_state_dcp``)
+_NOT_PORTED = {"P", "fdl_mac_pallas", "sparse_fdl_mac_pallas", "nested_mac_pallas", "shift8_filter",
+               "save_state_orbax", "load_state_orbax"}
+
+
+def _neojax_modules():
+    import pkgutil
+
+    names = ["neojax"] + [m.name for m in pkgutil.walk_packages(neojax.__path__, "neojax.")]
+    return sorted(n for n in names if n != "neojax.fft.four_step")  # left out by design (A10)
+
+
+def _public_callables(mod):
+    import inspect
+
+    names = getattr(mod, "__all__", None)
+    if names is None:
+        names = [n for n, v in vars(mod).items()
+                 if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == mod.__name__]
+    return [n for n in names if callable(getattr(mod, n, None)) and not inspect.ismodule(getattr(mod, n))]
+
+
+def _param_names(fn):
+    import inspect
+
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return None
+    return [p.name for p in params if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+@pytest.mark.parametrize("module", _neojax_modules())
+def test_signatures_are_a_prefix_of_the_ports(module):
+    """Every public callable of a ``neojax`` module exists in the port's
+    module of the same path, and its parameter names (less the JAX-only
+    ones) are a prefix, in order, of the port's: a call written against
+    ``neojax`` binds the same arguments on the port."""
+    import importlib
+
+    jm = importlib.import_module(module)
+    tm = importlib.import_module(module.replace("neojax", "neojax_torch", 1))
+    skip = _JAX_ONLY["*"] | _JAX_ONLY.get(module, set())
+    for name in _public_callables(jm):
+        if name in _NOT_PORTED:
+            continue
+        assert hasattr(tm, name), f"{tm.__name__}.{name} missing"
+        jp, tp = _param_names(getattr(jm, name)), _param_names(getattr(tm, name))
+        if jp is None or tp is None:
+            continue
+        jp = [p for p in jp if p not in skip]
+        assert tp[: len(jp)] == jp, f"{module}.{name}: neojax {jp}, port {tp}"
+
+
+# ------------------------------------------------------ P5: backend keywords
+
+
+def _p5_run(cfg_kw, rng, storage="split", nb=6, b=32, p=4, c=2):
+    from neojax_torch.conv import convolver as tcv
+
+    parts = ((rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, nb * b)).astype(np.float32))
+    cfg = tcv.PartitionedConfig(b, p, c, storage=storage, **cfg_kw)
+    prm = tcv.filter_params(cfg, parts, device=CPU)
+    _, out = tcv.process(cfg, prm, tcv.init_state(cfg, device=CPU), sig)
+    outs = [out]
+    st = tcv.init_state(cfg, device=CPU)
+    for i in range(nb):  # the per-block route too
+        st, y = tcv.step(cfg, prm, st, sig[:, i * b : (i + 1) * b])
+        outs.append(y)
+    return [o.numpy() for o in outs]
+
+
+@pytest.mark.parametrize("storage", ["split", "int8"])
+@pytest.mark.parametrize("name,port_name", [("auto", "kernel"), ("pallas", "kernel"), ("xla", "torch")])
+def test_p5_mac_backend_spellings(storage, name, port_name):
+    """``mac_backend`` takes the JAX package's spellings, each bit-equal to
+    the port's own name of its route (per block and streamed)."""
+    got = _p5_run({"mac_backend": name}, np.random.default_rng(3), storage)
+    want = _p5_run({"mac_backend": port_name}, np.random.default_rng(3), storage)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("storage", ["dense", "split"])
+@pytest.mark.parametrize("backend", ["xla", "matmul", "auto"])
+def test_p5_fft_backend_routes(storage, backend):
+    """``PartitionedConfig(fft_backend=)`` in the reference's position (after
+    ``storage``) reaches ``fft.api`` where the port has a choice (dense, and
+    the non-packed split layout) and agrees with the default route within
+    1e-5 of the peak; the packed layout has one route and ignores it."""
+    from neojax_torch.conv import convolver as tcv
+
+    cfg = tcv.PartitionedConfig(32, 4, 2, "upols", storage, backend)
+    assert cfg.fft_backend == backend and cfg.layout == "ring"
+    for packed in ((None, False) if storage == "split" else (None,)):
+        got = _p5_run({"fft_backend": backend, "packed": packed}, np.random.default_rng(4), storage)
+        want = _p5_run({"packed": packed}, np.random.default_rng(4), storage)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-5 * max(1.0, float(np.abs(w).max())), rtol=0)
+
+
+def test_p5_convolver_positional_order(rng):
+    """``Convolver(scheme, storage, fft_backend, sparsity, require_sparsity)``
+    binds as on ``neojax``, ``device`` last; the aliases follow."""
+    c = tconv.Convolver("upols", "dense", "matmul", None, False, CPU)
+    assert c._fft_backend == "matmul" and c._default_sparsity is None and not c._require_sparsity
+    ir = rng.uniform(-1, 1, 96).astype(np.float32) * 0.3
+    sig = rng.uniform(-1, 1, (2, 8 * 32)).astype(np.float32)
+    c.filter(tconv.uniform_partition(ir, 32, "xla"))
+    assert c.config.fft_backend == "matmul"
+    out = c.process(sig).numpy()
+    ref = np.stack([np.convolve(x, ir)[: sig.shape[1]] for x in sig])
+    np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max(), rtol=0)
+    j = jconv.Convolver("upols", "dense", "matmul", None, False)
+    assert j._fft_backend == "matmul"
+    d = tconv.make_convolver("upols", "split", fft_backend="xla", device=CPU)
+    assert d._fft_backend == "xla" and d._storage == "split"
+
+
+def test_p5_uniform_partition_and_stft_backend(make_noise):
+    """``uniform_partition(ir, B, backend)`` accepts and ignores its
+    backend, as ``neojax`` does; ``stft(x, options, backend)`` takes it
+    third and routes it to ``fft.api`` (``device`` after it)."""
+    ir = make_noise(2, 200)
+    base = tconv.uniform_partition(ir, 64)
+    for backend in ("xla", "matmul", None):
+        np.testing.assert_array_equal(tconv.uniform_partition(ir, 64, backend), base)
+        np.testing.assert_array_equal(tconv.uniform_partition(ir, 64, backend=backend), base)
+    x = make_noise(2, 1000)
+    opt = tfft.StftOptions(frame_size=128, transform_size=128, overlap_size=64)
+    want = np.asarray(jfft.stft(x, opt, "xla"))
+    for backend in ("xla", "matmul", "auto"):
+        got = tfft.stft(x, opt, backend, CPU).numpy()
+        np.testing.assert_allclose(got, want, atol=_scaled_tol(want), rtol=0)
+        np.testing.assert_array_equal(tfft.stft(x, opt, backend=backend, device=CPU).numpy(), got)
+
+
+def test_p5_fused_block_above_max_raises():
+    """Departure (ROADMAP §C): ``fused=True`` with a block above the fused
+    kernels' 1024 raises on the port; ``neojax`` builds the config."""
+    from neojax_torch.conv import convolver as tcv
+
+    with pytest.raises(ValueError):
+        tcv.PartitionedConfig(2048, 4, 2, storage="split", fused=True)
+    jconv.PartitionedConfig(2048, 4, 2, storage="split", fused=True)
