@@ -256,7 +256,8 @@ def snr_db(out: np.ndarray, ref: np.ndarray) -> float:
 def mac_ptxas(log_path: str) -> list[dict]:
     """Registers and spill bytes of each instance of the partition MAC
     (``step_mac_kernel``, ``step_reduce_kernel``; in ``probes.cu`` T1's
-    probe mode) in the nvcc log, by translation unit."""
+    probe mode) and of B3's ``stream_mac_kernel`` in the nvcc log, by
+    translation unit."""
     out, cur = [], None
     if not os.path.exists(log_path):
         return out
@@ -265,7 +266,7 @@ def mac_ptxas(log_path: str) -> list[dict]:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 name = m.group(1)
-                hit = re.search(r"(step_(?:mac|reduce)_kernel\w*?)(?:EEEv|EEvP)", name)
+                hit = re.search(r"((?:step_(?:mac|reduce)|stream_mac)_kernel\w*?)(?:EEEv|EEvP)", name)
                 cur = None
                 if hit:
                     unit = next((u for u in ("fdl_mac", "probes") if f"{u}_cu" in name), "fused_step")
@@ -341,6 +342,31 @@ def trace_events(fn) -> list[dict]:
 def snr_window(a, start: int) -> np.ndarray:
     """The steady-state SNR window: SNR_BLOCKS blocks of SNR_CH channels."""
     return np.asarray(a[:SNR_CH, start * BLOCK : (start + SNR_BLOCKS) * BLOCK], np.float64)
+
+
+def stream_mac_toeplitz(ring, x, rim, pos_first):
+    """The operands of ``stream_mac``'s yardstick (split storage, Cf = 1):
+    for each lane k, T_k [wc, P - 1 + wc], the filter value block i meets at
+    history row q (d = q - P + 1; the rim row it reads, untiled rim
+    included; zero outside its P taps), and H_k [P - 1 + wc, C], the ring's
+    rows as they stood and then the window's, complex64. (T_k H_k)[i, c] is
+    the kernel's acc[i, c, k] before the seed, lane 0 and rounding."""
+    import torch
+
+    _, p, c, b = ring.shape
+    wc = x.shape[0]
+    dev = ring.device
+    old = torch.tensor([(pos_first + d) % p for d in range(-(p - 1), 0)], dtype=torch.long, device=dev)
+    hist = torch.cat([ring[:, old].transpose(0, 1), x])  # [P - 1 + wc, 2, C, B]
+    h = torch.complex(hist[:, 0], hist[:, 1]).permute(2, 0, 1).contiguous()
+    del hist
+    i = torch.arange(wc, device=dev)[:, None]
+    a = i - (torch.arange(p - 1 + wc, device=dev)[None, :] - (p - 1))  # the tap, [wc, P - 1 + wc]
+    row = torch.where(a <= (pos_first + i) % p, p - 1 - a, 2 * p - 1 - a).clamp(0, 2 * p - 1)
+    f = rim[row, 0]  # [wc, P - 1 + wc, 2B]
+    t = torch.complex(f[..., :b], f[..., b:]) * ((a >= 0) & (a < p))[..., None]
+    del f
+    return t.permute(2, 0, 1).contiguous(), h
 
 
 def run_ring_read(dev, card, rng, cuda_ms, device_ms, bound_of) -> dict:
@@ -1698,6 +1724,7 @@ def main(dist_only: bool = False) -> int:
     from neojax_torch.conv import hybrid as hy
     from neojax_torch.conv import nested as ne
     from neojax_torch.kernels import fdl_mac as mac_mod
+    from neojax_torch.core.device import ieee_float32
     from neojax_torch.kernels import fused_step as fs_mod
     from neojax_torch.kernels import nested_mac as nm_mod
     from neojax_torch.kernels import sparse_mac as sm_mod
@@ -1729,9 +1756,13 @@ def main(dist_only: bool = False) -> int:
         with open(log_path) as f:
             ptxas = [ln.strip() for ln in f
                      if any(w in ln for w in ("Function properties", "registers", "spill"))]
+    mac_lines = mac_ptxas(log_path)
     emit(phase="build", seconds=time.perf_counter() - t0, built=info["built"],
          library=os.path.relpath(info["path"], os.path.dirname(os.path.abspath(__file__))),
-         ptxas=ptxas, partition_mac=mac_ptxas(log_path))
+         ptxas=ptxas, partition_mac=mac_lines)
+    # the stage map below finds B3's MAC in a trace by this kernel name
+    assert not mac_lines or any(r["kernel"].startswith("stream_mac_kernel") for r in mac_lines), \
+        "no stream_mac_kernel in the build log"
 
     if dist_only:  # the dist phase alone, for work on it; no kernels line and no ok line
         res = run_dist(torch.device(DEVICE), card)
@@ -2781,9 +2812,33 @@ def main(dist_only: bool = False) -> int:
                        "library_call": "the B1 row's complex einsum: the same MAC over the same ring (one "
                                        "sum; the kernel's P splits are summed by step_reduce)"}
     del cs_l, abt_l, sig_l, frames, acc_l, spec_l, ring_l, x_l
+    # stream_mac: per lane the Toeplitz product T_k H_k, one batched complex
+    # matmul (Cf = 1, split), first held against the plain version at a
+    # small shape so that it computes the same function
+    r_s, x_s = (torch.randn(shape, device=dev, generator=gen) for shape in ((2, 24, 3, 32), (10, 2, 3, 32)))
+    rim_s = torch.randn((48, 1, 64), device=dev, generator=gen)
+    t_s, h_s = stream_mac_toeplitz(r_s, x_s, rim_s, 20)
+    want = fs_mod.stream_mac_reference(r_s, None, x_s, None, rim_s, torch.zeros((10, 2, 3), device=dev), 20)
+    with ieee_float32():
+        got = torch.matmul(t_s, h_s).permute(1, 2, 0)  # [wc, C, B]
+    yard_err = rel_err(torch.cat([got.real[..., 1:], got.imag[..., 1:]], -1).cpu(),
+                       torch.cat([want[..., 1:32], want[..., 33:]], -1).cpu())[1]  # lane 0 is dcfix's
+    assert yard_err < 1e-5, f"stream_mac's yardstick is not its function: {yard_err}"
+    ring_l = torch.randn((2, P, c, b), device=dev, generator=gen)
+    x_l = torch.randn((64, 2, c, b), device=dev, generator=gen)
+    rim_l = torch.randn((2 * P, 1, n), device=dev, generator=gen) * 0.05
+    t_l, h_l = stream_mac_toeplitz(ring_l, x_l, rim_l, P - 5)
+    del ring_l, x_l, rim_l
+    with ieee_float32():
+        lib["stream_mac"] = {"library_ms": device_ms(lambda: torch.matmul(t_l, h_l), 10),
+                             "library_call": "torch.matmul of T [512, 64, 1023] by H [512, 1023, 64], complex64, "
+                                             "IEEE f32 (core.device.ieee_float32): per lane the Toeplitz matrix "
+                                             "of the rim rows each block meets (untiled rim) by the history, "
+                                             "built outside the timed region",
+                             "library_rel_diff_small": yard_err}
+    del t_l, h_l, r_s, x_s, rim_s, t_s, h_s
+    torch.cuda.empty_cache()
     for name, note in (("quantize_rows", "a peak scale, rint and clamp per row are several calls"),
-                       ("stream_mac", "a causal complex convolution along time over a ring and the staged "
-                                      "rows, with per-row scales: no one call"),
                        ("step_reduce", "sum, lane-0 overwrite and rounding are several calls"),
                        ("sched_widths", "a scatter-max of the chunk tables: no one call")):
         lib[name] = {"library_ms": None, "library_note": note}

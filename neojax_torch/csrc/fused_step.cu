@@ -21,16 +21,20 @@
 //   1. transform.cu: the window's forward DFTs, one shared-memory FFT a row
 //   2. quantize_kernel: spectra -> staged rows X_new [W, 2, C, B] in the
 //      storage dtype and their scales [W, C]
-//   3. stream_mac_kernel: the time-batched MAC. Block i's sum
-//      sum_a filt[a] X[i - a] is a causal convolution along time, so a
-//      thread keeps 16 blocks' accumulators in registers and slides a
-//      register window of 31 history rows along the taps (oldest first,
-//      the small terms of the decaying filter before the large): each history
-//      element and each filter element it loads feeds 16 complex
-//      multiply-adds, and a ring row is read once per 16 blocks instead of
-//      once per block. History rows inside the window come from X_new,
-//      older ones from the ring (not yet overwritten: step 4 comes after).
-//      Bound: operations (16.1 GFLOP for 64 blocks at the headline shape).
+//   3. stream_mac_kernel: the time-batched MAC, the MAC of fused_stream.
+//      Block i's sum sum_a filt[a] X[i - a] is, for each lane, a complex
+//      product of a Toeplitz matrix of filter rows [blocks, history rows]
+//      by the history [history rows, channels]. Bound: operations (16.1
+//      GFLOP for 64 blocks at the headline shape, 0.24 ms of f32 FFMA; the
+//      ring's bytes 0.075 ms). A CTA owns 8 lanes x 16 channels x 64
+//      blocks and walks the history rows, oldest first, in steps of 16:
+//      cp.async copies each step's history tile and the filter taps it
+//      meets into shared memory, three stages deep, and a thread keeps 8
+//      blocks x 4 channels of its lane in registers, so each value it
+//      reads from shared memory feeds 8 blocks or 4 channels and the
+//      filter values slide along the Toeplitz diagonal in registers.
+//      History rows inside the window come from X_new, older ones from the
+//      ring (not yet overwritten: step 4 comes after).
 //   4. writeback_kernel: X_new and its scales into the ring slots, in their
 //      own launch after the MAC (the last write wins when W > P)
 //   5. transform.cu: the inverse FFTs, straight into the output
@@ -46,10 +50,10 @@
 // Sparse filters: widths_kernel turns the chunk schedule (the full [P, L]
 // tables) into a [P, P / pc] table of live lane widths (0: not flagged).
 // Block i honours row (pos0 + i) % P: slot p contributes on lanes k <
-// width[row, p / pc]. The MACs skip (tap chunk, block tile, lane tile)
-// tiles that are dead for every block of the tile and mask the terms of
-// mixed tiles, in the dense kernel's summation order, so the scheduled
-// kernels equal the dense ones on a masked filter.
+// width[row, p / pc]. The MACs skip what is dead for every term of a tile
+// (B3: a step of history rows on a CTA's lanes; B2: a chunk of slots) and
+// mask the terms of mixed tiles, in the dense kernel's summation order, so
+// the scheduled kernels equal the dense ones on a masked filter.
 #include "step_mac.cuh"
 
 namespace {
@@ -129,9 +133,74 @@ __global__ void __launch_bounds__(kRowThreads) widths_kernel(const int* __restri
   }
 }
 
-// ---- 3. the time-batched MAC (B3)
-constexpr int kWT = 16;           // blocks a thread; also taps a chunk
-constexpr int kMacThreads = 128;  // lanes a CTA
+// ---- 3. the time-batched MAC (B3): stream_mac_kernel
+//
+// Replaces the MAC of neojax/kernels/fused_step.py :: fused_stream (the
+// `accumulate` of _mk_stream_kernel). Block i of the window (ring position
+// pos_i) sums seed_i + sum over the taps a < P of filt_i[a] * X[i - a]:
+// history row d = i - a is the window's staged row d (d >= 0) or ring slot
+// (pos_first + d) mod P, each dequantized with its own scale; tap a meets
+// filter row P - 1 - a when a <= pos_i, else 2P - 1 - a (the two halves of
+// the untiled rim; equivalently, rows d < thr_i = i - pos_i meet the upper
+// half). For one lane this is a complex product acc [blocks, channels] =
+// T H of the Toeplitz matrix T [blocks, history rows] of the filter rows
+// and the history H [history rows, channels].
+//
+// Bound: operations, 8 flops a (block, tap, channel, lane): 16.1 GFLOP for
+// the headline window (64 blocks, P = 960, C = 64, B = 512), 0.24 ms at the
+// H100's 67 TFLOP/s of f32 FFMA; the ring's bytes, read once, take 0.075 ms.
+//
+// Design. A CTA owns kLanes lanes, a tile of Ct = 4 NC channels and
+// kBlocks blocks, and walks the history rows its blocks meet, oldest
+// first, in steps of kRows. Each step's history tile [kRows, 2, Ct,
+// kLanes] (storage dtype, and the rows' scales) goes global -> shared by
+// cp.async into a ring of kStages stages: the copies of the next two steps
+// are in flight during this step's FFMAs, and one barrier a step hands a
+// stage over. The filter taps live in a ring of their own in shared memory
+// ([2 halves, 2 planes, Ct', kRing + kTail, kLanes] in the matrix dtype;
+// tap a at slot a mod kRing, the first kTail slots mirrored after the
+// last so that a thread's taps of a step are contiguous): a step copies
+// only the kRows taps its rows meet first, each tap is copied once a CTA,
+// and a half no block of the CTA meets is not copied. T is never formed.
+// A warp is kMB consecutive blocks x 8 lanes x 4 channel groups; a thread
+// keeps its lane's kMB blocks x NC channels in registers (64 f32 at NC =
+// 4). Each history value it reads from shared memory feeds kMB blocks and
+// each filter value NC channels; where its blocks all meet one half over
+// the step, block j meets at row r the value block j - 1 met at row r - 1
+// (T's diagonal), so the values slide through registers and a row costs
+// 2 NC + 2 shared reads for 4 kMB NC FFMAs (2 NC + 4 where the warp's
+// blocks straddle a wrap of the ring, whose two sides meet two halves).
+// Values are widened to f32 (int rows times their scale) as they leave
+// shared memory. The first and last steps of a warp, and the steps of a
+// schedule that are live on some but not all of the CTA's terms, mask
+// each (block, row) term by one bit (its tap in [0, P), its lane live);
+// a step in which a block's filter half changes, a warp with fewer than
+// kMB blocks and P < kMB take the general loop, which checks each (block,
+// row). With a schedule a step whose terms are dead on every lane of the
+// CTA copies no history and runs nothing. The unrolled rows are
+// kept to groups of 4 (a whole step is ~2300 instructions, and warps in
+// different variants of it at once thrash the instruction cache).
+// Occupancy: at most 128 registers a thread (launch bounds), two CTAs of
+// 8 warps an SM at the headline (74 KB of shared memory each): 256 CTAs,
+// one wave on 132 SMs. Per-channel filters (Cf = C) keep each channel's
+// taps, so their tile is NC = 1 (Ct = 4).
+//
+// Summation order: each (block, channel, lane) sum is one f32 accumulator,
+// seeded, that takes its taps by ascending history row (oldest first: the
+// small terms of the decaying filter before the large) through cmac,
+// skipping the taps outside [0, P) and a schedule's dead terms (exact zeros
+// of the dense sum). No split over taps, no atomics: a block's bits do not
+// depend on its place in the window, on wc, on the steps' alignment, on
+// the channel count, the channel or lane tile or on the grid.
+constexpr int kLanes = 8;                        // lanes a CTA
+constexpr int kMB = 8;                           // consecutive blocks a thread (and a warp)
+constexpr int kBlocks = 64;                      // blocks a CTA: a warp each kMB
+constexpr int kRows = 16;                        // history rows a step
+constexpr int kStages = 3;                       // cp.async stages of the history
+constexpr int kRing = 128;                       // filter tap slots (>= the kBlocks + kRows - 1 taps
+                                                 // of a step and the 2 kRows copied ahead)
+constexpr int kTail = 32;                        // mirrored slots: a thread's kMB + kRows - 1 taps
+constexpr int kMacThreads = 32 * kBlocks / kMB;  // 256
 
 template <typename T, typename M>
 struct MacArgs {
@@ -145,177 +214,390 @@ struct MacArgs {
   const int* wtab;      // [P, nchunks] or null
   float* acc;           // [wc, C, 2B]
   int P, C, B, Cf, wc, pos_first, pc, nchunks;
+  int vec_h, vec_f;     // cp.async piece bytes of the history and filter tiles (0: element by element)
 };
 
-// One chunk of kWT taps from a0 for the thread's kWT blocks. Block u at
-// ring position pos[u] meets tap a at filter row P-1-a (a <= pos[u]) or
-// 2P-1-a (the rows the block-by-block kernel reads; one filter when the
-// rim is tiled). f0 holds the row of a pure chunk, f1 the 2P-1-a row of a
-// mixed one (kMixed). kMasked: term (u, t) only on lanes k < wd[u][t].
-// Taps go from the oldest to the newest (t descending): the filter decays,
-// so the small terms are summed before the large ones.
-template <bool kMasked, bool kMixed, typename M>
-__device__ __forceinline__ void mac_chunk(float (&ar)[kWT], float (&ai)[kWT],
-                                          const float (&xr)[2 * kWT - 1],
-                                          const float (&xi)[2 * kWT - 1], const M* fbase,
-                                          size_t frow, int B, int P, int a0, bool hi, int k,
-                                          const int* pos, const int (*wd)[kWT]) {
-#pragma unroll
-  for (int t = kWT - 1; t >= 0; --t) {
-    const int a = a0 + t;
-    float f0r = 0.0f, f0i = 0.0f, f1r = 0.0f, f1i = 0.0f;
-    if (a < P) {
-      const M* f = fbase + static_cast<size_t>((hi && !kMixed ? 2 * P : P) - 1 - a) * frow;
-      f0r = to_f32(f[0]);
-      f0i = to_f32(f[B]);
-      if (kMixed) {
-        f += static_cast<size_t>(P) * frow;
-        f1r = to_f32(f[0]);
-        f1i = to_f32(f[B]);
-      }
+// Shared bytes, each region a multiple of 16: the filter ring [2, 2, ctf,
+// kRing + kTail, kLanes] M, then kStages stages of history [kRows, 2, Ct,
+// kLanes] T, scales [kRows, Ct] f32 (int storages) and live widths
+// [kBlocks, kRows] int16. Mirrored by kernels/fused_step.py ::
+// stream_mac_geometry.
+struct MacLayout {
+  int filt, hist, scl, wd;
+  __host__ __device__ int stage() const { return hist + scl + wd; }
+  __host__ __device__ int total() const { return filt + kStages * stage(); }
+};
+
+__host__ __device__ inline MacLayout mac_layout(int t_size, int m_size, int ct, int ctf, bool quant) {
+  return MacLayout{4 * ctf * (kRing + kTail) * kLanes * m_size, kRows * 2 * ct * kLanes * t_size,
+                   quant ? kRows * ct * 4 : 0, kBlocks * kRows * 2};
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy n segments of kLanes elements E (lanes < nv of each) from src_of(s)
+// (null: not needed) to dst_of(s), split over the CTA's threads in pieces
+// of v bytes (v = 0: element by element, through registers, where the rows
+// are not 4-byte aligned).
+template <typename E, typename S, typename D>
+__device__ __forceinline__ void stage_segments(int n, int nv, int v, S src_of, D dst_of) {
+  if (v > 0) {
+    const int lanes = v / static_cast<int>(sizeof(E));  // lanes a piece
+    const int sh = __ffs(kLanes / lanes) - 1;           // log2(pieces a segment)
+    for (int e = threadIdx.x; e < (n << sh); e += kMacThreads) {
+      const int s = e >> sh, l0 = (e & ((1 << sh) - 1)) * lanes;
+      if (l0 >= nv) continue;
+      const E* src = src_of(s);
+      if (src) cp_async(dst_of(s) + l0, src + l0, v);
     }
-#pragma unroll
-    for (int u = 0; u < kWT; ++u) {
-      if (kMasked && k >= wd[u][t]) continue;
-      const bool up = kMixed && a > pos[u];
-      cmac(ar[u], ai[u], xr[u - t + kWT - 1], xi[u - t + kWT - 1], up ? f1r : f0r, up ? f1i : f0i);
+  } else {
+    for (int e = threadIdx.x; e < n * kLanes; e += kMacThreads) {
+      const int s = e / kLanes, l = e % kLanes;
+      if (l >= nv) continue;
+      const E* src = src_of(s);
+      if (src) dst_of(s)[l] = src[l];
     }
   }
 }
 
-// grid (block tiles of kWT, lane tiles of kMacThreads, C)
-template <typename T, typename M, bool kSched>
-__global__ void __launch_bounds__(kMacThreads) stream_mac_kernel(MacArgs<T, M> g) {
-  constexpr bool kQuant = Traits<T>::kQuant;
-  constexpr float kInvMax = 1.0f / Traits<T>::kIntMax;
-  __shared__ int wd[2][kWT][kWT];  // scheduled: live width of (block, tap) in a chunk
-  __shared__ int pos[kWT];         // ring position of each block of the tile
-  const int u0 = blockIdx.x * kWT;
-  const int kbase = blockIdx.y * kMacThreads;
-  const int k = kbase + threadIdx.x;
-  const int c = blockIdx.z;
-  const bool on = k < g.B;
-  const int kk = on ? k : 0;
-  const size_t row = static_cast<size_t>(g.C) * g.B;
-  const size_t plane = static_cast<size_t>(g.P) * row;
-  const size_t frow = static_cast<size_t>(g.Cf) * 2 * g.B;
-  const M* fbase = g.rim + (g.Cf == 1 ? 0 : static_cast<size_t>(c) * 2 * g.B) + kk;
-  const size_t cb = static_cast<size_t>(c) * g.B + kk;
-  const int nu = min(kWT, g.wc - u0);  // blocks of this tile
-  if (threadIdx.x < kWT) pos[threadIdx.x] = (g.pos_first + u0 + threadIdx.x) % g.P;
-  __syncthreads();
-  int pmin = g.P, pmax = -1;
-  for (int u = 0; u < nu; ++u) {
-    pmin = min(pmin, pos[u]);
-    pmax = max(pmax, pos[u]);
+// The thread's NC history values of row r of a stage, widened to f32 and
+// dequantized as x * (scale * inv_max).
+template <typename T, int NC>
+__device__ __forceinline__ void load_x(float (&xr)[NC], float (&xi)[NC], const T* hs, const float* ss,
+                                       int r) {
+  constexpr int Ct = 4 * NC;
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    xr[q] = to_f32(hs[(2 * r * Ct + 4 * q) * kLanes]);
+    xi[q] = to_f32(hs[((2 * r + 1) * Ct + 4 * q) * kLanes]);
+    if (Traits<T>::kQuant) {
+      const float s = ss[r * Ct + 4 * q] * (1.0f / Traits<T>::kIntMax);
+      xr[q] *= s;
+      xi[q] *= s;
+    }
   }
+}
 
-  // history block d (window-relative; d < 0: ring slot (pos_first + d) mod P)
-  auto load_x = [&](int d, float& xr, float& xi) {
-    if (!on || d >= g.wc) {
-      xr = xi = 0.0f;
-      return;
+// A step in which each of the thread's blocks meets one filter half: fre /
+// fim point at the
+// value block 0 meets at row 0 (gre / gim: the same index in the half of
+// the blocks j >= jw, kSplit), block j at row r reads index j - r. That is
+// the value block j - 1 read at row r - 1, so the values slide through
+// registers: a row loads block 0's value (and, kSplit, block jw's, where
+// the blocks after a wrap of the ring meet the other half). kMasked: term
+// (r, j) only where bit 16 j + r of live (two blocks a word) is set: its
+// tap is in [0, P) and, with a schedule, live on the lane. The rows run
+// in groups of kGroup unrolled rows: a fully
+// unrolled step of 4 channels is ~2300 instructions, and warps running
+// different variants of it at once thrash the instruction cache.
+template <typename T, typename M, int NC, bool kSplit, bool kMasked>
+__device__ __forceinline__ void mac_fast(float (&ar)[kMB][NC], float (&ai)[kMB][NC], const T* hs,
+                                         const float* ss, const M* fre, const M* fim, const M* gre,
+                                         const M* gim, int jw, const unsigned (&live)[kMB / 2]) {
+  constexpr int Ct = 4 * NC;
+  constexpr int kGroup = NC > 1 ? 4 : kRows;
+  float fr[kMB], fi[kMB];
+#pragma unroll
+  for (int j = 0; j < kMB; ++j) {
+    const bool g1 = kSplit && j >= jw;
+    fr[j] = to_f32((g1 ? gre : fre)[j * kLanes]);
+    fi[j] = to_f32((g1 ? gim : fim)[j * kLanes]);
+  }
+#pragma unroll 1
+  for (int r0 = 0; r0 < kRows; r0 += kGroup) {
+    const T* h = hs + r0 * 2 * Ct * kLanes;
+    const float* sc = ss + r0 * Ct;
+    unsigned lv[kMB / 2];
+#pragma unroll
+    for (int w = 0; w < kMB / 2; ++w) lv[w] = live[w] >> r0;
+    const M *fr0 = fre - r0 * kLanes, *fi0 = fim - r0 * kLanes;
+    const M *gr0 = gre + (jw - r0) * kLanes, *gi0 = gim + (jw - r0) * kLanes;
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      float xr[NC], xi[NC];
+      load_x<T, NC>(xr, xi, h, sc, i);
+#pragma unroll
+      for (int j = 0; j < kMB; ++j) {
+        if (kMasked && !(lv[j / 2] >> (j % 2 * kRows + i) & 1u)) continue;
+#pragma unroll
+        for (int q = 0; q < NC; ++q) cmac(ar[j][q], ai[j][q], xr[q], xi[q], fr[j], fi[j]);
+      }
+      if (i < kGroup - 1 || r0 + kGroup < kRows) {  // the window of the next row
+#pragma unroll
+        for (int j = kMB - 1; j > 0; --j) {
+          fr[j] = fr[j - 1];
+          fi[j] = fi[j - 1];
+        }
+        fr[0] = to_f32(fr0[-(i + 1) * kLanes]);
+        fi[0] = to_f32(fi0[-(i + 1) * kLanes]);
+        if (kSplit) {
+          const float vr = to_f32(gr0[-(i + 1) * kLanes]), vi = to_f32(gi0[-(i + 1) * kLanes]);
+#pragma unroll
+          for (int j = 1; j < kMB; ++j)
+            if (j == jw) {
+              fr[j] = vr;
+              fi[j] = vi;
+            }
+        }
+      }
     }
-    float s = 1.0f;
-    if (d >= 0) {
-      const T* src = g.xnew + static_cast<size_t>(d) * 2 * row + cb;
-      xr = to_f32(src[0]);
-      xi = to_f32(src[row]);
-      if (kQuant) s = g.snew[static_cast<size_t>(d) * g.C + c] * kInvMax;
-    } else {
-      int slot = (g.pos_first + d) % g.P;
-      if (slot < 0) slot += g.P;
-      const T* src = g.ring + static_cast<size_t>(slot) * row + cb;
-      xr = to_f32(src[0]);
-      xi = to_f32(src[plane]);
-      if (kQuant) s = g.scales[static_cast<size_t>(slot) * g.C + c] * kInvMax;
+  }
+}
+
+// Any other step: each (block j, row r) checked for its tap a = u0 + j - d
+// in [0, P), its filter half (d < thr_j: the upper one, 2 planes further)
+// and, with a schedule, the live width wd[j * kRows + r] of the lane k.
+// f0 points at slot 0 of the lower half's re plane.
+template <typename T, typename M, int NC>
+__device__ __forceinline__ void mac_general(float (&ar)[kMB][NC], float (&ai)[kMB][NC], const T* hs,
+                                            const float* ss, const M* f0, int fplane, const short* wd,
+                                            int k, int u0, int u_end, int d0, int P, int pos_first) {
+  int thr[kMB];
+#pragma unroll
+  for (int j = 0; j < kMB; ++j) thr[j] = u0 + j - (pos_first + u0 + j) % P;
+#pragma unroll 1
+  for (int r = 0; r < kRows; ++r) {
+    const int d = d0 + r;
+    float xr[NC], xi[NC];
+    load_x<T, NC>(xr, xi, hs, ss, r);
+#pragma unroll
+    for (int j = 0; j < kMB; ++j) {
+      const int a = u0 + j - d;
+      if (u0 + j >= u_end || a < 0 || a >= P) continue;
+      if (wd && k >= wd[j * kRows + r]) continue;
+      const M* f = f0 + (d < thr[j] ? 2 * fplane : 0) + (a % kRing) * kLanes;
+      const float fr = to_f32(f[0]), fi = to_f32(f[fplane]);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) cmac(ar[j][q], ai[j][q], xr[q], xi[q], fr, fi);
     }
-    if (kQuant) {
-      xr *= s;
-      xi *= s;
+  }
+}
+
+// grid (lane tiles of kLanes, channel tiles of 4 NC, block tiles of kBlocks)
+template <typename T, typename M, int NC>
+__global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M> g) {
+  constexpr bool kQuant = Traits<T>::kQuant;
+  constexpr int Ct = 4 * NC;
+  constexpr int kSlots = kRing + kTail;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool per_chan = g.Cf != 1;
+  const int ctf = per_chan ? Ct : 1;
+  const MacLayout lay = mac_layout(sizeof(T), sizeof(M), Ct, ctf, kQuant);
+  const int fplane = ctf * kSlots * kLanes;  // one plane of one filter half
+  M* const fring = reinterpret_cast<M*>(smem);
+
+  const int P = g.P;
+  const int kbase = blockIdx.x * kLanes, c0 = blockIdx.y * Ct, u_base = blockIdx.z * kBlocks;
+  const int u_end = min(g.wc, u_base + kBlocks);  // the CTA's blocks [u_base, u_end)
+  const int nv = min(kLanes, g.B - kbase);         // its lanes
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int l = tid & (kLanes - 1), cg = (tid >> 3) & 3;  // lane, channel group
+  const int k = kbase + l;
+  const int u0 = u_base + warp * kMB;  // the thread's blocks u0 .. u0 + kMB - 1
+  const size_t row = static_cast<size_t>(g.C) * g.B;
+  const size_t plane = static_cast<size_t>(P) * row;
+  // history rows: from the oldest that block u_base meets to the newest block
+  const int d_first = u_base - (P - 1), d_last = u_end - 1;
+  const int nsteps = (d_last - d_first) / kRows + 1;
+
+  float ar[kMB][NC], ai[kMB][NC];
+#pragma unroll
+  for (int j = 0; j < kMB; ++j)
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int u = u0 + j, c = c0 + cg + 4 * q;
+      const bool live = g.seed && u < u_end && c < g.C && l < nv;
+      const size_t o = static_cast<size_t>(u) * 2 * row + static_cast<size_t>(c) * g.B + k;
+      ar[j][q] = live ? g.seed[o] : 0.0f;
+      ai[j][q] = live ? g.seed[o + row] : 0.0f;
     }
+
+  unsigned live_bits = 0, full_bits = 0;  // by stage: the step has a live term / all its terms are live
+  // schedules: ring positions of the thread's width-table blocks, and the
+  // slot of its row in the next step to issue
+  constexpr int kWdPer = kBlocks * kRows / kMacThreads, kWdStride = kMacThreads / kRows;
+  int wpos[kWdPer];
+#pragma unroll
+  for (int q = 0; q < kWdPer; ++q) wpos[q] = (g.pos_first + u_base + tid / kRows + kWdStride * q) % P;
+  int wslot = ((g.pos_first + d_first + tid % kRows) % P + P) % P;
+  // step s: its first taps into the filter ring; with a schedule its live
+  // widths; then (if any term is live) its history into stage s % kStages
+  auto issue = [&](int s) {
+    if (s < nsteps) {
+      const int buf = s % kStages;
+      unsigned char* st = smem + lay.filt + buf * lay.stage();
+      const int d0 = d_first + s * kRows;
+      {
+        // taps [a0, a0 + n): the smallest the step meets (all of them for the first step)
+        const int a0 = u_base - d0 - (kRows - 1), n = s ? kRows : kBlocks + kRows - 1;
+        const int pos_lo = (g.pos_first + u_base) % P;
+        const bool wraps = pos_lo + (u_end - 1 - u_base) >= P;
+        const int pos_min = wraps ? 0 : pos_lo, pos_max = wraps ? P - 1 : pos_lo + (u_end - 1 - u_base);
+        // tap a meets the lower half for blocks at pos >= a, the upper one for pos < a
+        auto src_of = [&](int sg) -> const M* {
+          const int t = sg % n, q = sg / n, cl = q % ctf, hp = q / ctf, h = hp >> 1, pl = hp & 1;
+          const int a = a0 + t, cf = per_chan ? c0 + cl : 0;
+          if (a < 0 || a >= P || (h ? a <= pos_min : a > pos_max) || cf >= g.C) return nullptr;
+          return g.rim + (static_cast<size_t>((h ? 2 * P : P) - 1 - a) * g.Cf + cf) * 2 * g.B + pl * g.B + kbase;
+        };
+        auto slot_of = [&](int sg, int mirror) -> M* {
+          const int t = sg % n, q = sg / n, slot = (a0 + t) % kRing + mirror * kRing;
+          return fring + (q * kSlots + slot) * kLanes;
+        };
+        stage_segments<M>(4 * ctf * n, nv, g.vec_f, src_of, [&](int sg) { return slot_of(sg, 0); });
+        stage_segments<M>(4 * ctf * n, nv, g.vec_f,  // and the mirrored slots
+                          [&](int sg) -> const M* { return (a0 + sg % n) % kRing < kTail ? src_of(sg) : nullptr; },
+                          [&](int sg) { return slot_of(sg, 1); });
+      }
+      int live = 1, full = 1;
+      if (g.wtab) {
+        // entries (block tid / kRows + kWdStride q, row tid % kRows) of the
+        // step's live widths; 0 where the tap is outside [0, P)
+        short* wd = reinterpret_cast<short*>(st + lay.hist + lay.scl);
+        const int kend = kbase + nv, d = d0 + tid % kRows, chunk = wslot / g.pc;
+        int any = 0, all = 1;
+#pragma unroll
+        for (int q = 0; q < kWdPer; ++q) {
+          const int u = u_base + tid / kRows + kWdStride * q, a = u - d;
+          int w = 0;
+          if (u < u_end && a >= 0 && a < P) {
+            w = g.wtab[static_cast<size_t>(wpos[q]) * g.nchunks + chunk];
+            any |= w > kbase;
+            all &= w >= kend;
+          }
+          wd[tid + kMacThreads * q] = static_cast<short>(w);
+        }
+        wslot = (wslot + kRows) % P;
+        live = __syncthreads_or(any);
+        full = __syncthreads_and(all);
+      }
+      live_bits = (live_bits & ~(1u << buf)) | (live ? 1u << buf : 0u);
+      full_bits = (full_bits & ~(1u << buf)) | (full ? 1u << buf : 0u);
+      if (live) {
+        T* hs = reinterpret_cast<T*>(st);
+        stage_segments<T>(
+            kRows * 2 * Ct, nv, g.vec_h,
+            [&](int sg) -> const T* {
+              const int cl = sg % Ct, pl = (sg / Ct) & 1, d = d0 + sg / (2 * Ct), c = c0 + cl;
+              if (d > d_last || c >= g.C) return nullptr;
+              if (d >= 0)
+                return g.xnew + static_cast<size_t>(2 * d + pl) * row + static_cast<size_t>(c) * g.B + kbase;
+              const int slot = g.pos_first + d < 0 ? g.pos_first + d + P : g.pos_first + d;
+              return g.ring + pl * plane + static_cast<size_t>(slot) * row + static_cast<size_t>(c) * g.B + kbase;
+            },
+            [&](int sg) { return hs + sg * kLanes; });
+        if (kQuant) {
+          float* ss = reinterpret_cast<float*>(st + lay.hist);
+          for (int e = tid; e < kRows * Ct; e += kMacThreads) {
+            const int d = d0 + e / Ct, c = c0 + e % Ct;
+            if (d > d_last || c >= g.C) continue;
+            const int slot = g.pos_first + d < 0 ? g.pos_first + d + P : g.pos_first + d;
+            cp_async(ss + e, d >= 0 ? g.snew + static_cast<size_t>(d) * g.C + c
+                                    : g.scales + static_cast<size_t>(slot) * g.C + c, 4);
+          }
+        }
+      }
+    }
+    cp_commit();
   };
 
-  float ar[kWT], ai[kWT];
+  // the warp's blocks meet the upper half at rows d < thr0 (blocks j < jw) or
+  // d < thr0 + P (j >= jw: the blocks after the ring wraps); jw = kMB: none wraps
+  const int pos0 = (g.pos_first + u0) % P;
+  const int thr0 = u0 - pos0, jw = min(kMB, P - pos0);
+  const M* const f0 = fring + (per_chan ? cg : 0) * kSlots * kLanes + l;
+
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+#pragma unroll 1
+  for (int s = 0; s < nsteps; ++s) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // step s has landed; every thread is done with step s - 1's stage
+    issue(s + kStages - 1);
+    const int buf = s % kStages;
+    const int d0 = d_first + s * kRows;
+    const int umax = min(u0 + kMB, u_end) - 1;  // the warp's last block
+    if (!(live_bits >> buf & 1) || umax < u0 || d0 > umax || d0 + kRows - 1 < u0 - (P - 1)) continue;
+    const unsigned char* st = smem + lay.filt + buf * lay.stage();
+    const T* hs = reinterpret_cast<const T*>(st) + cg * kLanes + l;
+    const float* ss = reinterpret_cast<const float*>(st + lay.hist) + cg;
+    // each block's half the same over the step
+    const bool fast = u0 + kMB <= u_end && P >= kMB;
+    const bool lo0 = d0 >= thr0, hi0 = d0 + kRows - 1 < thr0;
+    const bool lo1 = d0 >= thr0 + P, hi1 = d0 + kRows - 1 < thr0 + P;
+    const short* wd = reinterpret_cast<const short*>(st + lay.hist + lay.scl) + warp * kMB * kRows;
+    if (fast && (lo0 || hi0) && (jw == kMB || lo1 || hi1)) {
+      // block j at row r meets tap c - (r - j)
+      const int c = u0 - d0;
+      const bool full = full_bits >> buf & 1, all = full && c >= kRows - 1 && c <= P - kMB;
+      unsigned live[kMB / 2] = {};
+      if (!all) {  // bit 16 j + r: the tap in [0, P) and, mixed schedule, live on lane k
 #pragma unroll
-  for (int u = 0; u < kWT; ++u) {
-    const bool live = on && u < nu && g.seed;
-    ar[u] = live ? g.seed[static_cast<size_t>(u0 + u) * 2 * row + cb] : 0.0f;
-    ai[u] = live ? g.seed[static_cast<size_t>(u0 + u) * 2 * row + row + cb] : 0.0f;
-  }
-  // xr[v] = X[u0 - a0 - (kWT - 1) + v]: block u at tap a0 + t reads v = u - t + kWT - 1.
-  // Chunks go from the oldest taps to the newest (see mac_chunk); from chunk
-  // a0 to a0 - kWT the window moves up by kWT rows.
-  float xr[2 * kWT - 1], xi[2 * kWT - 1];
-  bool carry = false;
-  const int kend = min(g.B, kbase + kMacThreads);
-  const int n_chunks = (g.P + kWT - 1) / kWT;
-  for (int ch = n_chunks - 1; ch >= 0; --ch) {
-    const int a0 = ch * kWT;
-    bool masked = false;
-    if (kSched) {
-      int any = 0, all = 1;
-      for (int e = threadIdx.x; e < kWT * kWT; e += kMacThreads) {
-        const int u = e / kWT, t = e % kWT, a = a0 + t;
-        int w = g.B;
-        if (u < nu && a < g.P) {
-          int slot = (pos[u] - a) % g.P;
-          if (slot < 0) slot += g.P;
-          w = g.wtab[static_cast<size_t>(pos[u]) * g.nchunks + slot / g.pc];
-          any |= w > kbase;
-          all &= w >= kend;
+        for (int j = 0; j < kMB; ++j) {
+          unsigned m = 0;
+          if (full) {  // rows r with c + j - r in [0, P)
+            const int lo = max(0, c + j - P + 1), hi = min(kRows - 1, c + j);
+            m = hi < lo ? 0u : (2u << hi) - (1u << lo);
+          } else {  // the widths are 0 where the tap is outside [0, P)
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) m |= k < wd[j * kRows + r] ? 1u << r : 0u;
+          }
+          live[j / 2] |= m << (j % 2 * kRows);
         }
-        wd[ch & 1][u][t] = w;
       }
-      const int live = __syncthreads_or(any);
-      const int full = __syncthreads_and(all);
-      if (!live) {
-        carry = false;
-        continue;
-      }
-      masked = !full;
-    }
-    if (carry) {
-#pragma unroll
-      for (int v = 0; v < kWT - 1; ++v) {
-        xr[v] = xr[v + kWT];
-        xi[v] = xi[v + kWT];
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < kWT - 1; ++v) load_x(u0 - a0 - (kWT - 1) + v, xr[v], xi[v]);
-    }
-#pragma unroll
-    for (int v = kWT - 1; v < 2 * kWT - 1; ++v) load_x(u0 - a0 - (kWT - 1) + v, xr[v], xi[v]);
-    carry = true;
-    // a pure chunk meets one filter row a tap for all its blocks
-    const int alast = min(a0 + kWT, g.P) - 1;
-    const bool lo = alast <= pmin, hi = a0 > pmax;
-    const int(*w)[kWT] = wd[ch & 1];
-    if (kSched && masked) {
-      if (lo || hi)
-        mac_chunk<true, false>(ar, ai, xr, xi, fbase, frow, g.B, g.P, a0, hi, k, pos, w);
+      const M* fre = f0 + (((c - (kRows - 1)) % kRing + kRing) % kRing + kRows - 1) * kLanes;
+      const int h0 = hi0 ? 2 * fplane : 0, h1 = hi1 ? 2 * fplane : 0;
+      const bool split = !(jw == kMB || hi0 == hi1);
+#define NEO_FAST(S, K) \
+  mac_fast<T, M, NC, S, K>(ar, ai, hs, ss, fre + h0, fre + h0 + fplane, fre + h1, fre + h1 + fplane, jw, live)
+      if (all && !split)
+        NEO_FAST(false, false);
+      else if (all)
+        NEO_FAST(true, false);
+      else if (!split)
+        NEO_FAST(false, true);
       else
-        mac_chunk<true, true>(ar, ai, xr, xi, fbase, frow, g.B, g.P, a0, hi, k, pos, w);
+        NEO_FAST(true, true);
+#undef NEO_FAST
     } else {
-      if (lo || hi)
-        mac_chunk<false, false>(ar, ai, xr, xi, fbase, frow, g.B, g.P, a0, hi, k, pos, w);
-      else
-        mac_chunk<false, true>(ar, ai, xr, xi, fbase, frow, g.B, g.P, a0, hi, k, pos, w);
+      mac_general<T, M, NC>(ar, ai, hs, ss, f0, fplane, g.wtab ? wd : nullptr, k, u0, u_end, d0, P,
+                            g.pos_first);
     }
   }
-  if (!on) return;
+  cp_wait<0>();
+  if (l >= nv) return;
 #pragma unroll
-  for (int u = 0; u < kWT; ++u) {
-    if (u >= nu) break;
-    const int i = u0 + u;
-    if (k == 0) {
-      ar[u] = g.dcfix[static_cast<size_t>(i) * 2 * g.C + c];
-      ai[u] = g.dcfix[static_cast<size_t>(i) * 2 * g.C + g.C + c];
+  for (int j = 0; j < kMB; ++j) {
+    const int u = u0 + j;
+    if (u >= u_end) break;
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int c = c0 + cg + 4 * q;
+      if (c >= g.C) break;
+      float re = ar[j][q], im = ai[j][q];
+      if (k == 0) {
+        re = g.dcfix[static_cast<size_t>(u) * 2 * g.C + c];
+        im = g.dcfix[static_cast<size_t>(u) * 2 * g.C + g.C + c];
+      }
+      float* o = g.acc + (static_cast<size_t>(u) * g.C + c) * 2 * g.B + k;
+      o[0] = round_to<M>(re);
+      o[g.B] = round_to<M>(im);
     }
-    float* o = g.acc + (static_cast<size_t>(i) * g.C + c) * 2 * g.B + k;
-    o[0] = round_to<M>(ar[u]);
-    o[g.B] = round_to<M>(ai[u]);
   }
 }
 
@@ -336,14 +618,35 @@ int launch_writeback(const void* x, const void* scl, void* fdl, void* scales, in
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename M>
-int launch_stream_mac(const MacArgs<T, M>& g, cudaStream_t st) {
-  const dim3 grid((g.wc + kWT - 1) / kWT, (g.B + kMacThreads - 1) / kMacThreads, g.C);
-  if (g.wtab)
-    stream_mac_kernel<T, M, true><<<grid, kMacThreads, 0, st>>>(g);
-  else
-    stream_mac_kernel<T, M, false><<<grid, kMacThreads, 0, st>>>(g);
+template <typename T, typename M, int NC>
+int launch_stream_mac_nc(const MacArgs<T, M>& g, int smem, cudaStream_t st) {
+  static int smem_allowed = 48 * 1024;  // above 48 KB only once the kernel is allowed more
+  if (smem > smem_allowed) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(stream_mac_kernel<T, M, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_allowed = smem;
+  }
+  const dim3 grid((g.B + kLanes - 1) / kLanes, (g.C + 4 * NC - 1) / (4 * NC), (g.wc + kBlocks - 1) / kBlocks);
+  stream_mac_kernel<T, M, NC><<<grid, kMacThreads, smem, st>>>(g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// nc, vec_h, vec_f and smem come from kernels/fused_step.py ::
+// stream_mac_geometry and the operands' alignment; checked here against
+// the layout and the pointers.
+template <typename T, typename M>
+int launch_stream_mac(const MacArgs<T, M>& g, int nc, int smem, cudaStream_t st) {
+  const int ct = 4 * nc;
+  const MacLayout lay = mac_layout(sizeof(T), sizeof(M), ct, g.Cf != 1 ? ct : 1, Traits<T>::kQuant);
+  auto bad_vec = [&](int v, int elem, const void* p0, const void* p1) {
+    return v != 0 && ((v != 4 && v != 8 && v != 16) || v > kLanes * elem || (g.B * elem) % v ||
+                      reinterpret_cast<uintptr_t>(p0) % v || reinterpret_cast<uintptr_t>(p1) % v);
+  };
+  if ((nc != 1 && nc != 4) || (nc == 4 && g.Cf != 1) || smem != lay.total() ||
+      bad_vec(g.vec_h, sizeof(T), g.ring, g.xnew) || bad_vec(g.vec_f, sizeof(M), g.rim, g.rim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return nc == 4 ? launch_stream_mac_nc<T, M, 4>(g, smem, st) : launch_stream_mac_nc<T, M, 1>(g, smem, st);
 }
 
 bool bad_ring(int P, int C, int B) { return P < 1 || C < 1 || C > 65535 || B < 1; }
@@ -391,11 +694,15 @@ extern "C" int neo_fs_widths(const void* c_idx, const void* c_flags, void* tab, 
 }
 
 // The time-batched MAC of one window: acc [wc, C, 2B] f32, rounded to the
-// matrix dtype. seed [wc, 2, C, B] and wtab [P, nchunks] may be null.
+// matrix dtype. seed [wc, 2, C, B] and wtab [P, nchunks] may be null. nc
+// (channels a thread: 4, or 1 for per-channel filters), vec_h / vec_f (the
+// cp.async piece bytes of the history and filter tiles, 0 for element
+// copies) and smem (dynamic shared bytes) from stream_mac_geometry.
 extern "C" int neo_fs_stream_mac(int storage, const void* ring, const void* scales, const void* xnew,
                                  const void* snew, const void* rim, const void* seed,
                                  const void* dcfix, const void* wtab, void* acc, int P, int C, int B,
-                                 int Cf, int wc, int pos_first, int pc, int nchunks, void* stream) {
+                                 int Cf, int wc, int pos_first, int pc, int nchunks, int nc, int vec_h,
+                                 int vec_f, int smem, void* stream) {
   if (bad_ring(P, C, B) || wc < 1 || (Cf != 1 && Cf != C) || pos_first < 0 || pos_first >= P ||
       (wtab && (pc < 1 || nchunks < 1 || nchunks * pc != P)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -406,8 +713,9 @@ extern "C" int neo_fs_stream_mac(int storage, const void* ring, const void* scal
                     static_cast<const T*>(xnew), static_cast<const float*>(snew),               \
                     static_cast<const M*>(rim), static_cast<const float*>(seed),                \
                     static_cast<const float*>(dcfix), static_cast<const int*>(wtab),            \
-                    static_cast<float*>(acc), P, C, B, Cf, wc, pos_first, pc, nchunks},         \
-      st)
+                    static_cast<float*>(acc), P, C, B, Cf, wc, pos_first, pc, nchunks,          \
+                    vec_h, vec_f},                                                              \
+      nc, smem, st)
   switch (storage) {
     case kSplit: NEO_MAC(float, float);
     case kBf16: NEO_MAC(__nv_bfloat16, __nv_bfloat16);

@@ -62,9 +62,9 @@ _SIGNATURES = {
     # c_idx, c_flags, tab, P, L, nchunks, B, n_codes, stream
     "neo_fs_widths": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # storage, ring, scales, xnew, snew, rim, seed, dcfix, wtab, acc,
-    # P, C, B, Cf, wc, pos_first, pc, nchunks, stream
+    # P, C, B, Cf, wc, pos_first, pc, nchunks, nc, vec_h, vec_f, smem, stream
     "neo_fs_stream_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # storage, ring, scales, fre, fim, f_row, f_c, wrow, part, P, C, K, pc, S, per, vec, stream
     "neo_fs_step_mac": [_I, _P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # mat_bf16, part, dcfix, acc, S, C, K, stream

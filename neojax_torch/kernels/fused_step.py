@@ -35,7 +35,11 @@ tiled filter) is a causal convolution along time. So B3 walks its nb blocks in w
    the storage dtype, scales ``[W, C]``
 3. :func:`stream_mac` — the time-batched MAC: history rows inside the
    window from ``X_new``, older ones from the ring, each dequantized with
-   its own scale; lane 0 := ``dcfix``; rounded to the matrix dtype
+   its own scale; lane 0 := ``dcfix``; rounded to the matrix dtype. For
+   each lane a complex product of the Toeplitz matrix of the filter rows
+   [blocks, history rows] by the history [history rows, channels], in f32
+   FFMA on tiles staged in shared memory by ``cp.async``
+   (:func:`stream_mac_geometry`)
 4. :func:`ring_writeback` — ``X_new`` into ring slots ``(pos0 + i) % P``
    after the MAC (the last write wins when W > P)
 5. :func:`window_inverse` — the accumulators through the inverse FFT,
@@ -110,6 +114,7 @@ __all__ = [
     "quantize_rows",
     "quantize_rows_reference",
     "stream_mac",
+    "stream_mac_geometry",
     "stream_mac_reference",
     "ring_writeback",
     "ring_writeback_reference",
@@ -612,6 +617,50 @@ def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, s
     return res
 
 
+# stream_mac_kernel's tile (csrc/fused_step.cu: kLanes, kMB, kBlocks, kRows, kStages, kRing + kTail)
+_MAC_LANES, _MAC_MB, _MAC_BLOCKS, _MAC_ROWS, _MAC_STAGES, _MAC_SLOTS = 8, 8, 64, 16, 3, 160
+
+
+def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, cf: int = 1) -> dict:
+    """Launch geometry of :func:`stream_mac`'s kernel for a ring [2, P, C, B]
+    of the storage dtype ``storage``, a window of ``wc`` blocks and a filter
+    of ``cf`` channels (1 or C); P sets the number of steps, not the tile.
+
+    A CTA owns ``lanes`` lanes x ``channels`` channels x ``blocks`` blocks;
+    ``grid`` = (lane tiles, channel tiles, block tiles). Its ``threads``
+    are 8 warps: warp w the blocks [8 w, 8 w + 8) of the CTA's, thread t of
+    a warp lane t % 8 and channels t // 8 % 4 + 4 q for q < ``nc`` (4 with a
+    shared filter, 1 with per-channel filters, whose taps are kept per
+    channel). ``smem``: the dynamic shared bytes of the filter ring
+    (``slots`` taps of both rim halves, matrix dtype) and ``stages`` stages
+    of ``rows`` history rows (storage dtype, int scales, int16 live
+    widths); the kernel refuses any other count."""
+    if storage not in MATRIX_DTYPES:
+        raise ValueError(f"stream_mac_geometry: unknown storage {storage!r}")
+    if cf not in (1, c):
+        raise ValueError(f"stream_mac_geometry: cf = {cf} is neither 1 nor C = {c}")
+    isz, msz = storage.itemsize, MATRIX_DTYPES[storage].itemsize
+    nc = 4 if cf == 1 and c > 4 else 1
+    ct = 4 * nc
+    ctf = 1 if cf == 1 else ct
+    stage = (_MAC_ROWS * 2 * ct * _MAC_LANES * isz + (_MAC_ROWS * ct * 4 if storage in _INT_MAX else 0)
+             + _MAC_BLOCKS * _MAC_ROWS * 2)
+    return {"lanes": _MAC_LANES, "channels": ct, "nc": nc, "blocks": _MAC_BLOCKS, "blocks_a_thread": _MAC_MB,
+            "rows": _MAC_ROWS, "slots": _MAC_SLOTS, "stages": _MAC_STAGES, "threads": 32 * _MAC_BLOCKS // _MAC_MB,
+            "grid": (-(-b // _MAC_LANES), -(-c // ct), -(-wc // _MAC_BLOCKS)),
+            "smem": 4 * ctf * _MAC_SLOTS * _MAC_LANES * msz + _MAC_STAGES * stage}
+
+
+def _piece_bytes(segment: int, row_bytes: int, *tensors) -> int:
+    """The largest cp.async piece (16, 8 or 4 bytes, at most ``segment``)
+    that divides a row's bytes and every tensor's address; 0 for element
+    copies."""
+    for v in (16, 8, 4):
+        if v <= segment and row_bytes % v == 0 and all(t.data_ptr() % v == 0 for t in tensors):
+            return v
+    return 0
+
+
 def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, widths=None, out=None):
     """The MAC of a window of blocks, batched over time.
 
@@ -641,12 +690,16 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
     if out is None:
         out = torch.empty((wc, c, 2 * b), dtype=torch.float32, device=fdl.device)
     pc = 0 if widths is None else widths[1]
+    cf = filt_rim.shape[1]
+    geo = stream_mac_geometry(p, c, b, wc, fdl.dtype, cf)
+    isz, msz = fdl.element_size(), filt_rim.element_size()
     code = _build.load().neo_fs_stream_mac(
         STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
         0 if scl is None else scl.data_ptr(), filt_rim.data_ptr(), 0 if seed is None else seed.data_ptr(),
         dcfix.data_ptr(), 0 if tab is None else tab.data_ptr(), out.data_ptr(),
-        p, c, b, filt_rim.shape[1], wc, pos_first, pc, 0 if tab is None else tab.shape[1],
-        _build.stream_of(fdl),
+        p, c, b, cf, wc, pos_first, pc, 0 if tab is None else tab.shape[1], geo["nc"],
+        _piece_bytes(_MAC_LANES * isz, b * isz, fdl, x), _piece_bytes(_MAC_LANES * msz, b * msz, filt_rim),
+        geo["smem"], _build.stream_of(fdl),
     )
     _build.check(code, "stream_mac")
     stream_mac.launches += 1

@@ -35,6 +35,17 @@ round apart (a matrix product against an FFT), so each of these rows also
 carries ``plain_rel_err``: max|out - plain| / max|plain| of its output
 against the tree's own plain version on the same inputs.
 
+``--rows stream_mac`` times only B3's time-batched MAC (``stream_mac``) on
+a window of 64 blocks at ring position P - 5 (the window wraps the ring)
+with an untiled random rim: the headline ring in the four storages, split
+with a per-channel filter (Cf = C), the hybrid head (P = 64, with a seed;
+split and int16, the int8 hybrid's head storage),
+split with the chunk schedule of the ``band30`` and ``perc30`` masks (the
+convolver's masked filter; the width table built outside the timed
+region), and a B3 split call of 64 blocks (``fused_stream``). Each row
+carries ``plain_rel_err`` against the tree's own plain version; the trees'
+kernels sum alike, so their ``out_sha`` agree.
+
 ``--variants`` (a tree whose ``kernels.fdl_mac`` has ``_MAC_VEC_BYTES``)
 first times B1 and B4 on the headline ring at the geometries the kept one
 was chosen against, each row with its ``variant``: ``vec16`` (V = 16 /
@@ -65,8 +76,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="append the JSON lines here too")
     ap.add_argument("--variants", action="store_true",
                     help="also time B1/B4 at the geometries the kept one was chosen against")
-    ap.add_argument("--rows", choices=("all", "macs", "transforms"), default="all",
-                    help="the MAC rows, the transform rows, or both")
+    ap.add_argument("--rows", choices=("all", "macs", "transforms", "stream_mac"), default="all",
+                    help="the MAC rows, the transform rows, both, or only B3's stream_mac rows")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -171,6 +182,63 @@ def main(argv=None) -> int:
                      ring=[p, c, k], storage=storage, mask="band30", pos=p - 1, **tag)
             del ring, scales
             torch.cuda.empty_cache()
+
+    if args.rows == "stream_mac":
+        from neojax_torch import conv
+        from neojax_torch.bench import headline
+        from neojax_torch.conv import convolver as cv
+
+        c, b, n, wc = 64, 512, 1024, 64
+
+        def window(storage, p, cf=1, seed=False):
+            ring, scales = ring_of(storage, p, c, b)
+            mdt = fs.MATRIX_DTYPES[dtypes[storage]]
+            rim = (torch.randn((2 * p, cf, n), device=dev, generator=gen) * 0.05).to(mdt)
+            x, scl = fs.quantize_rows(torch.randn((wc, c, n), device=dev, generator=gen) * 3, dtypes[storage])
+            dcfix = torch.randn((wc, 2, c), device=dev, generator=gen)
+            sd = torch.randn((wc, 2, c, b), device=dev, generator=gen) if seed else None
+            return ring, scales, x, scl, rim, dcfix, sd
+
+        def mac_row(ops, p, widths=None, **tag):
+            ring, scales, x, scl, rim, dcfix, sd = ops
+            args_ = (ring, scales, x, scl, rim, dcfix, p - 5, sd, widths)
+            emit("stream_mac", lambda: fs.stream_mac(*args_), lambda: fs.stream_mac_reference(*args_),
+                 ring=[p, c, b], blocks=wc, cf=rim.shape[1], seed=sd is not None, **tag)
+
+        for storage in DT:
+            mac_row(window(storage, 960), 960, storage=storage)
+        mac_row(window("split", 960, cf=c), 960, storage="split")
+        for storage in ("split", "int16"):  # int16: the int8 hybrid's head
+            mac_row(window(storage, 64, seed=True), 64, storage=storage, shape="hybrid_head")
+        ir = conv.normalize_impulse(torch.from_numpy(headline.make_ir(938, b).astype(np.float32))).numpy()
+        parts = conv.uniform_partition(ir, b)
+        parts_pad = np.concatenate([parts, np.zeros((1, 960 - 938, b + 1), parts.dtype)], axis=1)
+        masks = {"band30": np.zeros((960, b + 1), bool)}
+        masks["band30"][:288] = True
+        masks["perc30"] = np.concatenate([conv.perceptual_mask(parts[0], 48000, threshold_db=-30.0),
+                                          np.zeros((960 - 938, b + 1), bool)])
+        for mname, mask in masks.items():
+            prm = cv.filter_params(cv.PartitionedConfig(b, 960, c, storage="split"), parts_pad, sparsity=mask,
+                                   device=dev)
+            pc = fs.fused_chunk_rows(torch.float32, 960, c, b)
+            widths = (fs.sched_widths((prm["sp_c_idx"], prm["sp_c_flags"]), b, pc), pc)
+            ops = list(window("split", 960))
+            ops[4] = prm["filt_rim"]
+            mac_row(ops, 960, widths, storage="split", mask=mname)
+            del prm, ops
+        p = 960
+        sig = torch.rand((c, 65 * b), device=dev, generator=gen) * 2 - 1
+        ring, _ = ring_of("split", p, c, b)
+        rings = [ring.clone() for _ in range(2)]
+        rim = torch.randn((2 * p, 1, n), device=dev, generator=gen) * 0.05
+        cs2, abt = mb.packed_stream_mats(n, torch.float32, dev)
+        dcfix_all = torch.randn((64, 2, c), device=dev, generator=gen)
+        emit("fused_stream", lambda: fs.fused_stream(sig, rings[0], rim, p - 5, dcfix_all, cs2, abt),
+             lambda: fs.fused_stream_reference(sig, rings[1], rim, p - 5, dcfix_all, cs2, abt), storage="split",
+             blocks=64)
+        if out:
+            out.close()
+        return 0
 
     if args.rows in ("all", "transforms"):
         p, c, b = 960, 64, 512

@@ -627,6 +627,100 @@ def test_stage_kernels_match_plain(cuda, rng, monkeypatch, storage, cf):
         "step_reduce": 2, "window_inverse": 1, "ring_writeback": 1}
 
 
+# stream_mac at the edges of its kernel's tile (8 lanes x 16 channels, 4
+# with per-channel filters, x 64 blocks a CTA; history rows in steps of 16):
+# P, wc, C, B, pos_first
+_MAC_SHAPES = [(1, 7, 3, 48, 0), (5, 64, 1, 8, 3), (16, 16, 65, 48, 15), (17, 63, 3, 512, 9),
+               (64, 64, 64, 512, 0), (960, 64, 64, 512, 955), (960, 1, 65, 1024, 500), (17, 7, 64, 1024, 16)]
+
+
+def _mac_inputs(rng, storage, p, wc, c, b, cf, dev):
+    """A ring, the window's staged rows (quantized as B3 stages them), an
+    untiled rim (both halves differ), dcfix and a seed."""
+    ring, scales = _ring(rng, storage, p, c, b, dev)
+    mdt = fs.MATRIX_DTYPES[_DT[storage]]
+    rim = torch.from_numpy((0.1 * rng.standard_normal((2 * p, cf, 2 * b))).astype(np.float32)).to(dev, mdt)
+    spec = torch.from_numpy((3 * rng.standard_normal((wc, c, 2 * b))).astype(np.float32)).to(dev)
+    x, scl = fs.quantize_rows(spec, _DT[storage])
+    dcfix = torch.from_numpy(rng.standard_normal((wc, 2, c)).astype(np.float32)).to(dev)
+    seed = torch.from_numpy(rng.standard_normal((wc, 2, c, b)).astype(np.float32)).to(dev)
+    return ring, scales, x, scl, rim, dcfix, seed
+
+
+def _random_widths(rng, p, b, dev):
+    """A width table [P, P / pc] of B >> code or 0 (dead) entries."""
+    pc = next(v for v in (8, 4, 2, 1) if p % v == 0)
+    code = rng.integers(0, 4, (p, p // pc))
+    tab = np.where(code == 3, 0, b >> np.minimum(code, 2)).astype(np.int32)
+    return torch.from_numpy(tab).to(dev), pc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("p,wc,c,b,pos", _MAC_SHAPES)
+def test_stream_mac_kernel_matches_plain(cuda, rng, storage, p, wc, c, b, pos):
+    """The time-batched MAC against its plain version, Cf = 1 and C, with and
+    without a seed and a width table: P below, at and off a history step,
+    windows of 1 to 64 blocks, C off the channel tile, B off the lane tile."""
+    for cf in sorted({1, c}):
+        ring, scales, x, scl, rim, dcfix, seed = _mac_inputs(rng, storage, p, wc, c, b, cf, cuda)
+        widths = _random_widths(rng, p, b, cuda)
+        for sd in (None, seed):
+            for wdt in (None, widths):
+                before = fs.stream_mac.launches
+                got = fs.stream_mac(ring, scales, x, scl, rim, dcfix, pos, sd, wdt)
+                want = fs.stream_mac_reference(ring, scales, x, scl, rim, dcfix, pos, sd, wdt)
+                torch.cuda.synchronize()
+                assert fs.stream_mac.launches == before + 1
+                assert _rel(got, want) < _TOL[storage], (cf, sd is None, wdt is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("p,pos", [(960, 950), (17, 5)])
+def test_stream_mac_bits_do_not_depend_on_the_window_or_channels(cuda, rng, storage, p, pos):
+    """A block's output bits are the same in a window of 64 as in the window
+    split 30 + 34 with the write-back between, and with C = 64 as on the
+    first 32 channels alone (Cf = 1; the window wraps the ring)."""
+    c, b = 64, 512
+    ring, scales, x, scl, rim, dcfix, seed = _mac_inputs(rng, storage, p, 64, c, b, 1, cuda)
+    whole = fs.stream_mac(ring, scales, x, scl, rim, dcfix, pos, seed)
+    r2, s2 = ring.clone(), None if scales is None else scales.clone()
+    parts = []
+    for i0, i1 in ((0, 30), (30, 64)):
+        sw = None if scl is None else scl[i0:i1]
+        parts.append(fs.stream_mac(r2, s2, x[i0:i1], sw, rim, dcfix[i0:i1], (pos + i0) % p, seed[i0:i1]))
+        fs.ring_writeback(x[i0:i1], sw, r2, s2, (pos + i0) % p)
+    half = fs.stream_mac(ring[:, :, :32].contiguous(), None if scales is None else scales[:, :32].contiguous(),
+                         x[:, :, :32].contiguous(), None if scl is None else scl[:, :32].contiguous(), rim,
+                         dcfix[:, :, :32].contiguous(), pos, seed[:, :, :32].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts), whole)
+    assert torch.equal(half, whole[:, :32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("cf", [1, 3])
+def test_stream_mac_sched_equals_dense_on_the_masked_filter(cuda, rng, monkeypatch, storage, cf):
+    """With the chunk schedule's widths the MAC equals the dense one on the
+    masked filter (every skipped term is an exact zero of the dense sum)."""
+    monkeypatch.setattr(fs, "_CHUNK_TARGET", 1)
+    p, c, b, wc = 24, 3, 256, 64
+    params, ring, scales = _sparse_fused_inputs(cuda, rng, storage, cf, p, c, b)
+    pc = fs.fused_chunk_rows(ring.dtype, p, c, b)
+    widths = (fs.sched_widths((params["sp_c_idx"], params["sp_c_flags"]), b, pc), pc)
+    spec = torch.from_numpy((3 * rng.standard_normal((wc, c, 2 * b))).astype(np.float32)).to(cuda)
+    x, scl = fs.quantize_rows(spec, _DT[storage])
+    dcfix = torch.from_numpy(rng.standard_normal((wc, 2, c)).astype(np.float32)).to(cuda)
+    seed = torch.from_numpy(rng.standard_normal((wc, 2, c, b)).astype(np.float32)).to(cuda)
+    for pos in (0, 20):
+        got = fs.stream_mac(ring, scales, x, scl, params["filt_rim"], dcfix, pos, seed, widths)
+        dense = fs.stream_mac(ring, scales, x, scl, params["filt_rim"], dcfix, pos, seed)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dense)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", _STORAGES)
 @pytest.mark.parametrize("p,c,b,nb,pos0", [(64, 3, 96, 70, 60), (5, 3, 64, 1, 2), (24, 5, 130, 100, 20),

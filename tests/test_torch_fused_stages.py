@@ -317,21 +317,26 @@ def _direct_mac(storage, ring, scales, x, scl, rim, dcfix, pos_first, seed=None,
 
 
 @pytest.mark.parametrize("storage", _STORAGES)
-@pytest.mark.parametrize("cf", [1, C])
-@pytest.mark.parametrize("wc,p", [(3, 8), (8, 8), (11, 4)])
-def test_stream_mac_matches_direct_sum(rng, storage, cf, wc, p):
+@pytest.mark.parametrize("cf", ["one", "all"])
+@pytest.mark.parametrize("wc,p", [(3, 8), (8, 8), (11, 4), (1, 1), (17, 5), (1, 17), (17, 17)])
+@pytest.mark.parametrize("c,b", [(C, B), (1, 24), (3, 48)])
+def test_stream_mac_matches_direct_sum(rng, storage, cf, wc, p, c, b):
     """The time-batched MAC (history from the staged rows and the ring as it
-    stood) against the block-by-block sum: nb < P, = P and > P."""
-    ring, scales = _ring(rng, storage, p)
-    rim = _rim(rng, storage, p, cf)
-    s = torch.from_numpy((3 * rng.standard_normal((wc, C, 2 * B))).astype(np.float32))
+    stood) against the block-by-block sum: nb < P, = P and > P, P = 1, one
+    block, C = 1 and 3, B with an odd factor, a shared or per-channel
+    untiled rim (both halves differ)."""
+    cf = 1 if cf == "one" else c
+    pos = (p - 3) % p
+    ring, scales = _ring(rng, storage, p, c, b)
+    rim = _rim(rng, storage, p, cf, b)
+    s = torch.from_numpy((3 * rng.standard_normal((wc, c, 2 * b))).astype(np.float32))
     x, scl = tfs.quantize_rows(s, _DT[storage])
-    dcfix = torch.from_numpy(rng.standard_normal((wc, 2, C)).astype(np.float32))
-    seed = torch.from_numpy(rng.standard_normal((wc, 2, C, B)).astype(np.float32))
+    dcfix = torch.from_numpy(rng.standard_normal((wc, 2, c)).astype(np.float32))
+    seed = torch.from_numpy(rng.standard_normal((wc, 2, c, b)).astype(np.float32))
     before = ring.clone()
-    got = tfs.stream_mac(ring, scales, x, scl, rim, dcfix, p - 3, seed=seed)
+    got = tfs.stream_mac(ring, scales, x, scl, rim, dcfix, pos, seed=seed)
     assert torch.equal(ring, before)  # the MAC only reads the ring
-    want = _direct_mac(storage, ring, scales, x, scl, rim, dcfix, p - 3, seed)
+    want = _direct_mac(storage, ring, scales, x, scl, rim, dcfix, pos, seed)
     tol = _TOL["bf16"] if _mdt(storage) == torch.bfloat16 else _EXACT
     assert _rel(got, want) < tol
     assert torch.equal(got, got.to(_mdt(storage)).float())  # rounded to the matrix dtype
@@ -339,19 +344,51 @@ def test_stream_mac_matches_direct_sum(rng, storage, cf, wc, p):
 
 @pytest.mark.parametrize("storage", _STORAGES)
 @pytest.mark.parametrize("p", [24, 32])
-def test_stream_mac_sched_matches_direct_sum(rng, monkeypatch, storage, p):
-    b, wc = 256, 10
+@pytest.mark.parametrize("wc", [1, 10, 17])
+@pytest.mark.parametrize("c,cf", [(C, 1), (3, 3), (1, 1)])
+def test_stream_mac_sched_matches_direct_sum(rng, monkeypatch, storage, p, wc, c, cf):
+    b = 256
     params, sched, pc = _chunk_sched(rng, storage, p, b, monkeypatch)
-    ring, scales = _ring(rng, storage, p, b=b)
-    rim = _rim(rng, storage, p, b=b)  # unmasked: the schedule alone must drop the dead terms
-    x, scl = tfs.quantize_rows(torch.from_numpy(rng.standard_normal((wc, C, 2 * b)).astype(np.float32)),
+    ring, scales = _ring(rng, storage, p, c, b)
+    rim = _rim(rng, storage, p, cf, b)  # unmasked: the schedule alone must drop the dead terms
+    x, scl = tfs.quantize_rows(torch.from_numpy(rng.standard_normal((wc, c, 2 * b)).astype(np.float32)),
                                _DT[storage])
-    dcfix = torch.from_numpy(rng.standard_normal((wc, 2, C)).astype(np.float32))
+    dcfix = torch.from_numpy(rng.standard_normal((wc, 2, c)).astype(np.float32))
     widths = (tfs.sched_widths(sched, b, pc), pc)
     got = tfs.stream_mac(ring, scales, x, scl, rim, dcfix, 5, widths=widths)
     want = _direct_mac(storage, ring, scales, x, scl, rim, dcfix, 5, sched=sched, pc=pc)
     tol = _TOL["bf16"] if _mdt(storage) == torch.bfloat16 else _EXACT
     assert _rel(got, want) < tol
+
+
+_HEADLINE = (960, 64, 512)
+
+
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("p,c,b,wc", [(*_HEADLINE, 64), (64, 64, 512, 64), (960, 1, 1024, 64),
+                                      (960, 65, 1024, 64), (64, 65, 1024, 17), (5, 3, 48, 130)])
+def test_stream_mac_geometry_covers_each_term_once(storage, shared, p, c, b, wc):
+    """stream_mac's launch geometry at the path's shapes (the headline window,
+    the hybrid head at P = 64, B = 1024, C = 1 and 65) and off them: each
+    (block, channel, lane) is one thread's, once; the shared bytes fit a
+    CTA (227 KB); the filter ring holds a step's taps and those copied
+    ahead."""
+    geo = tfs.stream_mac_geometry(p, c, b, wc, _DT[storage], 1 if shared else c)
+    assert geo["smem"] <= 227 * 1024
+    assert geo["slots"] - 32 >= geo["blocks"] + geo["rows"] - 1 + (geo["stages"] - 1) * geo["rows"]
+    gx, gy, gz = geo["grid"]
+    x, y, z, t, q = np.ix_(np.arange(gx), np.arange(gy), np.arange(gz), np.arange(geo["threads"]),
+                           np.arange(geo["nc"]))
+    lane = x * geo["lanes"] + t % geo["lanes"]
+    chan = y * geo["channels"] + (t // geo["lanes"]) % 4 + 4 * q
+    first = z * geo["blocks"] + (t // 32) * geo["blocks_a_thread"]
+    count = np.zeros((wc, c, b), np.int64)
+    for j in range(geo["blocks_a_thread"]):
+        blk, ch, ln = np.broadcast_arrays(first + j, chan, lane)
+        keep = (blk < wc) & (ch < c) & (ln < b)
+        np.add.at(count, (blk[keep], ch[keep], ln[keep]), 1)
+    assert (count == 1).all()
 
 
 @pytest.mark.parametrize("storage", _STORAGES)
