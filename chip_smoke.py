@@ -104,8 +104,12 @@ Phases, each printing one JSON object per line:
      pushes (2 channels, 10 s IR, block 512, S = 64, split), both within
      1e-4 of the offline ``process_hybrid``
   7h. the fft/core/ops surface on the card (dct2, dft, split and packed
-     transforms against float64 with TF32 on; the fixed-point ops bit for
-     bit against the CPU; ``debug.checked``) and a split
+     transforms against float64 with TF32 on; ``fft.four_step`` —
+     ``fft_split_large`` at 2^14, 2^17 and 2^20, ``rfft_split_large`` /
+     ``irfft_split_large`` at 2^17, the packed pair at 8192 and
+     ``fft(backend="matmul")`` at 2^16, 8 rows each, within 1e-4 of the
+     float64 FFT with TF32 on, each timed beside cuFFT; the fixed-point
+     ops bit for bit against the CPU; ``debug.checked``) and a split
      ``Convolver.process`` checkpointed with ``io.save_state`` /
      ``load_state`` and continued
   7i. the distributed engines (``neojax_torch.dist``). D0, in this
@@ -140,6 +144,23 @@ Phases, each printing one JSON object per line:
      launches must have been held against its plain version; a worker
      that fails or a world past 90 s fails the phase. ``--dist-only`` runs
      phases 1-2 and this one alone (no kernels line, no ok line).
+  7j. the sweep tools (``neojax_torch.tools``): each tool's ``--smoke``
+     grid in-process, its JSON line printed and its exit code required
+     to be 0 — ``int8_sweep`` (int8 HIGH G = 64 on B5 and on plain ops,
+     which the tool gates at 46 dB, G = 16 on B5, split HIGHEST, gated
+     at 90 dB), ``bench_sparse_sweep`` (dense and a 30 %
+     band, slope over 64 and 512 blocks), ``bench_perceptual`` (bf16 at
+     -60 dB, 256 blocks), ``bench_quality_sweep`` (two thresholds),
+     ``bench_grid`` (split, L = 2^17 at block 4096, 64 blocks) and
+     ``bench_timesharded`` (64 blocks; world-1 ``timesharded_process``
+     bit-equal to ``process``); each tool in a launch window of its own
+     (summed into ``tools``), every kernel call it made held against its
+     plain version after the window (B5 at G = 64 and 16, B3 dense and
+     with a band and a perceptual schedule, B1 on the grid's ring [2, 32,
+     64, 4096]; the window also counts ``bench_grid``'s own B1 check, one
+     launch a row), then B1 on that ring timed twice for the ``bounds``
+     line ``fdl_mac/grid4096``, with the card's clocks read around it. The tools' own times in this phase include
+     the copies that keep each call's operands
   7b. probes: T1 (``probe_ring_read``, bf16 and split) at the
      [2, 960, 64, 512] ring, the non-packed [2, 960, 64, 513] one (one
      lane a thread) and the hybrid head's [2, 64, 64, 513] (one split),
@@ -168,7 +189,8 @@ Phases, each printing one JSON object per line:
 Launch counters are zeroed right before each main path (phases 4+5, 5b,
 the nested and the hybrid halves of 6, 7, 7c, 7d, 7e, each reported CLI
 call of 7f (summed into one window), 7g, 7h, each path of 7i (summed over
-its ranks) and 7b's measurement path) and read right after it; each kernel of that path must have launched in its
+its ranks), each tool of 7j (summed into one window) and 7b's measurement
+path) and read right after it; each kernel of that path must have launched in its
 window (B2 and B3 with the chunk schedule counted apart, and each of their
 stage kernels by its own count).
 """
@@ -229,6 +251,9 @@ CLI_RUNS = (("upols", 512, 128, None, ("fused_stream",)),
             ("upols", None, None, None, ("fdl_mac",)))
 # the surface's transforms against float64: max|got - ref| / max|ref|
 SURFACE_TOL = 1e-5
+# fft.four_step against numpy's float64 FFT (tests/test_four_step.py's bound)
+FOUR_STEP_TOL = 1e-4
+FOUR_STEP_ROWS = 8
 # a stream cut off B3's 64-block windows against one call, relative to the
 # peak: it rounds apart by 9.98e-7 on the H100 at 94 blocks; 5x margin
 CUT_TOL = 5e-6
@@ -242,6 +267,16 @@ def emit(**obj) -> None:
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def gpu_clocks() -> str:
+    """The card's SM and memory clocks (MHz), temperature and power draw
+    now, as ``nvidia-smi`` reads them: the state a timing was taken in."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,power.draw", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
@@ -671,6 +706,8 @@ def last_kernel_calls(calls: dict):
         def call(*args, **kwargs):
             named = sig.bind(*args, **kwargs).arguments
             kind = "/".join([fn.__name__] + [k for k in ("sched", "acc_add") if named.get(k) is not None])
+            if fn.__name__ == "nested_mac" and named.get("scales") is not None:  # B5 by its group count
+                kind += f"/G{named['scales'].shape[-1]}"
             seen = calls[kind][2] if kind in calls else 0
             calls[kind] = (fn, {k: _clone(v) for k, v in named.items()}, seen + 1)
             return fn(*args, **kwargs)
@@ -956,6 +993,7 @@ def run_surface(dev, card) -> dict:
     assert flags_after == (True, True), "the caller's TF32 flags were not restored"
     for name, row in rows.items():
         assert row["rel_err"] < SURFACE_TOL, f"{name}: rel err {row['rel_err']}"
+    four = run_four_step(dev, card, rng)
 
     # fixed point: every Q7 pair, the Q15 edges and random pairs
     q7 = np.arange(-128, 128, dtype=np.int8)
@@ -1027,7 +1065,173 @@ def run_surface(dev, card) -> dict:
         assert ck["resumed_equals_two_calls_bitwise"], f"the state reloaded after {blocks} blocks continues differently"
         assert ck["equals_uninterrupted_bitwise"] or (blocks % 64 and ck["rel_diff_vs_uninterrupted"] < CUT_TOL), \
             f"checkpoint after {blocks} blocks vs uninterrupted: rel diff {ck['rel_diff_vs_uninterrupted']}"
-    return {"transforms": rows, "fixed_point": fixed, "checked": raised, "checkpoint": row}
+    return {"transforms": rows, "four_step": four, "fixed_point": fixed, "checked": raised, "checkpoint": row}
+
+
+def run_four_step(dev, card, rng) -> dict:
+    """7h, part ``four_step``: ``fft.four_step`` and ``fft.api``'s
+    ``"matmul"`` route above 8192 on the card with both TF32 flags on,
+    FOUR_STEP_ROWS rows each: ``fft_split_large`` at 2^14, 2^17 and 2^20,
+    ``rfft_split_large``/``irfft_split_large`` at 2^17, the packed pair at
+    8192 and ``fft(..., backend="matmul")`` at 2^16, each against numpy's
+    float64 FFT within FOUR_STEP_TOL of the peak, its ms (CUDA events)
+    beside cuFFT's on the same rows."""
+    import torch
+    from neojax_torch import fft as tfft
+    from neojax_torch.bench import harness
+    from neojax_torch.fft import four_step
+
+    r = FOUR_STEP_ROWS
+    rows = {}
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def row(name, got, ref, fn, lib):
+        got = got.cpu().numpy()
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        rows[name] = {"rel_err": err, "tol": FOUR_STEP_TOL, "ms": 1e3 * harness.cuda_seconds(fn),
+                      "cufft_ms": 1e3 * harness.cuda_seconds(lib)}
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for e in (14, 17, 20):
+            n = 1 << e
+            x = rng.standard_normal((r, n)) + 1j * rng.standard_normal((r, n))
+            re, im = put(x.real), put(x.imag)
+            xc = torch.complex(re, im)
+            fn = lambda: four_step.fft_split_large(re, im, n)  # noqa: E731
+            row(f"fft_split_large/{n}", torch.complex(*fn()), np.fft.fft(x), fn, lambda: torch.fft.fft(xc))
+            del x, re, im, xc
+        n = 1 << 17
+        x = rng.standard_normal((r, n))
+        xt = put(x)
+        spec = np.fft.rfft(x)
+        fn = lambda: four_step.rfft_split_large(xt, n)  # noqa: E731
+        row(f"rfft_split_large/{n}", torch.complex(*fn()), spec, fn, lambda: torch.fft.rfft(xt))
+        sre, sim = put(spec.real), put(spec.imag)
+        sc = torch.complex(sre, sim)
+        fn = lambda: four_step.irfft_split_large(sre, sim, n)  # noqa: E731
+        row(f"irfft_split_large/{n}", fn(), x, fn, lambda: torch.fft.irfft(sc, n=n))
+        n = 8192
+        x = rng.standard_normal((r, n))
+        xt = put(x)
+        spec = np.fft.rfft(x)
+        packed = spec[:, : n // 2].copy()
+        packed.imag[:, 0] = spec[:, n // 2].real
+        fn = lambda: four_step.rfft_packed_split_large(xt, n)  # noqa: E731
+        row(f"rfft_packed_split_large/{n}", torch.complex(*fn()), packed, fn, lambda: torch.fft.rfft(xt))
+        pre, pim = put(packed.real), put(packed.imag)
+        sc = put(spec.real) + 1j * put(spec.imag)
+        fn = lambda: four_step.irfft_packed_split_large(pre, pim, n)  # noqa: E731
+        row(f"irfft_packed_split_large/{n}", fn(), x, fn, lambda: torch.fft.irfft(sc, n=n))
+        n = 1 << 16
+        x = rng.standard_normal((r, n))
+        xt = put(x)
+        fn = lambda: tfft.fft(xt, backend="matmul")  # noqa: E731
+        row(f"api.fft/matmul/{n}", fn(), np.fft.fft(x), fn, lambda: torch.fft.fft(xt))
+        flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    emit(phase="surface", part="four_step", tf32_flags_on=True, rows_per_call=r, rows=rows, **card)
+    assert flags_after == (True, True), "the caller's TF32 flags were not restored"
+    for name, rw in rows.items():
+        assert rw["rel_err"] < FOUR_STEP_TOL, f"{name}: rel err {rw['rel_err']}"
+    return rows
+
+
+# ----------------------------------------------------------------- 7j. tools
+#
+# The sweep tools (``neojax_torch.tools``), each run in-process on its
+# ``--smoke`` grid in a launch window of its own; the windows are summed
+# into the ``tools`` path. B5 kinds carry their group count (``/G64``).
+
+TOOLS = ("int8_sweep", "bench_sparse_sweep", "bench_perceptual", "bench_quality_sweep", "bench_grid",
+         "bench_timesharded")
+# the kernel calls each tool's smoke must make and hold against their
+# plain versions (kinds as ``last_kernel_calls`` names them)
+TOOL_HELD = {"int8_sweep": ("nested_mac/G64", "nested_mac/G16"),
+             "bench_sparse_sweep": ("fused_stream", "fused_stream/sched"),
+             "bench_perceptual": ("fused_stream", "fused_stream/sched"),
+             "bench_quality_sweep": ("fused_stream", "fused_stream/sched"), "bench_grid": ("fdl_mac",),
+             "bench_timesharded": ("fused_stream",)}
+GRID_RING = [2, 32, CHANNELS, 4096]  # the grid's largest ring: L = 2^17 at block 4096, packed
+
+
+def run_tools(dev, card, cuda_ms, device_ms, bound_of) -> dict:
+    """7j. Each tool's ``main(["--smoke"])`` in-process, its JSON line
+    printed as a ``tools`` line; the launch counters zeroed before it and
+    read after; each kernel call it made kept (``last_kernel_calls``) and,
+    after the counts are read, held against its plain version
+    (``hold_kept``): B5 at G = 64 and G = 16, B3 dense and with the
+    schedule of a band and of a perceptual mask, B1 on the grid's
+    GRID_RING. Every kernel a tool launched must have been held. Then B1
+    at GRID_RING timed (device ms twice, plain, the complex ``einsum``;
+    the card's clocks before and after) for the ``bounds`` line. Returns {"tools", "launches", "grid_b1", "wall_s"}."""
+    import importlib
+    import io as pyio
+
+    import torch
+    from neojax_torch import kernels
+    from neojax_torch.bench import headline
+    from neojax_torch.kernels import fdl_mac as mac_mod
+
+    t_phase = time.perf_counter()
+    results, total, grid_b1 = {}, {}, None
+    for name in TOOLS:
+        tool = importlib.import_module(f"neojax_torch.tools.{name}")
+        calls, log = {}, pyio.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with last_kernel_calls(calls), contextlib.redirect_stdout(log):
+            rc = tool.main(["--smoke"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        res = json.loads(log.getvalue().strip().splitlines()[-1])
+        held = hold_kept(calls)
+        missing = unheld_kernels(counts, held)
+        emit(phase="tools", tool=name, rc=rc, wall_s=wall, launches={k: v for k, v in counts.items() if v},
+             kernels_vs_plain=held, not_held=missing, result=res)
+        results[name] = {"rc": rc, "wall_s": wall, "result": res, "kernels_vs_plain": sorted(held)}
+        assert rc == 0, f"tool {name} --smoke: exit code {rc}, failed {res.get('failed')}"
+        for k in TOOL_HELD[name]:
+            assert k in held, f"tool {name}: no {k} call held against its plain version ({sorted(held)})"
+        assert not missing, f"tool {name}: {missing} launched but not held against its plain version"
+        if name == "bench_grid":
+            fn, named, _ = calls["fdl_mac"]
+            assert list(named["fdl"].shape) == GRID_RING, named["fdl"].shape
+            grid_b1 = (named, counts["fdl_mac"], res["b1_check_launches"])
+        del calls
+        torch.cuda.empty_cache()
+
+    # B1 at the grid's largest ring: device ms, plain, one complex einsum
+    named, launches, checks = grid_b1
+    args = (named["fdl"], named["filt_re"], named["filt_im"], named.get("scales"))
+    clocks = gpu_clocks()
+    ms = device_ms(lambda: mac_mod.fdl_mac(*args), 50)
+    xc, fc = torch.complex(args[0][0], args[0][1]), torch.complex(args[1][:, 0], args[2][:, 0])
+    row = {"ring": GRID_RING, "launches": launches, "launches_of_the_tools_check": checks, "ms": ms,
+           "clocks_before": clocks,
+           "ms_back_to_back": cuda_ms(lambda: mac_mod.fdl_mac(*args), 50),
+           "plain_ms": cuda_ms(lambda: mac_mod.fdl_mac_reference(*args), 5),
+           **bound_of(headline.fdl_mac_work("split", GRID_RING[1], CHANNELS, GRID_RING[3]), ms),
+           "library_ms": cuda_ms(lambda: torch.einsum("pck,pk->ck", xc, fc), 20),
+           "library_call": "torch.einsum('pck,pk->ck') on complex64 at the grid's [32, 64, 4096] ring "
+                           "(inputs built outside)"}
+    row["ms_again"] = device_ms(lambda: mac_mod.fdl_mac(*args), 50)  # the same reading after the others
+    row["clocks_after"] = gpu_clocks()
+    row["max_abs_err"] = float((torch.cat(mac_mod.fdl_mac(*args)) - torch.cat(mac_mod.fdl_mac_reference(*args)))
+                               .abs().max())
+    del xc, fc, named, args
+    wall = time.perf_counter() - t_phase
+    emit(phase="tools", part="summary", wall_s=wall, budget_s=60, tools={k: v["wall_s"] for k, v in results.items()},
+         **card)
+    return {"tools": results, "launches": total, "grid_b1": row, "wall_s": wall}
 
 
 # ------------------------------------------------------------------ 7i. dist
@@ -1103,21 +1307,15 @@ def oracle_window(x4: np.ndarray, ir: np.ndarray, start: int) -> np.ndarray:
     return snr_window(y, start)
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_dist_world(world: int, stage: str, outdir: str, expect_exit=None) -> dict:
     """Start ``world`` worker processes of this script on one gloo group,
     wait for them within DIST_WORLD_S and return {rank: their JSON}. A
     worker that fails or a world that overruns raises (every process is
     stopped); ``expect_exit`` maps ranks that end themselves to their code."""
+    from neojax_torch.dist.multihost import free_port
+
     expect_exit = expect_exit or {}
-    port = _free_port()
+    port = free_port()
     procs, logs = [], []
     for r in range(world):
         log = open(os.path.join(outdir, f"{stage}_r{r}.log"), "w")
@@ -1324,6 +1522,14 @@ def held_calls(run) -> dict:
     calls = {}
     with last_kernel_calls(calls):
         run()
+    return hold_kept(calls)
+
+
+def hold_kept(calls: dict) -> dict:
+    """Each call ``last_kernel_calls`` kept, its kernel held against its
+    plain version on copies of its operands (``kernel_vs_plain_on``, at
+    TOL; B3 on at most two spans of DIST_B3_SPAN blocks,
+    ``fused_stream_spans``): {kind: row}."""
     rows = {}
     for kind, (fn, named, seen) in calls.items():
         if fn.__name__ != "fused_stream":
@@ -1629,7 +1835,8 @@ def run_dist(dev, card) -> dict:
     windows, summary = {}, {"note": DIST_NOTE}
 
     # D0: one rank on NCCL
-    assert tdist.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, timeout_secs=60, backend="nccl")
+    assert tdist.init_distributed(f"127.0.0.1:{tdist.multihost.free_port()}", 1, 0, timeout_secs=60,
+                                  backend="nccl")
     try:
         mesh = tdist.make_mesh()
         sig = device_signal(DIST_CH, DIST_NB, 11, dev)
@@ -2678,6 +2885,13 @@ def main(dist_only: bool = False) -> int:
         read_window(path, DIST_EXPECT[path], counts)
     torch.cuda.empty_cache()
 
+    # ---- 7j. the sweep tools' smoke grids (each tool's window summed into
+    # one), each kernel call they made held against its plain version
+    tools_sum = run_tools(dev, card, cuda_ms, device_ms, bound_of)
+    read_window("tools", ("fdl_mac", "nested_mac", "fused_stream", "fused_stream_sched", "sched_widths",
+                          *b3_stage_names), tools_sum["launches"])
+    torch.cuda.empty_cache()
+
     # ---- 7b. probes T1 and T2 against their plain versions, the measurement
     # path in its own launch window, a profiler trace, and every kernel's bound
     emit(phase="probes", peaks={"hbm_bytes_per_s": peak_b, "f32_flops_per_s": peak_f, "note": no_peaks})
@@ -2882,6 +3096,8 @@ def main(dist_only: bool = False) -> int:
         # B1 at the hybrid head's ring [2, 64, 64, 513], B4 at K = 513 (split; band30)
         "fdl_mac/hybrid_head": headline.fdl_mac_work("split", S_HYBRID, c, BLOCK + 1),
         "sparse_fdl_mac/k513": k513_work,
+        # B1 at the block-4096 grid's largest ring [2, 32, 64, 4096] (split)
+        "fdl_mac/grid4096": headline.fdl_mac_work("split", GRID_RING[1], c, GRID_RING[3]),
     }
     kernel_ms = {
         "fdl_mac": summary["fdl_mac"]["split"]["ms"],
@@ -2897,9 +3113,11 @@ def main(dist_only: bool = False) -> int:
         "sched_widths": stages["sched_widths"]["split/band30"]["ms"],
         "fdl_mac/hybrid_head": summary["fdl_mac_head"]["split"]["ms"],
         "sparse_fdl_mac/k513": sp_sum["sparse_fdl_mac"]["split/band30"]["unpacked_k513"]["ms"],
+        "fdl_mac/grid4096": tools_sum["grid_b1"]["ms"],
     }
     lib["fdl_mac/hybrid_head"] = head_lib
     lib["sparse_fdl_mac/k513"] = k513_lib
+    lib["fdl_mac/grid4096"] = {k: tools_sum["grid_b1"][k] for k in ("library_ms", "library_call")}
     bounds = {}
     for name, work in works.items():
         row = {"bytes": work.bytes, "flops": work.flops, "bound_ms": None, "bound_by": None,
@@ -3093,6 +3311,14 @@ def main(dist_only: bool = False) -> int:
             row.update(kernel_body="neojax_torch/csrc/step_mac.cuh",
                        splits=heads[row["name"]]["splits"], vec=heads[row["name"]]["vec"],
                        other_shape={"shape": other.split("/")[1], "ms": kernel_ms[other], **bounds[other]})
+            if row["name"] == "fdl_mac":  # the block-4096 grid's largest ring, launched by the tools
+                g = tools_sum["grid_b1"]
+                row["grid_shape"] = {"shape": "grid4096", "ring": g["ring"], "launches": g["launches"],
+                                     "launches_of_the_tools_check": g["launches_of_the_tools_check"],
+                                     "ms": g["ms"], "ms_again": g["ms_again"], "plain_ms": g["plain_ms"],
+                                     "max_abs_err": g["max_abs_err"], "clocks_before": g["clocks_before"],
+                                     "clocks_after": g["clocks_after"],
+                                     **bounds["fdl_mac/grid4096"]}
         if row["name"] in stages:
             if not row["name"].startswith("step_"):  # B2 runs these stages too
                 row["replaces_also"] = "neojax/kernels/fused_step.py:330"
@@ -3104,6 +3330,7 @@ def main(dist_only: bool = False) -> int:
          engine_times=engine_times, hybrid_stream_latency=stream_lat, chunked=chunked_sum,
          make_engine=make_engine_sum, convolve=convolve_sum, cli=cli_sum["runs"],
          executor={k: executor_sum[k] for k in ("callback_path", "executor_path")}, surface=surface_sum,
+         tools={k: v["wall_s"] for k, v in tools_sum["tools"].items()},
          dist=dist_sum["summary"], total_s=time.perf_counter() - t_start, **card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,11 @@ __all__ = [
     "make_ir",
     "make_parts",
     "signal",
+    "SNR_START",
+    "SNR_BLOCKS",
+    "SNR_CH",
+    "oracle_head",
+    "snr_db",
     "perblock_bytes",
     "Work",
     "bound",
@@ -112,6 +117,48 @@ def signal(num_blocks: int, device=None, seed: int = 1, channels: int = CHANNELS
     gen = torch.Generator(dev).manual_seed(seed)
     x = torch.rand((channels, num_blocks * block), generator=gen, device=dev)
     return x.mul_(2.0).sub_(1.0)
+
+
+# The steady-state SNR window (``bench.py:_SNR_*``): SNR_BLOCKS blocks of
+# SNR_CH channels from block SNR_START, past the 938-block IR depth, so
+# the delay line is fully populated.
+SNR_START = 1152  # blocks; > P_REAL and a multiple of every chunk size
+SNR_BLOCKS = 16
+SNR_CH = 4
+
+
+def oracle_head(sig, ir: np.ndarray | None = None, start: int | None = None, blocks: int | None = None,
+                channels: int | None = None, block: int | None = None) -> np.ndarray:
+    """Exact float64 linear convolution of the first ``channels`` rows of
+    ``sig`` with ``ir`` (default :func:`make_ir`), sliced to the SNR window
+    ``[start, start + blocks)`` blocks: ``bench.py:_oracle_head`` on the
+    signal given (the JAX bench draws its own). ``sig`` [C, >= (start +
+    blocks) * block], numpy or a tensor anywhere; None takes the module's
+    SNR_START, SNR_BLOCKS, SNR_CH and BLOCK. Returns [channels, blocks *
+    block] float64."""
+    start = SNR_START if start is None else start
+    blocks = SNR_BLOCKS if blocks is None else blocks
+    channels = SNR_CH if channels is None else channels
+    block = BLOCK if block is None else block
+    ir = make_ir() if ir is None else np.asarray(ir, np.float64)
+    if isinstance(sig, torch.Tensor):
+        sig = sig[:channels, : (start + blocks) * block].cpu().numpy()
+    sig = np.asarray(sig[:channels, : (start + blocks) * block], np.float64)
+    t_len = sig.shape[1]
+    nfft = 1 << int(np.ceil(np.log2(t_len + ir.size)))
+    out = np.fft.irfft(np.fft.rfft(sig, nfft) * np.fft.rfft(ir, nfft)[None], nfft)[:, :t_len]
+    return out[:, start * block :]
+
+
+def snr_db(head, oracle) -> float:
+    """``bench.py:_snr_db``: 10 log10 of the oracle's energy over the
+    error's (inf for an exact head)."""
+    err = np.asarray(head, np.float64) - oracle
+    num = float(np.sum(oracle**2))
+    den = float(np.sum(err**2))
+    if den == 0:
+        return float("inf")
+    return 10.0 * np.log10(num / den)
 
 
 def perblock_bytes(config, p: int, fused: bool = False) -> int:

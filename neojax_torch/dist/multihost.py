@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 from dataclasses import dataclass
 from typing import Callable
 
@@ -32,6 +33,7 @@ from neojax_torch.io.checkpoint import _flatten, _unflatten, load_state, save_st
 
 __all__ = [
     "init_distributed",
+    "free_port",
     "StreamDriver",
     "save_sharded_state",
     "load_sharded_state",
@@ -58,6 +60,14 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     dist.init_process_group(backend or "nccl", init_method=f"tcp://{coordinator}", world_size=world,
                             rank=rank, timeout=datetime.timedelta(seconds=timeout_secs))
     return True
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that is free now, for a local
+    :func:`init_distributed` coordinator (``127.0.0.1:<port>``)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _rank() -> int:

@@ -19,8 +19,9 @@ the card).
 
 ``neojax`` keeps a sequential ``insert_only_step`` scan for its four-step
 transform sizes (N >= 4096), whose transforms are not batch-shaped. The
-port has no four-step route and its transforms batch at every size, so the
-batched warmup serves every N.
+port's streaming engines transform on cuFFT at every size (its four-step
+route is ``fft.api``'s ``"matmul"`` backend alone), so the batched warmup
+serves every N.
 
 Where the stream runs the fused kernels (B3 for UPOLS, B2 for UPOLA), the
 warmup is ``conv.convolver.warm_ring``: their own stage kernels over the

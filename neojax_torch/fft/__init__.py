@@ -2,9 +2,9 @@
 DFT, the split and packed transforms, and the packed-DFT matrices.
 
 Backends as in ``neojax``: ``"xla"`` (and ``"auto"``: ``torch.fft``) and
-``"matmul"`` (DFT products in IEEE float32). ``neojax.fft``'s four-step
-route is not ported (above 8192 the ``"matmul"`` backend runs
-``torch.fft``).
+``"matmul"`` (DFT products in IEEE float32; above 8192 a power of two runs
+the four-step recursion of them, the submodule ``fft.four_step``, which
+this namespace does not export, as ``neojax.fft`` does not).
 """
 
 from neojax_torch.core.bits import next_order

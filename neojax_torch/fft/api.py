@@ -9,8 +9,9 @@ conventions. Two backends, as in the JAX package:
     pocketfft on the CPU — any size;
   - ``"matmul"``: the DFT as a float32 product against dense matrices
     (``fft.matmul_backend``, IEEE float32 whatever the caller's TF32
-    flags), up to ``_MATMUL_MAX_SIZE``; above it ``torch.fft`` runs (the
-    JAX package's four-step route there is not ported).
+    flags), up to ``_MATMUL_MAX_SIZE``; above it a power of two goes
+    through the four-step recursion of such products
+    (``fft.four_step``), any other size to ``torch.fft``.
 
 The default backend is process-global and settable via ``set_backend``.
 Each transform runs where its input tensor lies; host input (numpy,
@@ -23,7 +24,7 @@ import torch
 
 from neojax_torch.core.bits import is_pow2
 from neojax_torch.core.device import as_tensor
-from neojax_torch.fft import matmul_backend
+from neojax_torch.fft import four_step, matmul_backend
 
 __all__ = [
     "set_backend",
@@ -50,11 +51,19 @@ def get_backend() -> str:
     return _BACKEND
 
 
-def _use_matmul(backend, n: int, x: torch.Tensor, axis: int) -> bool:
+def _route(backend, n: int, x: torch.Tensor, axis: int) -> str:
+    """``"matmul"`` (dense DFT products), ``"fourstep"`` (the four-step
+    recursion of them, a power of two above ``_MATMUL_MAX_SIZE``) or
+    ``"torch"`` (``torch.fft``; also any transform over another axis), as
+    ``neojax.fft.api._resolve_backend`` routes the JAX package's."""
     b = backend or _BACKEND
     if b not in ("auto", "xla", "matmul"):
         raise ValueError(f"unknown fft backend: {b!r}")
-    return b == "matmul" and n <= _MATMUL_MAX_SIZE and axis in (-1, x.ndim - 1)
+    if b != "matmul" or axis not in (-1, x.ndim - 1):
+        return "torch"
+    if n > _MATMUL_MAX_SIZE:
+        return "fourstep" if is_pow2(n) else "torch"
+    return "matmul"
 
 
 def _check_norm(norm):
@@ -85,7 +94,10 @@ def fft(x, n: int | None = None, axis: int = -1, norm: str = "backward", backend
     x = as_tensor(x, device)
     n = int(n if n is not None else x.shape[axis])
     x = _pad_or_trim(x, n, axis)
-    if _use_matmul(backend, n, x, axis):
+    route = _route(backend, n, x, axis)
+    if route == "fourstep":
+        out = torch.complex(*four_step.fft_split_large(*_split(x), n))
+    elif route == "matmul":
         out = torch.complex(*matmul_backend.fft_split(*_split(x), n))
     else:
         out = torch.fft.fft(x, dim=axis)
@@ -98,8 +110,10 @@ def ifft(x, n: int | None = None, axis: int = -1, norm: str = "backward", backen
     x = as_tensor(x, device)
     n = int(n if n is not None else x.shape[axis])
     x = _pad_or_trim(x, n, axis)
-    if _use_matmul(backend, n, x, axis):
-        re, im = matmul_backend.fft_split(*_split(x), n, inverse=True)
+    route = _route(backend, n, x, axis)
+    if route != "torch":
+        split = four_step.fft_split_large if route == "fourstep" else matmul_backend.fft_split
+        re, im = split(*_split(x), n, inverse=True)
         out = torch.complex(re / n, im / n)
     else:
         out = torch.fft.ifft(x, dim=axis)
@@ -113,7 +127,10 @@ def rfft(x, n: int | None = None, axis: int = -1, norm: str = "backward", backen
     x = as_tensor(x, device)
     n = int(n if n is not None else x.shape[axis])
     x = _pad_or_trim(x, n, axis)
-    if _use_matmul(backend, n, x, axis) and n % 2 == 0:
+    route = _route(backend, n, x, axis)
+    if route == "fourstep":
+        out = torch.complex(*four_step.rfft_split_large(x, n))
+    elif route == "matmul" and n % 2 == 0:
         out = matmul_backend.rfft(x, n)
     else:
         out = torch.fft.rfft(x, dim=axis)
@@ -127,8 +144,11 @@ def irfft(x, n: int | None = None, axis: int = -1, norm: str = "backward", backe
     x = as_tensor(x, device)
     n = int(n if n is not None else 2 * (x.shape[axis] - 1))
     x = _pad_or_trim(x, n // 2 + 1, axis)
-    if _use_matmul(backend, n, x, axis) and n % 2 == 0:
-        out = matmul_backend.irfft(x, n)
+    route = _route(backend, n, x, axis)
+    if route == "fourstep":
+        out = four_step.irfft_split_large(*_split(x), n)
+    elif route == "matmul" and n % 2 == 0:
+        out = matmul_backend.irfft(torch.complex(*_split(x)), n)  # real bins too, as numpy takes them
     else:
         out = torch.fft.irfft(x, n=n, dim=axis)
     return _apply_norm(out, n, norm, forward=False)

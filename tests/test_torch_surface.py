@@ -478,8 +478,9 @@ _ORBAX = {"save_state_orbax": "save_state_dcp", "load_state_orbax": "load_state_
 def test_namespaces_export_what_neojax_exports():
     """``fft``, ``core``, ``ops``, ``io`` and ``dist`` export ``neojax``'s
     names (``io``'s orbax pair as its ``torch.distributed.checkpoint``
-    counterpart), ``bench`` the weak-scaling sweep; ``fft`` leaves out the
-    four-step route, which ``neojax.fft`` does not export either."""
+    counterpart), ``bench`` the weak-scaling sweep. ``four_step`` is a
+    submodule of ``fft`` in both packages, and neither exports it from
+    ``fft``."""
     import neojax_torch.bench
 
     assert set(jfft.__all__) <= set(tfft.__all__)
@@ -495,7 +496,8 @@ def test_namespaces_export_what_neojax_exports():
     assert set(neojax.__all__) - {"kernels"} <= set(neojax_torch.__all__)
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "examples/realtime_stream_torch.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "examples/realtime_stream_torch.py",
+                                    "examples/perceptual_convolution_torch.py"])
 def test_port_scripts_import_no_jax(script):
     """The card smoke and the port's real-time example import neither jax
     nor neojax (the package itself: ``test_torch_convolve.py``)."""
@@ -539,7 +541,7 @@ def _neojax_modules():
     import pkgutil
 
     names = ["neojax"] + [m.name for m in pkgutil.walk_packages(neojax.__path__, "neojax.")]
-    return sorted(n for n in names if n != "neojax.fft.four_step")  # left out by design (A10)
+    return sorted(names)
 
 
 def _public_callables(mod):
