@@ -1,0 +1,84 @@
+"""Uniformly partitioned overlap-save convolution, written out plainly.
+
+For partition spectra ``H [P, K]`` (K = B + 1 bins of a 2B-point real FFT;
+a masked filter has its dropped bins zeroed) and an input stream of
+B-sample blocks ``x_j`` (zero before the stream starts), output block g is
+
+    X_j = rfft([x_{j-1} | x_j])          (2B points)
+    Y_g = sum_{p < P} X_{g-p} * H_p
+    y_g = irfft(Y_g)[B:]
+
+which, for spectra partitioned from a real IR, is its linear convolution.
+Every output block is computed on its own from the input blocks
+``g - P .. g``, so nothing of the program's state or tables is used.
+
+``precision``:
+  - ``"f64"``: the reference, in float64 throughout;
+  - ``"tf32"``: the control for a float32 configuration, the same sum with
+    float32 transforms and the spectra and filter rounded to TF32 (a
+    10-bit mantissa) before a float32 multiply-accumulate: what a TF32
+    tensor-core product in place of the float32 one would give.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["partition", "round_tf32", "output_blocks"]
+
+
+def partition(ir: np.ndarray, block: int) -> np.ndarray:
+    """IR [taps] -> complex64 spectra [P, B + 1]: each B-sample segment
+    zero-padded to 2B and transformed (float32 input, as a deployment
+    loads its IR)."""
+    ir = np.asarray(ir, np.float32)
+    p = -(-ir.shape[-1] // block)
+    padded = np.zeros(p * block, np.float32)
+    padded[: ir.shape[-1]] = ir
+    return np.fft.rfft(padded.reshape(p, block), n=2 * block, axis=-1).astype(np.complex64)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 explicit mantissa bits, ties to
+    even), still stored as float32."""
+    bits = x.contiguous().view(torch.int32)
+    lsb = (bits >> 13) & 1
+    rounded = (bits + 0xFFF + lsb) & ~0x1FFF
+    return rounded.view(torch.float32)
+
+
+def _round_complex(z: torch.Tensor) -> torch.Tensor:
+    return torch.complex(round_tf32(z.real), round_tf32(z.imag))
+
+
+def output_blocks(segment, spectra: np.ndarray, blocks, block: int, precision: str = "f64",
+                  device="cpu", channel_chunk: int = 16) -> dict[int, torch.Tensor]:
+    """Output blocks ``{g: y_g [C, B] float64 on the host}`` for each g in
+    ``blocks``.
+
+    segment : ``segment(g0, g1) -> [C, (g1 - g0) * B]`` input blocks g0 .. g1-1
+              as a tensor (any float dtype, any device; zeros for g < 0)
+    spectra : [P, B + 1] complex partition spectra (masked bins zeroed)
+    """
+    if precision not in ("f64", "tf32"):
+        raise ValueError(f"unknown precision {precision!r}")
+    real = torch.float64 if precision == "f64" else torch.float32
+    p = spectra.shape[0]
+    h = torch.from_numpy(np.ascontiguousarray(spectra)).to(device)
+    h = h.to(torch.complex128) if precision == "f64" else _round_complex(h.to(torch.complex64))
+    h_rev = h.flip(0)  # row i multiplies frame g - P + 1 + i
+    out = {}
+    for g in blocks:
+        g = int(g)
+        seg = segment(g - p, g + 1).to(device=device, dtype=real)  # blocks g-P .. g
+        ys = []
+        for c0 in range(0, seg.shape[0], channel_chunk):
+            frames = seg[c0 : c0 + channel_chunk].unfold(-1, 2 * block, block)  # [c, P, 2B]: frames g-P+1 .. g
+            x = torch.fft.rfft(frames, dim=-1)
+            if precision == "tf32":
+                x = _round_complex(x)
+            acc = torch.einsum("cpk,pk->ck", x, h_rev)
+            ys.append(torch.fft.irfft(acc, n=2 * block, dim=-1)[:, block:])
+        out[g] = torch.cat(ys).to(torch.float64).cpu()
+    return out
