@@ -1,0 +1,9 @@
+"""Device idle time in the traced stretch while the host's innermost span is
+the program's ``kernels.fused_stream``, as a share of the stretch, in
+percent."""
+
+from benchmark.lib.program_spans import idle_pct_in
+
+
+def read(run):
+    return idle_pct_in(run, ("kernels.fused_stream",))

@@ -1,25 +1,22 @@
-"""Profiling and structured run reporting.
+"""Profiling.
 
-Port of ``neojax.bench.profile``: a ``torch.profiler`` trace in place of
-``jax.profiler`` (CPU activity, and the card's kernels when a card is
-visible), written as a Chrome trace into the directory the caller names,
-plus structured per-run JSON records (config, samples/s, roofline
-fraction, SNR) with the JAX package's fields.
+Port of ``neojax.bench.profile``'s trace: a ``torch.profiler`` trace in
+place of ``jax.profiler`` (CPU activity, and the card's kernels when a card
+is visible), written as a Chrome trace into the directory the caller
+names. The program's spans (``neojax_torch.trace``) appear in it as
+``user_annotation`` events around the kernels they launched.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import json
 import os
-import sys
 import tempfile
-import time
 
 import torch
 
-__all__ = ["trace", "kernel_timeline", "RunRecord", "emit_record"]
+__all__ = ["trace", "kernel_timeline"]
 
 
 @contextlib.contextmanager
@@ -67,23 +64,3 @@ def kernel_timeline(fn, calls: int = 3) -> list[list[tuple[str, float]]]:
             out[-1].append((e["name"], float(e["dur"])))
     return out
 
-
-@dataclasses.dataclass
-class RunRecord:
-    """Structured result of one benchmark/parity run."""
-
-    name: str
-    config: dict
-    samples_per_sec: float | None = None
-    seconds: float | None = None
-    roofline_fraction: float | None = None
-    snr_db: float | None = None
-    extra: dict = dataclasses.field(default_factory=dict)
-    timestamp: float = dataclasses.field(default_factory=time.time)
-
-    def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self))
-
-
-def emit_record(record: RunRecord, stream=None) -> None:
-    print(record.to_json(), file=stream or sys.stderr)

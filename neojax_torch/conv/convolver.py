@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neojax_torch import trace
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv.overlap import stream_blocks, unstream_blocks
 from neojax_torch.conv.sparse import sparsity_mask
@@ -491,12 +492,13 @@ def _fused_step(config: PartitionedConfig, params: dict, state: dict, frame: tor
     p = config.num_partitions
     pos = state["pos"]
 
-    f64 = frame.to(torch.float64)
-    pair = torch.stack([f64.sum(-1), (f64 * _alternating(n, frame.device)).sum(-1)], dim=-1)
-    dcny = state["dcny"]
-    dcny[pos] = pair.to(torch.float32)
-    filt_dcny = fdl_lib.rotated_filter(params["filt_dcny"], pos, p)
-    dcfix = fdl_lib.dcny_mac(dcny, filt_dcny).T.contiguous()  # [2, C]
+    with trace.span("conv.dcny"):
+        f64 = frame.to(torch.float64)
+        pair = torch.stack([f64.sum(-1), (f64 * _alternating(n, frame.device)).sum(-1)], dim=-1)
+        dcny = state["dcny"]
+        dcny[pos] = pair.to(torch.float32)
+        filt_dcny = fdl_lib.rotated_filter(params["filt_dcny"], pos, p)
+        dcfix = fdl_lib.dcny_mac(dcny, filt_dcny).T.contiguous()  # [2, C]
 
     fdl = state["fdl"]
     planes, scales = fdl if isinstance(fdl, tuple) else (fdl, None)
@@ -548,43 +550,44 @@ def step(config: PartitionedConfig, params: dict, state: dict, block: torch.Tens
     The FDL ring, its scales and ``dcny`` are updated IN PLACE: the state
     passed in shares them with the state returned, so keep using the
     returned one."""
-    b = config.block_size
-    n = config.transform_size
-    p = config.num_partitions
-    ring = config.layout == "ring"
-    pos = state.get("pos")
+    with trace.span("conv.step"):
+        b = config.block_size
+        n = config.transform_size
+        p = config.num_partitions
+        ring = config.layout == "ring"
+        pos = state.get("pos")
 
-    frame = _frame(config, state, block)
-    new_tail = block if config.scheme == "upols" else None
+        frame = _frame(config, state, block)
+        new_tail = block if config.scheme == "upols" else None
 
-    if _use_fused(config, params):
-        y, update = _fused_step(config, params, state, frame)
-    else:
-        update, _ = _spectrum_and_push(config, state, frame)
-        new_fdl = update["fdl"]
-        if config.storage == "dense":
-            filt = fdl_lib.rotated_filter(params["filt"], pos, p) if ring else params["filt"]
-            acc = fdl_lib.fdl_mac_dense(new_fdl, filt)
-            y = fft_api.irfft(acc, n=n, backend=config.fft_backend)
+        if _use_fused(config, params):
+            y, update = _fused_step(config, params, state, frame)
         else:
-            acc_re, acc_im = _split_mac(config, params, new_fdl, pos)
-            if config.use_packed:
-                # Overwrite the lane-0 complex product with the exact
-                # DC/Nyquist real MACs from the f32 side-carry.
-                filt_dcny = fdl_lib.rotated_filter(params["filt_dcny"], pos, p)
-                acc_dcny = fdl_lib.dcny_mac(update["dcny"], filt_dcny)  # [C, 2]
-                acc_re[:, 0] = acc_dcny[:, 0]
-                acc_im[:, 0] = acc_dcny[:, 1]
-                y = matmul_backend.irfft_packed_split(acc_re, acc_im, n)
+            update, _ = _spectrum_and_push(config, state, frame)
+            new_fdl = update["fdl"]
+            if config.storage == "dense":
+                filt = fdl_lib.rotated_filter(params["filt"], pos, p) if ring else params["filt"]
+                acc = fdl_lib.fdl_mac_dense(new_fdl, filt)
+                y = fft_api.irfft(acc, n=n, backend=config.fft_backend)
             else:
-                y = fft_api.irfft(torch.complex(acc_re, acc_im), n=n, backend=config.fft_backend)
+                acc_re, acc_im = _split_mac(config, params, new_fdl, pos)
+                if config.use_packed:
+                    # Overwrite the lane-0 complex product with the exact
+                    # DC/Nyquist real MACs from the f32 side-carry.
+                    filt_dcny = fdl_lib.rotated_filter(params["filt_dcny"], pos, p)
+                    acc_dcny = fdl_lib.dcny_mac(update["dcny"], filt_dcny)  # [C, 2]
+                    acc_re[:, 0] = acc_dcny[:, 0]
+                    acc_im[:, 0] = acc_dcny[:, 1]
+                    y = matmul_backend.irfft_packed_split(acc_re, acc_im, n)
+                else:
+                    y = fft_api.irfft(torch.complex(acc_re, acc_im), n=n, backend=config.fft_backend)
 
-    if config.scheme == "upols":
-        out = y[..., b:]
-    else:
-        out = y[..., :b] + state["tail"]
-        new_tail = y[..., b:]
-    return _advance(config, state, update, new_tail), out.to(torch.float32)
+        if config.scheme == "upols":
+            out = y[..., b:]
+        else:
+            out = y[..., :b] + state["tail"]
+            new_tail = y[..., b:]
+        return _advance(config, state, update, new_tail), out.to(torch.float32)
 
 
 def _dcfix_sequence(config: PartitionedConfig, params: dict, dcny: torch.Tensor, pos0: int,
@@ -597,36 +600,37 @@ def _dcfix_sequence(config: PartitionedConfig, params: dict, dcny: torch.Tensor,
     TF32 path) and cast to f32. Writes the last pairs into ``dcny`` in
     place. Returns (dcfix_all [nb, 2, C] f32, dcny).
     """
-    b = config.block_size
-    # the alternating-sign Nyquist trick continues the first half's
-    # pattern into the second — even B only (a packed-layout precondition)
-    assert b % 2 == 0, "fused stream requires an even block size"
-    p = config.num_partitions
-    c = sigpad.shape[0]
-    nb = sigpad.shape[1] // b - 1
-    dev = sigpad.device
+    with trace.span("conv.dcfix"):
+        b = config.block_size
+        # the alternating-sign Nyquist trick continues the first half's
+        # pattern into the second — even B only (a packed-layout precondition)
+        assert b % 2 == 0, "fused stream requires an even block size"
+        p = config.num_partitions
+        c = sigpad.shape[0]
+        nb = sigpad.shape[1] // b - 1
+        dev = sigpad.device
 
-    blocks = sigpad.reshape(c, nb + 1, b).to(torch.float64)
-    bs = blocks.sum(-1)  # [C, nb+1]
-    na = (blocks * _alternating(b, dev)).sum(-1)
-    dc = bs[:, :-1] + bs[:, 1:]  # frame i = [block i | block i+1]
-    ny = na[:, :-1] + na[:, 1:]
-    pairs = torch.stack([dc.T, ny.T], dim=-1).to(torch.float32)  # [nb, C, 2]
+        blocks = sigpad.reshape(c, nb + 1, b).to(torch.float64)
+        bs = blocks.sum(-1)  # [C, nb+1]
+        na = (blocks * _alternating(b, dev)).sum(-1)
+        dc = bs[:, :-1] + bs[:, 1:]  # frame i = [block i | block i+1]
+        ny = na[:, :-1] + na[:, 1:]
+        pairs = torch.stack([dc.T, ny.T], dim=-1).to(torch.float32)  # [nb, C, 2]
 
-    tidx = torch.remainder(pos0 + 1 + torch.arange(p - 1, device=dev), p)
-    seq = torch.cat([dcny[tidx], pairs], dim=0).to(torch.float64)  # [P-1+nb, C, 2]
-    # the tiled side filter's first P rows are the REVERSED filter: exactly
-    # the cross-correlation kernel of sum_a F[a] * seq[i-a]
-    ker = params["filt_dcny"][:p].to(torch.float64).expand(p, c, 2)
-    lhs = seq.permute(1, 2, 0).reshape(1, c * 2, p - 1 + nb)
-    rhs = ker.permute(1, 2, 0).reshape(c * 2, 1, p)
-    fix = F.conv1d(lhs, rhs, groups=c * 2)  # [1, 2C, nb]
-    dcfix_all = fix.reshape(c, 2, nb).permute(2, 1, 0).to(torch.float32).contiguous()
+        tidx = torch.remainder(pos0 + 1 + torch.arange(p - 1, device=dev), p)
+        seq = torch.cat([dcny[tidx], pairs], dim=0).to(torch.float64)  # [P-1+nb, C, 2]
+        # the tiled side filter's first P rows are the REVERSED filter: exactly
+        # the cross-correlation kernel of sum_a F[a] * seq[i-a]
+        ker = params["filt_dcny"][:p].to(torch.float64).expand(p, c, 2)
+        lhs = seq.permute(1, 2, 0).reshape(1, c * 2, p - 1 + nb)
+        rhs = ker.permute(1, 2, 0).reshape(c * 2, 1, p)
+        fix = F.conv1d(lhs, rhs, groups=c * 2)  # [1, 2C, nb]
+        dcfix_all = fix.reshape(c, 2, nb).permute(2, 1, 0).to(torch.float32).contiguous()
 
-    tail_n = min(p, nb)
-    idxs = torch.remainder(pos0 + nb - tail_n + torch.arange(tail_n, device=dev), p)
-    dcny[idxs] = pairs[nb - tail_n :]
-    return dcfix_all, dcny
+        tail_n = min(p, nb)
+        idxs = torch.remainder(pos0 + nb - tail_n + torch.arange(tail_n, device=dev), p)
+        dcny[idxs] = pairs[nb - tail_n :]
+        return dcfix_all, dcny
 
 
 def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
@@ -729,41 +733,42 @@ class Convolver:
         config), keeping state shapes equal to the JAX package's. The extra
         slots carry zero-weighted spectra, so results are exact.
         """
-        if sparsity is None:
-            sparsity = self._default_sparsity
-        if sparsity is None and self._require_sparsity:
-            raise ValueError(
-                "this is a sparse convolver (sparse_upols/upola_convolver, "
-                "sparse_convolver.hpp:16-21): pass a sparsity predicate "
-                "(row, col, value) -> bool or a boolean keep-mask, either "
-                "to filter(partitions, sparsity=...) or at construction"
+        with trace.span("conv.filter"):
+            if sparsity is None:
+                sparsity = self._default_sparsity
+            if sparsity is None and self._require_sparsity:
+                raise ValueError(
+                    "this is a sparse convolver (sparse_upols/upola_convolver, "
+                    "sparse_convolver.hpp:16-21): pass a sparsity predicate "
+                    "(row, col, value) -> bool or a boolean keep-mask, either "
+                    "to filter(partitions, sparsity=...) or at construction"
+                )
+            partitions = _host(partitions)
+            if partitions.ndim == 2:
+                partitions = partitions[None]
+            p_in = partitions.shape[1]
+            if pad_partitions is None:
+                mult = 32 if p_in > 32 else 8 if p_in > 8 else 1
+                p_pad = -(-p_in // mult) * mult
+            else:
+                if pad_partitions < p_in:
+                    raise ValueError(f"pad_partitions={pad_partitions} < filter partitions {p_in}")
+                p_pad = pad_partitions
+            if p_pad != p_in:
+                zeros = np.zeros((partitions.shape[0], p_pad - p_in, partitions.shape[2]), partitions.dtype)
+                partitions = np.concatenate([partitions, zeros], axis=1)
+            channels, p, bins = partitions.shape
+            self._filter_channels = channels
+            self.config = PartitionedConfig(
+                block_size=bins - 1,
+                num_partitions=p,
+                channels=channels,
+                scheme=self._scheme,
+                storage=self._storage,
+                fft_backend=self._fft_backend,
             )
-        partitions = _host(partitions)
-        if partitions.ndim == 2:
-            partitions = partitions[None]
-        p_in = partitions.shape[1]
-        if pad_partitions is None:
-            mult = 32 if p_in > 32 else 8 if p_in > 8 else 1
-            p_pad = -(-p_in // mult) * mult
-        else:
-            if pad_partitions < p_in:
-                raise ValueError(f"pad_partitions={pad_partitions} < filter partitions {p_in}")
-            p_pad = pad_partitions
-        if p_pad != p_in:
-            zeros = np.zeros((partitions.shape[0], p_pad - p_in, partitions.shape[2]), partitions.dtype)
-            partitions = np.concatenate([partitions, zeros], axis=1)
-        channels, p, bins = partitions.shape
-        self._filter_channels = channels
-        self.config = PartitionedConfig(
-            block_size=bins - 1,
-            num_partitions=p,
-            channels=channels,
-            scheme=self._scheme,
-            storage=self._storage,
-            fft_backend=self._fft_backend,
-        )
-        self.params = filter_params(self.config, partitions, sparsity=sparsity, device=self.device)
-        self.reset()
+            self.params = filter_params(self.config, partitions, sparsity=sparsity, device=self.device)
+            self.reset()
 
     def reset(self) -> None:
         if self.config is None:
@@ -785,11 +790,12 @@ class Convolver:
             )
         if self._streamed:
             raise RuntimeError("cannot change channel count mid-stream; reset() first")
-        self.config = dataclasses.replace(self.config, channels=channels)
-        self.state = init_state(self.config, self.device)
-        if "mask" in self.params:
-            # the schedules' chunk geometry depends on the channel count
-            self.params.update(_schedule_params(self.config, _host(self.params["mask"]), self.device))
+        with trace.span("conv.bind"):
+            self.config = dataclasses.replace(self.config, channels=channels)
+            self.state = init_state(self.config, self.device)
+            if "mask" in self.params:
+                # the schedules' chunk geometry depends on the channel count
+                self.params.update(_schedule_params(self.config, _host(self.params["mask"]), self.device))
 
     def _as_signal(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -807,42 +813,44 @@ class Convolver:
         to ``process``); any other chunking engages a re-blocking FIFO on
         the device with a fixed stream latency of block_size-1 silence
         samples (``self.latency``)."""
-        if self.config is None:
-            raise RuntimeError("call filter() first")
-        block = self._as_signal(block)
-        squeeze = block.ndim == 1
-        if squeeze:
-            block = block[None]
-        self._bind_channels(block.shape[0])
-        b = self.config.block_size
-        buffered = self._in_fifo is not None and self._in_fifo.shape[-1] > 0
-        if block.shape[-1] == b and not buffered:
-            out = self._step(block)
-        else:
-            out = self._reblocked(block)
-        return out[0] if squeeze else out
+        with trace.span("conv.call"):
+            if self.config is None:
+                raise RuntimeError("call filter() first")
+            block = self._as_signal(block)
+            squeeze = block.ndim == 1
+            if squeeze:
+                block = block[None]
+            self._bind_channels(block.shape[0])
+            b = self.config.block_size
+            buffered = self._in_fifo is not None and self._in_fifo.shape[-1] > 0
+            if block.shape[-1] == b and not buffered:
+                out = self._step(block)
+            else:
+                out = self._reblocked(block)
+            return out[0] if squeeze else out
 
     def _reblocked(self, x: torch.Tensor) -> torch.Tensor:
-        b = self.config.block_size
-        c = self.config.channels
-        if self._in_fifo is None:
-            # Fixed latency of B-1 samples, pre-filled as silence: at most
-            # B-1 input samples wait unprocessed, so the output never
-            # underruns however calls are chunked
-            # (ConstantOverlapAdd.hpp:89-199, getLatencyInSamples).
-            self.latency = b - 1
-            self._in_fifo = torch.zeros((c, 0), dtype=torch.float32, device=self.device)
-            self._out_fifo = torch.zeros((c, self.latency), dtype=torch.float32, device=self.device)
-        fifo = torch.cat([self._in_fifo, x], dim=-1)
-        n_blocks = fifo.shape[-1] // b
-        outs = [self._out_fifo]
-        for i in range(n_blocks):
-            outs.append(self._step(fifo[:, i * b : (i + 1) * b]))
-        self._in_fifo = fifo[:, n_blocks * b :].clone()
-        pending = torch.cat(outs, dim=-1)
-        want = x.shape[-1]
-        self._out_fifo = pending[:, want:].clone()
-        return pending[:, :want]
+        with trace.span("conv.fifo"):
+            b = self.config.block_size
+            c = self.config.channels
+            if self._in_fifo is None:
+                # Fixed latency of B-1 samples, pre-filled as silence: at most
+                # B-1 input samples wait unprocessed, so the output never
+                # underruns however calls are chunked
+                # (ConstantOverlapAdd.hpp:89-199, getLatencyInSamples).
+                self.latency = b - 1
+                self._in_fifo = torch.zeros((c, 0), dtype=torch.float32, device=self.device)
+                self._out_fifo = torch.zeros((c, self.latency), dtype=torch.float32, device=self.device)
+            fifo = torch.cat([self._in_fifo, x], dim=-1)
+            n_blocks = fifo.shape[-1] // b
+            outs = [self._out_fifo]
+            for i in range(n_blocks):
+                outs.append(self._step(fifo[:, i * b : (i + 1) * b]))
+            self._in_fifo = fifo[:, n_blocks * b :].clone()
+            pending = torch.cat(outs, dim=-1)
+            want = x.shape[-1]
+            self._out_fifo = pending[:, want:].clone()
+            return pending[:, :want]
 
     def flush(self) -> torch.Tensor:
         """Drain the re-blocking FIFO: zero-pad any pending partial block,
@@ -865,13 +873,14 @@ class Convolver:
         return out
 
     def process(self, signal) -> torch.Tensor:
-        if self.config is None:
-            raise RuntimeError("call filter() first")
-        signal = self._as_signal(signal)
-        self._bind_channels(signal.shape[0] if signal.ndim > 1 else 1)
-        self.state, out = process(self.config, self.params, self.state, signal)
-        self._streamed = True
-        return out
+        with trace.span("conv.process"):
+            if self.config is None:
+                raise RuntimeError("call filter() first")
+            signal = self._as_signal(signal)
+            self._bind_channels(signal.shape[0] if signal.ndim > 1 else 1)
+            self.state, out = process(self.config, self.params, self.state, signal)
+            self._streamed = True
+            return out
 
 
 def make_convolver(scheme: str = "upols", storage: str | None = None, **kw) -> Convolver:

@@ -95,6 +95,7 @@ import weakref
 import numpy as np
 import torch
 
+from neojax_torch import trace
 from neojax_torch.kernels import _build
 from neojax_torch.kernels.fdl_mac import STORAGE_CODES, step_geometry
 from neojax_torch.kernels.sparse_mac import lane_widths
@@ -925,62 +926,63 @@ def fused_block_step(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=None, sche
 
     Returns (y [C, N] f32, fdl) or (y, fdl, scales).
     """
-    if frame.ndim != 2 or frame.dtype != torch.float32:
-        raise ValueError(f"frame must be float32 [C, N], got {frame.dtype} {tuple(frame.shape)}")
-    c, n = frame.shape
-    p, b, mdt = _check_ring(fdl, filt_rim, scales, c)
-    pos = int(pos)
-    if n != 2 * b or not 0 <= pos < p:
-        raise ValueError(f"frame length {n} != 2B = {2 * b}, or pos {pos} outside [0, {p})")
-    if cs.dtype != mdt or ab.dtype != mdt or tuple(cs.shape) != (2, n, b) or tuple(ab.shape) != (2, b, n):
-        raise ValueError(f"cs/ab must be {mdt} [2, {n}, {b}] / [2, {b}, {n}]")
-    if dcfix.dtype != torch.float32 or tuple(dcfix.shape) != (2, c):
-        raise ValueError(f"dcfix must be float32 [2, {c}]")
-    cpu = _check_common([frame, fdl, filt_rim, dcfix, cs, ab, scales], "fused_block_step")
-    pc = _check_sched(sched, fdl)
-    _check_dft(cs, n, inverse=False)
-    _check_dft(ab, n, inverse=True)
-    if cpu:  # the staged plain versions
-        spec = window_forward(frame, cs, 0, 1)
-        x, scl = quantize_rows(spec, fdl.dtype)
-        ring_writeback(x, scl, fdl, scales, pos)
-        widths = None if sched is None else (sched_widths(sched, b, pc), pc)
-        acc = step_reduce(step_mac(fdl, scales, filt_rim, pos, widths), dcfix, mdt)
-        y = window_inverse(acc, ab.reshape(2 * b, n), torch.empty((c, n), dtype=torch.float32), 0)
+    with trace.span("kernels.block_step"):
+        if frame.ndim != 2 or frame.dtype != torch.float32:
+            raise ValueError(f"frame must be float32 [C, N], got {frame.dtype} {tuple(frame.shape)}")
+        c, n = frame.shape
+        p, b, mdt = _check_ring(fdl, filt_rim, scales, c)
+        pos = int(pos)
+        if n != 2 * b or not 0 <= pos < p:
+            raise ValueError(f"frame length {n} != 2B = {2 * b}, or pos {pos} outside [0, {p})")
+        if cs.dtype != mdt or ab.dtype != mdt or tuple(cs.shape) != (2, n, b) or tuple(ab.shape) != (2, b, n):
+            raise ValueError(f"cs/ab must be {mdt} [2, {n}, {b}] / [2, {b}, {n}]")
+        if dcfix.dtype != torch.float32 or tuple(dcfix.shape) != (2, c):
+            raise ValueError(f"dcfix must be float32 [2, {c}]")
+        cpu = _check_common([frame, fdl, filt_rim, dcfix, cs, ab, scales], "fused_block_step")
+        pc = _check_sched(sched, fdl)
+        _check_dft(cs, n, inverse=False)
+        _check_dft(ab, n, inverse=True)
+        if cpu:  # the staged plain versions
+            spec = window_forward(frame, cs, 0, 1)
+            x, scl = quantize_rows(spec, fdl.dtype)
+            ring_writeback(x, scl, fdl, scales, pos)
+            widths = None if sched is None else (sched_widths(sched, b, pc), pc)
+            acc = step_reduce(step_mac(fdl, scales, filt_rim, pos, widths), dcfix, mdt)
+            y = window_inverse(acc, ab.reshape(2 * b, n), torch.empty((c, n), dtype=torch.float32), 0)
+            return (y, fdl) if scales is None else (y, fdl, scales)
+        # the same stage kernels, launched by one C call: a block's device time
+        # is about 0.1 ms, less than a host round trip per stage would cost
+        s_n, per, vec = _step_geometry(fdl)
+        if vec > 1 and not _step_aligned(fdl, filt_rim, vec):
+            vec = 1
+        # the staging regions, 256-byte aligned in one buffer (one allocation a
+        # call: each torch.empty costs host time on a ~0.1 ms step): spec, the
+        # staged row, its scales, step_mac's partial sums, the accumulator, the
+        # widths table; 0 bytes where absent
+        sizes = (4 * c * n, 2 * c * b * fdl.element_size(), 4 * c if scales is not None else 0,
+                 4 * s_n * 2 * c * b, 4 * c * n, 4 * p * (p // pc) if sched is not None else 0)
+        offsets, total = [], 0
+        for size in sizes:
+            offsets.append(total if size else None)
+            total += -(-size // 256) * 256
+        ws = torch.empty(total, dtype=torch.uint8, device=frame.device)
+        spec, x, scl, mpart, acc, tab = (0 if o is None else ws.data_ptr() + o for o in offsets)
+        y = torch.empty((c, n), dtype=torch.float32, device=frame.device)
+        c_idx, c_flags = (0, 0) if sched is None else (sched[0].data_ptr(), sched[1].data_ptr())
+        counts = (ctypes.c_int * len(_STEP_STAGES))()  # the C call adds one per stage it launched
+        code = _build.load().neo_fused_block_step(
+            STORAGE_CODES[fdl.dtype], frame.data_ptr(), fdl.data_ptr(), filt_rim.data_ptr(),
+            0 if scales is None else scales.data_ptr(), dcfix.data_ptr(), twiddles(n, frame.device).data_ptr(),
+            y.data_ptr(), c_idx, c_flags, spec, x, scl, mpart, acc, tab, counts, p, c, b,
+            filt_rim.shape[1], pos, 0 if sched is None else sched[0].shape[1], pc or 1, len(lane_widths(b)),
+            s_n, per, vec, _build.stream_of(frame),
+        )
+        for stage, launched in zip(_STEP_STAGES, counts):
+            stage.launches += launched
+        _build.check(code, "fused_block_step")
+        fused_block_step.launches += 1
+        fused_block_step.sched_launches += sched is not None
         return (y, fdl) if scales is None else (y, fdl, scales)
-    # the same stage kernels, launched by one C call: a block's device time
-    # is about 0.1 ms, less than a host round trip per stage would cost
-    s_n, per, vec = _step_geometry(fdl)
-    if vec > 1 and not _step_aligned(fdl, filt_rim, vec):
-        vec = 1
-    # the staging regions, 256-byte aligned in one buffer (one allocation a
-    # call: each torch.empty costs host time on a ~0.1 ms step): spec, the
-    # staged row, its scales, step_mac's partial sums, the accumulator, the
-    # widths table; 0 bytes where absent
-    sizes = (4 * c * n, 2 * c * b * fdl.element_size(), 4 * c if scales is not None else 0,
-             4 * s_n * 2 * c * b, 4 * c * n, 4 * p * (p // pc) if sched is not None else 0)
-    offsets, total = [], 0
-    for size in sizes:
-        offsets.append(total if size else None)
-        total += -(-size // 256) * 256
-    ws = torch.empty(total, dtype=torch.uint8, device=frame.device)
-    spec, x, scl, mpart, acc, tab = (0 if o is None else ws.data_ptr() + o for o in offsets)
-    y = torch.empty((c, n), dtype=torch.float32, device=frame.device)
-    c_idx, c_flags = (0, 0) if sched is None else (sched[0].data_ptr(), sched[1].data_ptr())
-    counts = (ctypes.c_int * len(_STEP_STAGES))()  # the C call adds one per stage it launched
-    code = _build.load().neo_fused_block_step(
-        STORAGE_CODES[fdl.dtype], frame.data_ptr(), fdl.data_ptr(), filt_rim.data_ptr(),
-        0 if scales is None else scales.data_ptr(), dcfix.data_ptr(), twiddles(n, frame.device).data_ptr(),
-        y.data_ptr(), c_idx, c_flags, spec, x, scl, mpart, acc, tab, counts, p, c, b,
-        filt_rim.shape[1], pos, 0 if sched is None else sched[0].shape[1], pc or 1, len(lane_widths(b)),
-        s_n, per, vec, _build.stream_of(frame),
-    )
-    for stage, launched in zip(_STEP_STAGES, counts):
-        stage.launches += launched
-    _build.check(code, "fused_block_step")
-    fused_block_step.launches += 1
-    fused_block_step.sched_launches += sched is not None
-    return (y, fdl) if scales is None else (y, fdl, scales)
 
 
 fused_block_step.launches = 0
@@ -1012,49 +1014,50 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
 
     Returns (out [C, nb*B] f32, fdl) or (out, fdl, scales).
     """
-    if sigpad.ndim != 2 or sigpad.dtype != torch.float32:
-        raise ValueError(f"sigpad must be float32 [C, (nb+1)*B], got {sigpad.dtype} {tuple(sigpad.shape)}")
-    c = sigpad.shape[0]
-    p, b, mdt = _check_ring(fdl, filt_rim, scales, c)
-    if sigpad.shape[1] % b or sigpad.shape[1] < 2 * b:
-        raise ValueError(f"sigpad length {sigpad.shape[1]} is not (nb+1)*B with nb >= 1")
-    nb = sigpad.shape[1] // b - 1
-    n = 2 * b
-    if cs.dtype != mdt or abt.dtype != mdt or tuple(cs.shape) != (n, 2 * b) or tuple(abt.shape) != (2 * b, b):
-        raise ValueError(f"cs/abt must be {mdt} [{n}, {2 * b}] / [{2 * b}, {b}]")
-    if dcfix_all.dtype != torch.float32 or tuple(dcfix_all.shape) != (nb, 2, c):
-        raise ValueError(f"dcfix_all must be float32 [{nb}, 2, {c}]")
-    if acc_add is not None and (acc_add.dtype != torch.float32
-                                or tuple(acc_add.shape) != (nb, 2, c, b)):
-        raise ValueError(f"acc_add must be float32 [{nb}, 2, {c}, {b}]")
-    pos0 = int(pos0) % p
-    cpu = _check_common([sigpad, fdl, filt_rim, dcfix_all, cs, abt, scales, acc_add], "fused_stream")
-    pc = _check_sched(sched, fdl)
-    _check_dft(cs, n, inverse=False)
-    _check_dft(abt, n, inverse=True)
+    with trace.span("kernels.fused_stream"):
+        if sigpad.ndim != 2 or sigpad.dtype != torch.float32:
+            raise ValueError(f"sigpad must be float32 [C, (nb+1)*B], got {sigpad.dtype} {tuple(sigpad.shape)}")
+        c = sigpad.shape[0]
+        p, b, mdt = _check_ring(fdl, filt_rim, scales, c)
+        if sigpad.shape[1] % b or sigpad.shape[1] < 2 * b:
+            raise ValueError(f"sigpad length {sigpad.shape[1]} is not (nb+1)*B with nb >= 1")
+        nb = sigpad.shape[1] // b - 1
+        n = 2 * b
+        if cs.dtype != mdt or abt.dtype != mdt or tuple(cs.shape) != (n, 2 * b) or tuple(abt.shape) != (2 * b, b):
+            raise ValueError(f"cs/abt must be {mdt} [{n}, {2 * b}] / [{2 * b}, {b}]")
+        if dcfix_all.dtype != torch.float32 or tuple(dcfix_all.shape) != (nb, 2, c):
+            raise ValueError(f"dcfix_all must be float32 [{nb}, 2, {c}]")
+        if acc_add is not None and (acc_add.dtype != torch.float32
+                                    or tuple(acc_add.shape) != (nb, 2, c, b)):
+            raise ValueError(f"acc_add must be float32 [{nb}, 2, {c}, {b}]")
+        pos0 = int(pos0) % p
+        cpu = _check_common([sigpad, fdl, filt_rim, dcfix_all, cs, abt, scales, acc_add], "fused_stream")
+        pc = _check_sched(sched, fdl)
+        _check_dft(cs, n, inverse=False)
+        _check_dft(abt, n, inverse=True)
 
-    dev = sigpad.device
-    widths = None if sched is None else (sched_widths(sched, b, pc), pc)
-    out = torch.empty((c, nb * b), dtype=torch.float32, device=dev)
-    w = min(WINDOW, nb)  # staging, reused by every window
-    spec = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
-    x = torch.empty((w, 2, c, b), dtype=fdl.dtype, device=dev)
-    scl = None if scales is None else torch.empty((w, c), dtype=torch.float32, device=dev)
-    acc = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
-    for i0 in range(0, nb, WINDOW):
-        wc = min(WINDOW, nb - i0)
-        pos_first = (pos0 + i0) % p
-        s_w = None if scl is None else scl[:wc]
-        window_forward(sigpad, cs, i0, wc, out=spec[:wc])
-        quantize_rows(spec[:wc], fdl.dtype, x[:wc], s_w)
-        stream_mac(fdl, scales, x[:wc], s_w, filt_rim, dcfix_all[i0 : i0 + wc], pos_first,
-                   None if acc_add is None else acc_add[i0 : i0 + wc], widths, out=acc[:wc])
-        ring_writeback(x[:wc], s_w, fdl, scales, pos_first)
-        window_inverse(acc[:wc], abt, out, i0)
-    if not cpu:
-        fused_stream.launches += 1
-        fused_stream.sched_launches += sched is not None
-    return (out, fdl) if scales is None else (out, fdl, scales)
+        dev = sigpad.device
+        widths = None if sched is None else (sched_widths(sched, b, pc), pc)
+        out = torch.empty((c, nb * b), dtype=torch.float32, device=dev)
+        w = min(WINDOW, nb)  # staging, reused by every window
+        spec = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
+        x = torch.empty((w, 2, c, b), dtype=fdl.dtype, device=dev)
+        scl = None if scales is None else torch.empty((w, c), dtype=torch.float32, device=dev)
+        acc = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
+        for i0 in range(0, nb, WINDOW):
+            wc = min(WINDOW, nb - i0)
+            pos_first = (pos0 + i0) % p
+            s_w = None if scl is None else scl[:wc]
+            window_forward(sigpad, cs, i0, wc, out=spec[:wc])
+            quantize_rows(spec[:wc], fdl.dtype, x[:wc], s_w)
+            stream_mac(fdl, scales, x[:wc], s_w, filt_rim, dcfix_all[i0 : i0 + wc], pos_first,
+                       None if acc_add is None else acc_add[i0 : i0 + wc], widths, out=acc[:wc])
+            ring_writeback(x[:wc], s_w, fdl, scales, pos_first)
+            window_inverse(acc[:wc], abt, out, i0)
+        if not cpu:
+            fused_stream.launches += 1
+            fused_stream.sched_launches += sched is not None
+        return (out, fdl) if scales is None else (out, fdl, scales)
 
 
 fused_stream.launches = 0

@@ -9,12 +9,10 @@
 - ``headline``: the IR, the partitioned spectra and ``perblock_bytes``
   equal ``bench.py``'s exactly, for all five storages, fused and not; the
   kernels' work models agree with their schedules' dense limits;
-- ``RunRecord`` has neojax's fields, and ``profile.trace`` writes a trace;
+- ``profile.trace`` writes a trace;
 - the harness refuses to time without a card.
 """
 
-import dataclasses
-import json
 import sys
 from pathlib import Path
 
@@ -24,7 +22,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import bench  # noqa: E402
-from neojax.bench import profile as jprofile  # noqa: E402
 from neojax.bench import quality as jquality  # noqa: E402
 from neojax.bench import spectrum as jspectrum  # noqa: E402
 from neojax.conv import convolver as jcv  # noqa: E402
@@ -156,14 +153,6 @@ def test_transform_stages_count_ffts():
     for w in (fwd, inv):
         t, by = headline.bound(w, 3.35e12, 67e12)
         assert by == "bytes" and 7.4e-6 < t < 7.6e-6
-
-
-def test_run_record_has_neojax_fields():
-    tfields = [f.name for f in dataclasses.fields(tprofile.RunRecord)]
-    jfields = [f.name for f in dataclasses.fields(jprofile.RunRecord)]
-    assert tfields == jfields
-    rec = tprofile.RunRecord("perblock/split", {"block": 512}, samples_per_sec=1.5, snr_db=90.0)
-    assert set(json.loads(rec.to_json())) == set(jfields)
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):

@@ -532,9 +532,11 @@ _JAX_ONLY = {
 # names the port does not carry: ``dist.mesh.P`` (jax's PartitionSpec), the
 # Pallas entry points (the port's kernels are ``fdl_mac``,
 # ``sparse_fdl_mac`` and ``nested_mac``), the TPU-only 8-lane filter
-# layout, and the orbax pair (``save_state_dcp``/``load_state_dcp``)
+# layout, the orbax pair (``save_state_dcp``/``load_state_dcp``), and
+# ``bench.profile``'s run records (the port's measurements are its spans,
+# ``neojax_torch.trace``, and the benchmark's result lines)
 _NOT_PORTED = {"P", "fdl_mac_pallas", "sparse_fdl_mac_pallas", "nested_mac_pallas", "shift8_filter",
-               "save_state_orbax", "load_state_orbax"}
+               "save_state_orbax", "load_state_orbax", "RunRecord", "emit_record"}
 
 
 def _neojax_modules():
