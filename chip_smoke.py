@@ -247,7 +247,7 @@ CLI_RUNS = (("upols", 512, 128, None, ("fused_stream",)),
             ("chunked", 512, 128, None, ()),
             ("nested", 512, 128, None, ("nested_mac",)),
             ("hybrid", 512, 64, None, ("fdl_mac", "nested_mac")),
-            ("upols", 512, 128, -30.0, ("fused_stream_sched", "sched_widths")),
+            ("upols", 512, 128, -30.0, ("fused_stream_sched",)),
             ("upols", None, None, None, ("fdl_mac",)))
 # the surface's transforms against float64: max|got - ref| / max|ref|
 SURFACE_TOL = 1e-5
@@ -2867,7 +2867,7 @@ def main(dist_only: bool = False) -> int:
     # executor paths, and the fft/core/ops surface with a checkpoint
     cli_sum = run_cli(dev, card)
     read_window("cli", ("fused_stream", "fused_block_step", "nested_mac", "fdl_mac", "fused_stream_sched",
-                        "sched_widths", *b3_stage_names, *b2_stage_names), cli_sum["launches"])
+                        *b3_stage_names, *b2_stage_names), cli_sum["launches"])
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     executor_sum = run_executor(dev, card)
@@ -2888,8 +2888,8 @@ def main(dist_only: bool = False) -> int:
     # ---- 7j. the sweep tools' smoke grids (each tool's window summed into
     # one), each kernel call they made held against its plain version
     tools_sum = run_tools(dev, card, cuda_ms, device_ms, bound_of)
-    read_window("tools", ("fdl_mac", "nested_mac", "fused_stream", "fused_stream_sched", "sched_widths",
-                          *b3_stage_names), tools_sum["launches"])
+    read_window("tools", ("fdl_mac", "nested_mac", "fused_stream", "fused_stream_sched", *b3_stage_names),
+                tools_sum["launches"])
     torch.cuda.empty_cache()
 
     # ---- 7b. probes T1 and T2 against their plain versions, the measurement

@@ -66,6 +66,7 @@ from neojax_torch.kernels.fused_step import (
     fused_stream,
     quantize_rows,
     ring_writeback,
+    tap_tile_table,
     window_forward,
 )
 from neojax_torch.kernels.sparse_mac import (
@@ -278,7 +279,9 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
       a neojax key);
     - packed configs also: the fused kernels' chunk tables ``sp_c_idx``
       (chunk | width code << 16) and ``sp_c_flags``, at
-      ``fused_chunk_rows``' geometry.
+      ``fused_chunk_rows``' geometry, and B3's tap-tile table ``tap_tiles``
+      uint8 [P, B / 8] (``kernels.fused_step.tap_tile_table``; not a
+      neojax key), the same at every ring position.
 
     The geometry depends on the channel count, so a Convolver rebuilds
     these when it binds a mono filter to more channels.
@@ -307,6 +310,7 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
         assert int(np.max(csched["c_idx"] >> 16)) < len(lane_widths(config.block_size))
         out["sp_c_idx"] = put(csched["c_idx"], torch.int32)
         out["sp_c_flags"] = put(csched["flags"], torch.int32)
+        out["tap_tiles"] = put(tap_tile_table(mask, config.block_size), torch.uint8)
     return out
 
 
@@ -637,7 +641,8 @@ def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
                           signal: torch.Tensor):
     """Whole-stream fused path: ONE launch of B3 for the entire UPOLS scan
     (with a sparse filter's chunk tables, whole: B3 reads row
-    ``(pos0 + i) % P`` for block i)."""
+    ``(pos0 + i) % P`` for block i; and its tap-tile table, which B3's MAC
+    takes in their place)."""
     b = config.block_size
     p = config.num_partitions
     n = config.transform_size
@@ -654,7 +659,7 @@ def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
     cs, abt = matmul_backend.packed_stream_mats(n, MATRIX_DTYPES[planes.dtype], signal.device)
     res = fused_stream(
         sigpad, planes, params["filt_rim"], pos0, dcfix_all, cs, abt,
-        None if scales is None else scales[..., 0], _chunk_sched(params),
+        None if scales is None else scales[..., 0], _chunk_sched(params), tiles=params.get("tap_tiles"),
     )
 
     new_state = dict(state)

@@ -53,7 +53,9 @@
 // width[row, p / pc]. The MACs skip what is dead for every term of a tile
 // (B3: a step of history rows on a CTA's lanes; B2: a chunk of slots) and
 // mask the terms of mixed tiles, in the dense kernel's summation order, so
-// the scheduled kernels equal the dense ones on a masked filter.
+// the scheduled kernels equal the dense ones on a masked filter. B3 also
+// takes a finer table of its own, live by (tap, lane tile of kLanes) and
+// the same at every ring position: stream_mac_tiles_kernel below.
 #include "step_mac.cuh"
 
 namespace {
@@ -215,7 +217,20 @@ struct MacArgs {
   float* acc;           // [wc, C, 2B]
   int P, C, B, Cf, wc, pos_first, pc, nchunks;
   int vec_h, vec_f;     // cp.async piece bytes of the history and filter tiles (0: element by element)
+  // stream_mac_tiles_kernel only (else null): the tap-tile table [P, nt]
+  // (1: some kept bin of lane tile t at tap a), by lane tile the steps'
+  // live warps [nt, ns] (bit w: warp w meets a live tap), and the work
+  // items (lane tile, channel tile, block tile, the steps walked lo | hi <<
+  // 16), heaviest first
+  const unsigned char* ttab;
+  const unsigned char* tsteps;
+  const int4* items;
+  int nt, ns;
 };
+
+// The taps a CTA's lane tile does not keep are staged as zeros, copied
+// from here (kLanes values of any filter dtype)
+__device__ __align__(16) float kZeroTaps[kLanes] = {};
 
 // Shared bytes, each region a multiple of 16: the filter ring [2, 2, ctf,
 // kRing + kTail, kLanes] M, then kStages stages of history [kRows, 2, Ct,
@@ -388,9 +403,13 @@ __device__ __forceinline__ void mac_general(float (&ar)[kMB][NC], float (&ai)[kM
   }
 }
 
-// grid (lane tiles of kLanes, channel tiles of 4 NC, block tiles of kBlocks)
-template <typename T, typename M, int NC>
-__global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M> g) {
+// One CTA's walk: lane tile `tile`, channel tile `ctile` of 4 NC channels,
+// block tile `btile`. kTiles: a work item of stream_mac_tiles_kernel, which
+// walks the steps [span & 0xFFFF, span >> 16): its first to its last live
+// one.
+template <typename T, typename M, int NC, bool kTiles>
+__device__ __forceinline__ void stream_mac_cta(const MacArgs<T, M>& g, int tile, int ctile, int btile,
+                                               int span) {
   constexpr bool kQuant = Traits<T>::kQuant;
   constexpr int Ct = 4 * NC;
   constexpr int kSlots = kRing + kTail;
@@ -402,7 +421,7 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
   M* const fring = reinterpret_cast<M*>(smem);
 
   const int P = g.P;
-  const int kbase = blockIdx.x * kLanes, c0 = blockIdx.y * Ct, u_base = blockIdx.z * kBlocks;
+  const int kbase = tile * kLanes, c0 = ctile * Ct, u_base = btile * kBlocks;
   const int u_end = min(g.wc, u_base + kBlocks);  // the CTA's blocks [u_base, u_end)
   const int nv = min(kLanes, g.B - kbase);         // its lanes
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -414,6 +433,10 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
   // history rows: from the oldest that block u_base meets to the newest block
   const int d_first = u_base - (P - 1), d_last = u_end - 1;
   const int nsteps = (d_last - d_first) / kRows + 1;
+  const int s_lo = kTiles ? min(span & 0xFFFF, nsteps) : 0, s_hi = kTiles ? min(span >> 16, nsteps) : nsteps;
+  // kTiles: the warps that hold blocks, and by stage the live ones (8 bits each)
+  const unsigned warps_in = (1u << (u_end - u_base + kMB - 1) / kMB) - 1;
+  unsigned warp_bits = 0;
 
   float ar[kMB][NC], ai[kMB][NC];
 #pragma unroll
@@ -438,13 +461,13 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
   // step s: its first taps into the filter ring; with a schedule its live
   // widths; then (if any term is live) its history into stage s % kStages
   auto issue = [&](int s) {
-    if (s < nsteps) {
+    if (s < s_hi) {
       const int buf = s % kStages;
       unsigned char* st = smem + lay.filt + buf * lay.stage();
       const int d0 = d_first + s * kRows;
       {
         // taps [a0, a0 + n): the smallest the step meets (all of them for the first step)
-        const int a0 = u_base - d0 - (kRows - 1), n = s ? kRows : kBlocks + kRows - 1;
+        const int a0 = u_base - d0 - (kRows - 1), n = s != s_lo ? kRows : kBlocks + kRows - 1;
         const int pos_lo = (g.pos_first + u_base) % P;
         const bool wraps = pos_lo + (u_end - 1 - u_base) >= P;
         const int pos_min = wraps ? 0 : pos_lo, pos_max = wraps ? P - 1 : pos_lo + (u_end - 1 - u_base);
@@ -453,6 +476,7 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
           const int t = sg % n, q = sg / n, cl = q % ctf, hp = q / ctf, h = hp >> 1, pl = hp & 1;
           const int a = a0 + t, cf = per_chan ? c0 + cl : 0;
           if (a < 0 || a >= P || (h ? a <= pos_min : a > pos_max) || cf >= g.C) return nullptr;
+          if (kTiles && !g.ttab[static_cast<size_t>(a) * g.nt + tile]) return reinterpret_cast<const M*>(kZeroTaps);
           return g.rim + (static_cast<size_t>((h ? 2 * P : P) - 1 - a) * g.Cf + cf) * 2 * g.B + pl * g.B + kbase;
         };
         auto slot_of = [&](int sg, int mirror) -> M* {
@@ -465,7 +489,11 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
                           [&](int sg) { return slot_of(sg, 1); });
       }
       int live = 1, full = 1;
-      if (g.wtab) {
+      if (kTiles) {  // the step's live warps, from the table; every term of theirs is run
+        const unsigned w = g.tsteps[static_cast<size_t>(tile) * g.ns + s] & warps_in;
+        warp_bits = (warp_bits & ~(0xFFu << 8 * buf)) | w << 8 * buf;
+        live = w != 0;
+      } else if (g.wtab) {
         // entries (block tid / kRows + kWdStride q, row tid % kRows) of the
         // step's live widths; 0 where the tap is outside [0, P)
         short* wd = reinterpret_cast<short*>(st + lay.hist + lay.scl);
@@ -523,9 +551,9 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
   const M* const f0 = fring + (per_chan ? cg : 0) * kSlots * kLanes + l;
 
 #pragma unroll 1
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int s = s_lo; s < s_lo + kStages - 1; ++s) issue(s);
 #pragma unroll 1
-  for (int s = 0; s < nsteps; ++s) {
+  for (int s = s_lo; s < s_hi; ++s) {
     cp_wait<kStages - 2>();
     __syncthreads();  // step s has landed; every thread is done with step s - 1's stage
     issue(s + kStages - 1);
@@ -533,6 +561,7 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
     const int d0 = d_first + s * kRows;
     const int umax = min(u0 + kMB, u_end) - 1;  // the warp's last block
     if (!(live_bits >> buf & 1) || umax < u0 || d0 > umax || d0 + kRows - 1 < u0 - (P - 1)) continue;
+    if (kTiles && !(warp_bits >> (8 * buf + warp) & 1)) continue;
     const unsigned char* st = smem + lay.filt + buf * lay.stage();
     const T* hs = reinterpret_cast<const T*>(st) + cg * kLanes + l;
     const float* ss = reinterpret_cast<const float*>(st + lay.hist) + cg;
@@ -575,8 +604,8 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
         NEO_FAST(true, true);
 #undef NEO_FAST
     } else {
-      mac_general<T, M, NC>(ar, ai, hs, ss, f0, fplane, g.wtab ? wd : nullptr, k, u0, u_end, d0, P,
-                            g.pos_first);
+      mac_general<T, M, NC>(ar, ai, hs, ss, f0, fplane, !kTiles && g.wtab ? wd : nullptr, k, u0, u_end, d0,
+                            P, g.pos_first);
     }
   }
   cp_wait<0>();
@@ -601,6 +630,53 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
   }
 }
 
+// grid (lane tiles of kLanes, channel tiles of 4 NC, block tiles of kBlocks)
+template <typename T, typename M, int NC>
+__global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M> g) {
+  stream_mac_cta<T, M, NC, false>(g, blockIdx.x, blockIdx.y, blockIdx.z, 1);
+}
+
+// ---- the scheduled MAC of a tap-tile table (B3 with a sparse filter)
+//
+// The chunk schedule bottoms out at lane widths of 128 (sparse_mac.py ::
+// lane_widths), and a perceptual mask keeps its lowest bins in every
+// partition, so every ring position keeps lanes < 128 at every tap: with
+// the widths the CTAs of those lanes walk their whole history, and with
+// one CTA a slot (256 CTAs, one wave on 132 SMs) the heaviest CTA is the
+// kernel's time. This kernel takes instead a table by (tap, lane tile of
+// kLanes), live where the filter keeps some bin of the tile at the tap. The
+// tap is the partition, whatever the ring position, so the table and what
+// it skips are the same in every window. From it the host builds, once a
+// filter (kernels/fused_step.py :: stream_mac_plan): for each lane tile
+// and step of kRows history rows, the warps that meet a live tap; and a
+// list of work items, one a CTA, every (lane tile, channel tile of 4 NC,
+// block tile) once, heaviest first: the hardware hands out the CTAs in
+// list order, so the heavy items start first and the light ones fill the
+// slots as they free (a list schedule, longest first). The host picks NC
+// by the schedule's makespan: where one lane tile carries most of the
+// work (a perceptual mask keeps its lowest bins at every tap) NC = 1
+// spreads it over C / 4 CTAs, no item holding more than a quarter of a
+// dense CTA's terms (at 1.48-1.51 times the cost a term of NC = 4, on the
+// H100); where the tiles weigh alike (a band mask: a range of partitions)
+// NC = 4 keeps the cheaper terms. B3 hands this kernel windows of two block
+// tiles (kernels/fused_step.py :: TILES_WINDOWS), so the items of a lane
+// tile live at every tap split by blocks as well.
+//
+// A warp runs a step only where the table says it meets a live tap, a CTA
+// stages the history of a step only where some warp runs it, and it walks
+// from its first live step to its last (the first one staging all the
+// taps it meets, as the dense walk's first step does). A tap the
+// lane tile does not keep is staged as zeros, so a live step runs the
+// dense kernel's FFMAs on the filter with the tile's dead taps zeroed, in
+// its order: the output is the dense kernel's on that filter, and on a
+// filter masked by the same mask (the convolver's) the dense kernel's bits
+// (a skipped step only adds exact zeros). No split over taps, no atomics.
+template <typename T, typename M, int NC>
+__global__ void __launch_bounds__(kMacThreads, 2) stream_mac_tiles_kernel(MacArgs<T, M> g) {
+  const int4 it = g.items[blockIdx.x];
+  stream_mac_cta<T, M, NC, true>(g, it.x, it.y, it.z, it.w);
+}
+
 template <typename T>
 int launch_quantize(const void* s, void* x, void* scl, int rows, int C, int B, cudaStream_t st) {
   quantize_kernel<T><<<rows, kRowThreads, 0, st>>>(static_cast<const float*>(s), static_cast<T*>(x),
@@ -618,25 +694,39 @@ int launch_writeback(const void* x, const void* scl, void* fdl, void* scales, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// Allow a kernel more than 48 KB of shared memory, once per kernel and size.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, int& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
+}
+
 template <typename T, typename M, int NC>
 int launch_stream_mac_nc(const MacArgs<T, M>& g, int smem, cudaStream_t st) {
   static int smem_allowed = 48 * 1024;  // above 48 KB only once the kernel is allowed more
-  if (smem > smem_allowed) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(stream_mac_kernel<T, M, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_allowed = smem;
-  }
+  const cudaError_t e = allow_smem(stream_mac_kernel<T, M, NC>, smem, smem_allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((g.B + kLanes - 1) / kLanes, (g.C + 4 * NC - 1) / (4 * NC), (g.wc + kBlocks - 1) / kBlocks);
   stream_mac_kernel<T, M, NC><<<grid, kMacThreads, smem, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename M, int NC>
+int launch_stream_mac_tiles(const MacArgs<T, M>& g, int n_items, int smem, cudaStream_t st) {
+  static int smem_allowed = 48 * 1024;
+  const cudaError_t e = allow_smem(stream_mac_tiles_kernel<T, M, NC>, smem, smem_allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream_mac_tiles_kernel<T, M, NC><<<n_items, kMacThreads, smem, st>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // nc, vec_h, vec_f and smem come from kernels/fused_step.py ::
 // stream_mac_geometry and the operands' alignment; checked here against
-// the layout and the pointers.
+// the layout and the pointers. With work items the tiles kernel runs them.
 template <typename T, typename M>
-int launch_stream_mac(const MacArgs<T, M>& g, int nc, int smem, cudaStream_t st) {
+int launch_stream_mac(const MacArgs<T, M>& g, int nc, int n_items, int smem, cudaStream_t st) {
   const int ct = 4 * nc;
   const MacLayout lay = mac_layout(sizeof(T), sizeof(M), ct, g.Cf != 1 ? ct : 1, Traits<T>::kQuant);
   auto bad_vec = [&](int v, int elem, const void* p0, const void* p1) {
@@ -646,6 +736,9 @@ int launch_stream_mac(const MacArgs<T, M>& g, int nc, int smem, cudaStream_t st)
   if ((nc != 1 && nc != 4) || (nc == 4 && g.Cf != 1) || smem != lay.total() ||
       bad_vec(g.vec_h, sizeof(T), g.ring, g.xnew) || bad_vec(g.vec_f, sizeof(M), g.rim, g.rim))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (g.items)
+    return nc == 4 ? launch_stream_mac_tiles<T, M, 4>(g, n_items, smem, st)
+                   : launch_stream_mac_tiles<T, M, 1>(g, n_items, smem, st);
   return nc == 4 ? launch_stream_mac_nc<T, M, 4>(g, smem, st) : launch_stream_mac_nc<T, M, 1>(g, smem, st);
 }
 
@@ -695,16 +788,24 @@ extern "C" int neo_fs_widths(const void* c_idx, const void* c_flags, void* tab, 
 
 // The time-batched MAC of one window: acc [wc, C, 2B] f32, rounded to the
 // matrix dtype. seed [wc, 2, C, B] and wtab [P, nchunks] may be null. nc
-// (channels a thread: 4, or 1 for per-channel filters), vec_h / vec_f (the
-// cp.async piece bytes of the history and filter tiles, 0 for element
-// copies) and smem (dynamic shared bytes) from stream_mac_geometry.
+// (channels a thread: 4, or 1 for per-channel filters; the tiles kernel's
+// from its plan), vec_h / vec_f (the cp.async piece bytes of the history and
+// filter tiles, 0 for element copies) and smem (dynamic shared bytes) from
+// stream_mac_geometry. With a tap-tile table ttab [P, nt] (else null, and
+// no wtab with it): its steps' live warps tsteps [nt, ns] and the n_items
+// work items [n_items, 4] int32 of kernels/fused_step.py ::
+// stream_mac_plan, which the tiles kernel runs.
 extern "C" int neo_fs_stream_mac(int storage, const void* ring, const void* scales, const void* xnew,
                                  const void* snew, const void* rim, const void* seed,
-                                 const void* dcfix, const void* wtab, void* acc, int P, int C, int B,
-                                 int Cf, int wc, int pos_first, int pc, int nchunks, int nc, int vec_h,
-                                 int vec_f, int smem, void* stream) {
+                                 const void* dcfix, const void* wtab, const void* ttab, const void* tsteps,
+                                 const void* items, void* acc, int P, int C, int B, int Cf, int wc,
+                                 int pos_first, int pc, int nchunks, int nt, int ns, int n_items, int nc,
+                                 int vec_h, int vec_f, int smem, void* stream) {
+  const bool tiles = ttab != nullptr;
   if (bad_ring(P, C, B) || wc < 1 || (Cf != 1 && Cf != C) || pos_first < 0 || pos_first >= P ||
-      (wtab && (pc < 1 || nchunks < 1 || nchunks * pc != P)))
+      (wtab && (pc < 1 || nchunks < 1 || nchunks * pc != P)) || tiles != (tsteps != nullptr) ||
+      tiles != (items != nullptr) ||
+      (tiles && (wtab || n_items < 1 || nt != (B + kLanes - 1) / kLanes || ns < (kBlocks + P - 2) / kRows + 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NEO_MAC(T, M)                                                                           \
@@ -714,8 +815,10 @@ extern "C" int neo_fs_stream_mac(int storage, const void* ring, const void* scal
                     static_cast<const M*>(rim), static_cast<const float*>(seed),                \
                     static_cast<const float*>(dcfix), static_cast<const int*>(wtab),            \
                     static_cast<float*>(acc), P, C, B, Cf, wc, pos_first, pc, nchunks,          \
-                    vec_h, vec_f},                                                              \
-      nc, smem, st)
+                    vec_h, vec_f, static_cast<const unsigned char*>(ttab),                      \
+                    static_cast<const unsigned char*>(tsteps), static_cast<const int4*>(items), \
+                    nt, ns},                                                                    \
+      nc, n_items, smem, st)
   switch (storage) {
     case kSplit: NEO_MAC(float, float);
     case kBf16: NEO_MAC(__nv_bfloat16, __nv_bfloat16);

@@ -13,7 +13,9 @@ compiled at import time.
 Each wrapper counts its kernel launches in a plain int attribute
 (``fdl_mac.fdl_mac.launches``); ``fused_block_step`` and ``fused_stream``
 count the calls that ran their stage kernels, and, in ``sched_launches``,
-those that ran a chunk schedule. The CPU route counts nothing."""
+those that ran a chunk schedule or a tap-tile table. ``stream_mac`` also
+counts the steps of its walk (``counters()``). The CPU route counts
+nothing."""
 
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
 from neojax_torch.kernels import fused_step as _fused_step_mod
@@ -33,10 +35,12 @@ def _sched_wrappers():
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counters and :func:`counters`."""
     for k in _wrappers():
         k.launches = 0
     for k in _sched_wrappers():
         k.sched_launches = 0
+    _fused_step_mod.stream_mac.steps_run = _fused_step_mod.stream_mac.steps_dense = 0
 
 
 def launch_counts() -> dict:
@@ -47,4 +51,13 @@ def launch_counts() -> dict:
     return counts
 
 
-__all__ = ["reset_launch_counts", "launch_counts"]
+def counters() -> dict:
+    """The kernels' work counters: ``stream_mac.steps_run``, the steps of
+    history B3's time-batched MAC ran, and ``stream_mac.steps_dense``, those
+    the dense kernel would have walked in the same windows (each counted
+    once a lane tile, block tile and channel: ``fused_step.stream_mac``)."""
+    mac = _fused_step_mod.stream_mac
+    return {"stream_mac.steps_run": mac.steps_run, "stream_mac.steps_dense": mac.steps_dense}
+
+
+__all__ = ["reset_launch_counts", "launch_counts", "counters"]

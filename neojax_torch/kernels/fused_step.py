@@ -68,6 +68,16 @@ tiles that are dead for all their blocks and lanes, and mask the rest, in
 the dense kernels' order: masked filter bins are zero, so the scheduled
 kernels equal the dense ones on the masked filter.
 
+B3 also takes a finer table of its own (``tiles=``, the convolver's
+``params["tap_tiles"]``, :func:`tap_tile_table`): uint8 ``[P, B / 8]``,
+live where the mask keeps some bin of a lane tile of 8 lanes at a tap
+(partition). With it :func:`stream_mac` runs only the (history step, lane
+tile) pairs that meet a live tap, over a list of work items balanced by
+their cost (:func:`stream_mac_plan`), and :func:`fused_stream` launches no
+:func:`sched_widths` and walks windows :data:`TILES_WINDOWS` times longer:
+the widths bottom out at 128 lanes, and a perceptual mask keeps its lowest
+bins at every tap.
+
 The transform kernels compute the DFT itself, so B2, B3 and the two
 transform stages take only the packed DFT matrices of
 ``fft.matmul_backend`` as their ``cs``/``ab``/``abt`` operands
@@ -90,6 +100,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import weakref
 
 import numpy as np
@@ -104,6 +115,7 @@ __all__ = [
     "MATRIX_DTYPES",
     "MAX_BLOCK",
     "WINDOW",
+    "TILES_WINDOWS",
     "fused_chunk_rows",
     "fused_block_step",
     "fused_block_step_reference",
@@ -116,7 +128,9 @@ __all__ = [
     "quantize_rows_reference",
     "stream_mac",
     "stream_mac_geometry",
+    "stream_mac_plan",
     "stream_mac_reference",
+    "tap_tile_table",
     "ring_writeback",
     "ring_writeback_reference",
     "window_inverse",
@@ -139,6 +153,12 @@ MATRIX_DTYPES = {
 _INT_MAX = {torch.int8: 127.0, torch.int16: 32767.0}
 MAX_BLOCK = 1024  # the largest block the pipeline takes (the TPU kernels' bound)
 WINDOW = 64  # blocks a window of B3's staged pipeline (staging ~17 MB at the headline shape)
+# B3 with a tap-tile table walks windows this many times longer: two block
+# tiles of the tiles kernel a launch, so the list schedule also splits the
+# lane tiles live at every tap by blocks (with one block tile their items
+# set the launch's time, 0.20 ms of a mean slot load near 0.13 ms at the
+# masked benchmark cell on the H100), and half the launches a stream
+TILES_WINDOWS = 2
 
 # Bytes per partition chunk of the chunk schedule, as neojax sizes its TPU
 # DMA chunks (``neojax.kernels.fused_step._CHUNK_TARGET``), so both packages
@@ -582,7 +602,7 @@ def _live_lanes(widths, pos: int, slots, b: int):
 
 
 def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None,
-                         widths=None, out=None):
+                         widths=None, out=None, tiles=None):
     """Plain :func:`stream_mac` (float64 sums, a loop over the window)."""
     _, p, c, b = fdl.shape
     wc = x.shape[0]
@@ -597,6 +617,9 @@ def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, s
     # (pos - a) % P, which meets filter row P-1-pos+slot: q when a <= pos, else q + P
     res = torch.empty((wc, c, 2 * b), dtype=torch.float32, device=fdl.device) if out is None else out
     q = torch.arange(p, device=fdl.device)
+    tile_live = None
+    if tiles is not None:  # row q: tap P-1-q's live lanes
+        tile_live = tiles.bool().flip(0).repeat_interleave(_MAC_LANES, dim=1)[:, None, :b].to(fdl.device)
     for i in range(wc):
         xw = hist[i : i + p]
         pos = (pos_first + i) % p
@@ -607,6 +630,9 @@ def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, s
             live = _live_lanes(widths, pos, slots, b).to(f.device)[:, None, :]
             fr = torch.where(live, fr, 0.0)
             fi = torch.where(live, fi, 0.0)
+        if tile_live is not None:
+            fr = torch.where(tile_live, fr, 0.0)
+            fi = torch.where(tile_live, fi, 0.0)
         acc_re = torch.sum(xw[:, 0] * fr - xw[:, 1] * fi, dim=0)
         acc_im = torch.sum(xw[:, 0] * fi + xw[:, 1] * fr, dim=0)
         if seed is not None:
@@ -622,7 +648,8 @@ def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, s
 _MAC_LANES, _MAC_MB, _MAC_BLOCKS, _MAC_ROWS, _MAC_STAGES, _MAC_SLOTS = 8, 8, 64, 16, 3, 160
 
 
-def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, cf: int = 1) -> dict:
+def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, cf: int = 1,
+                        nc: int | None = None) -> dict:
     """Launch geometry of :func:`stream_mac`'s kernel for a ring [2, P, C, B]
     of the storage dtype ``storage``, a window of ``wc`` blocks and a filter
     of ``cf`` channels (1 or C); P sets the number of steps, not the tile.
@@ -631,17 +658,22 @@ def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, c
     ``grid`` = (lane tiles, channel tiles, block tiles). Its ``threads``
     are 8 warps: warp w the blocks [8 w, 8 w + 8) of the CTA's, thread t of
     a warp lane t % 8 and channels t // 8 % 4 + 4 q for q < ``nc`` (4 with a
-    shared filter, 1 with per-channel filters, whose taps are kept per
-    channel). ``smem``: the dynamic shared bytes of the filter ring
-    (``slots`` taps of both rim halves, matrix dtype) and ``stages`` stages
-    of ``rows`` history rows (storage dtype, int scales, int16 live
-    widths); the kernel refuses any other count."""
+    shared filter and C > 4, else 1: per-channel filters keep each
+    channel's taps; or ``nc`` as given, the tiles kernel's from
+    :func:`stream_mac_plan`, which runs one cell of the grid a CTA).
+    ``smem``: the dynamic shared bytes of the filter ring (``slots`` taps of
+    both rim halves, matrix dtype) and ``stages`` stages of ``rows`` history
+    rows (storage dtype, int scales, int16 live widths); the kernel refuses
+    any other count."""
     if storage not in MATRIX_DTYPES:
         raise ValueError(f"stream_mac_geometry: unknown storage {storage!r}")
     if cf not in (1, c):
         raise ValueError(f"stream_mac_geometry: cf = {cf} is neither 1 nor C = {c}")
     isz, msz = storage.itemsize, MATRIX_DTYPES[storage].itemsize
-    nc = 4 if cf == 1 and c > 4 else 1
+    if nc is None:
+        nc = 4 if cf == 1 and c > 4 else 1
+    elif nc not in (1, 4) or (nc == 4 and cf != 1):
+        raise ValueError(f"stream_mac_geometry: nc = {nc} with cf = {cf}")
     ct = 4 * nc
     ctf = 1 if cf == 1 else ct
     stage = (_MAC_ROWS * 2 * ct * _MAC_LANES * isz + (_MAC_ROWS * ct * 4 if storage in _INT_MAX else 0)
@@ -650,6 +682,151 @@ def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, c
             "rows": _MAC_ROWS, "slots": _MAC_SLOTS, "stages": _MAC_STAGES, "threads": 32 * _MAC_BLOCKS // _MAC_MB,
             "grid": (-(-b // _MAC_LANES), -(-c // ct), -(-wc // _MAC_BLOCKS)),
             "smem": 4 * ctf * _MAC_SLOTS * _MAC_LANES * msz + _MAC_STAGES * stage}
+
+
+def tap_tile_table(mask: np.ndarray, b: int) -> np.ndarray:
+    """The tap-tile table of a keep-mask [P, K] or [P, C', K] (any channel)
+    over the packed lanes of block B: bool ``[P, ceil(B / 8)]``, entry (a,
+    t) True where the mask keeps a bin of lane tile t (lanes 8 t .. 8 t + 7,
+    :func:`stream_mac`'s lanes a CTA) at partition a. Packed lane 0 also
+    carries the Nyquist bin (column B), as in ``build_chunk_schedule``."""
+    mask = np.asarray(mask, bool)
+    if mask.ndim == 3:
+        mask = mask.any(axis=1)
+    p, k = mask.shape
+    lanes = np.zeros((p, -(-b // _MAC_LANES) * _MAC_LANES), bool)
+    lanes[:, : min(b, k)] = mask[:, :b]
+    if k > b:
+        lanes[:, 0] |= mask[:, b]
+    return lanes.reshape(p, -1, _MAC_LANES).any(axis=2)
+
+
+def _popcount8(v: np.ndarray) -> np.ndarray:
+    return np.unpackbits(v[..., None], axis=-1).sum(-1, dtype=np.int64)
+
+
+def _tile_steps(tiles: np.ndarray) -> np.ndarray:
+    """uint8 ``[nt, ns]``: bit w of (t, s) set where warp w of a CTA of lane
+    tile t (its blocks u0 .. u0 + 7) meets at step s (its history rows d0 ..
+    d0 + 15) a tap a = u - d in [0, P) that the table keeps. u0 - d0 = 8 w +
+    P - 1 - 16 s whatever the CTA's block tile, so one row serves them all;
+    ns = the steps of a whole block tile."""
+    p, nt = tiles.shape
+    ns = (_MAC_BLOCKS + p - 2) // _MAC_ROWS + 1
+    below = np.concatenate([np.zeros((1, nt), np.int64), np.cumsum(tiles, axis=0)])  # live taps < a
+    out = np.zeros((nt, ns), np.uint8)
+    for w in range(_MAC_BLOCKS // _MAC_MB):
+        c = _MAC_MB * w + p - 1 - _MAC_ROWS * np.arange(ns)
+        lo, hi = np.clip(c - (_MAC_ROWS - 1), 0, p), np.clip(c + _MAC_MB, 0, p)  # taps [lo, hi)
+        out |= ((below[hi] - below[lo]) > 0).T.astype(np.uint8) << w
+    return out
+
+
+# The tiles kernel's cost model, in warp-steps of the NC = 4 variant: a term
+# of NC = 1 costs 1.5 of NC = 4's (1.48-1.51 for the dense kernel at both on
+# the H100, at the headline window), and each step a CTA walks about one more
+# warp-step (its barrier and copies). Two CTAs an SM hold (128 registers a
+# thread).
+_NC1_TERM_COST, _WALK_STEP_COST, _CTAS_AN_SM = 1.5, 1.0, 2
+
+
+def _makespan(cost: np.ndarray, slots: int) -> float:
+    """When a list schedule of ``cost`` (in list order) on ``slots`` CTA
+    slots ends, each item taking the slot that frees first."""
+    if len(cost) <= slots:
+        return float(cost.max(initial=0.0))
+    heap = [0.0] * slots
+    for v in cost.tolist():
+        heapq.heapreplace(heap, heap[0] + v)
+    return max(heap)
+
+
+def stream_mac_plan(tiles: np.ndarray, c: int, wc: int, cf: int = 1, sms: int = 132) -> dict:
+    """The scheduled walk of :func:`stream_mac` with a tap-tile table
+    (:func:`tap_tile_table`, bool ``[P, nt]``) over C channels (a filter of
+    ``cf`` channels) and a window of ``wc`` blocks, on a card of ``sms``
+    SMs, built on the host:
+
+    - ``steps`` uint8 ``[nt, ns]``: by lane tile and step of 16 history
+      rows, the warps (8 blocks each) that meet a live tap there;
+    - ``nc``: channels a thread, 1 or 4 (4 only with a shared filter and C
+      > 4, as the dense kernel): the one whose list schedule ends first by
+      the cost model above. NC = 1 splits a lane tile that carries most of
+      the work (a perceptual mask's lowest bins, live at every tap) four
+      times finer;
+    - ``items`` int32 ``[n, 4]``: the work items, one a CTA, each (lane
+      tile, channel tile of 4 ``nc``, block tile of 64) once, its last
+      entry the steps it walks ``lo | hi << 16``, from its first to its
+      last live step (both 0: none). Heaviest first, so the card starts
+      them first and the light ones fill in;
+    - ``steps_run`` / ``steps_dense``: the steps the walk runs (stages and
+      computes) and those the dense kernel walks, each counted once a lane
+      tile, block tile and channel.
+    """
+    p, nt = tiles.shape
+    steps = _tile_steps(tiles)
+    if steps.shape[1] >= 1 << 15:
+        raise ValueError(f"stream_mac_plan: P = {p} is past the items' step fields")
+    tile_z, span, warp_steps, walked = [], [], [], []
+    run = dense = 0
+    for z in range(-(-wc // _MAC_BLOCKS)):
+        u_n = min(wc, (z + 1) * _MAC_BLOCKS) - z * _MAC_BLOCKS
+        nsteps = (u_n + p - 2) // _MAC_ROWS + 1
+        live = steps[:, :nsteps] & np.uint8((1 << -(-u_n // _MAC_MB)) - 1)  # the warps that hold blocks
+        on = live != 0
+        n_on = on.sum(1)
+        lo = np.where(n_on > 0, np.argmax(on, axis=1), 0)
+        hi = np.where(n_on > 0, nsteps - np.argmax(on[:, ::-1], axis=1), 0)
+        run += int(n_on.sum()) * c
+        dense += nsteps * nt * c
+        tile_z.append(np.stack([np.arange(nt), np.full(nt, z)], axis=1))
+        span.append(lo | hi << 16)
+        warp_steps.append(_popcount8(live).sum(1))
+        walked.append(hi - lo)
+    tile_z, span = np.concatenate(tile_z), np.concatenate(span)
+    warp_steps, walked = np.concatenate(warp_steps), np.concatenate(walked)
+    best = None
+    for nc in (4, 1) if cf == 1 and c > 4 else (1,):
+        n_ct = -(-c // (4 * nc))
+        term = 1.0 if nc == 4 else _NC1_TERM_COST / 4
+        cost = np.repeat(warp_steps * term + walked * _WALK_STEP_COST, n_ct)
+        order = np.argsort(-cost, kind="stable")
+        ends = _makespan(cost[order], _CTAS_AN_SM * sms)
+        if best is None or ends < best[0]:
+            rows = np.repeat(np.arange(len(span)), n_ct)
+            items = np.stack([tile_z[rows, 0], np.tile(np.arange(n_ct), len(span)), tile_z[rows, 1], span[rows]],
+                             axis=1)
+            best = (ends, nc, np.ascontiguousarray(items[order], dtype=np.int32))
+    return {"steps": steps, "nc": best[1], "items": best[2], "steps_run": run, "steps_dense": dense}
+
+
+# tap-tile tables seen by stream_mac: id -> (weakref, version, host table,
+# {(C, wc, Cf): (steps, nc, items, steps_run, steps_dense), tensors on the card})
+_TILE_PLANS: dict[int, tuple] = {}
+
+
+def _tile_plan(tiles, c: int, wc: int, cf: int):
+    """(steps, nc, items, steps_run, steps_dense) of :func:`stream_mac_plan`
+    for a table on the card, built once a table (one copy to the host) and
+    once a (C, wc, Cf): the render loop passes cached pointers."""
+    entry = _TILE_PLANS.get(id(tiles))
+    if entry is None or entry[0]() is not tiles or entry[1] != tiles._version:
+        if len(_TILE_PLANS) > 64:
+            _TILE_PLANS.clear()
+        entry = _TILE_PLANS[id(tiles)] = (weakref.ref(tiles), tiles._version, tiles.cpu().numpy().astype(bool), {})
+    plan = entry[3].get((c, wc, cf))
+    if plan is None:
+        dev = tiles.device
+        got = stream_mac_plan(entry[2], c, wc, cf, torch.cuda.get_device_properties(dev).multi_processor_count)
+        plan = entry[3][(c, wc, cf)] = (torch.from_numpy(got["steps"]).to(dev), got["nc"],
+                                        torch.from_numpy(got["items"]).to(dev), got["steps_run"], got["steps_dense"])
+    return plan
+
+
+def _dense_steps(p: int, c: int, b: int, wc: int) -> int:
+    """:func:`stream_mac_plan`'s ``steps_dense`` without a table."""
+    nt = -(-b // _MAC_LANES)
+    return sum((min(wc - u, _MAC_BLOCKS) + p - 2) // _MAC_ROWS + 1 for u in range(0, wc, _MAC_BLOCKS)) * nt * c
 
 
 def _piece_bytes(segment: int, row_bytes: int, *tensors) -> int:
@@ -662,7 +839,8 @@ def _piece_bytes(segment: int, row_bytes: int, *tensors) -> int:
     return 0
 
 
-def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, widths=None, out=None):
+def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, widths=None, out=None,
+               tiles=None):
     """The MAC of a window of blocks, batched over time.
 
     fdl, scales : the ring [2, P, C, B] and its scales [P, C] (or None) as
@@ -676,38 +854,61 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
                   is the tiled form the convolver builds
     dcfix       : [wc, 2, C] f32 lane-0 values; seed: [wc, 2, C, B] f32 or None
     widths      : ``(sched_widths(...), pc)`` or None (dense)
+    tiles       : or (not both) a tap-tile table uint8 [P, ceil(B / 8)] on
+                  the ring's device (:func:`tap_tile_table`): tap a adds
+                  nothing on lane k where entry (a, k // 8) is 0. The card
+                  runs the scheduled walk of :func:`stream_mac_plan`
     returns acc [wc, C, 2B] f32: block i's ``seed + sum_a filt[a] X[i - a]``
     (each row dequantized with its own scale), lane 0 := dcfix, rounded to
     the matrix dtype
+
+    Each launch adds to ``stream_mac.steps_run`` the steps it runs and to
+    ``stream_mac.steps_dense`` those the dense kernel walks, counted once a
+    lane tile, block tile and channel (``stream_mac_plan``): equal amounts
+    without a table.
     """
     _, p, c, b = fdl.shape
     wc = x.shape[0]
     if (tuple(x.shape) != (wc, 2, c, b) or x.dtype != fdl.dtype or tuple(dcfix.shape) != (wc, 2, c)
             or (seed is not None and tuple(seed.shape) != (wc, 2, c, b)) or (scl is None) != (scales is None)):
         raise ValueError("stream_mac: x [wc, 2, C, B], dcfix [wc, 2, C], seed [wc, 2, C, B] as the ring")
+    if tiles is not None and (widths is not None or tiles.dtype != torch.uint8
+                              or tuple(tiles.shape) != (p, -(-b // _MAC_LANES))):
+        raise ValueError(f"stream_mac: tiles must be uint8 [{p}, {-(-b // _MAC_LANES)}], without widths")
     tab = None if widths is None else widths[0]
-    if _check_common([fdl, scales, x, scl, filt_rim, dcfix, seed, tab, out], "stream_mac"):
-        return stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first, seed, widths, out)
+    if _check_common([fdl, scales, x, scl, filt_rim, dcfix, seed, tab, tiles, out], "stream_mac"):
+        return stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first, seed, widths, out, tiles)
     if out is None:
         out = torch.empty((wc, c, 2 * b), dtype=torch.float32, device=fdl.device)
     pc = 0 if widths is None else widths[1]
     cf = filt_rim.shape[1]
-    geo = stream_mac_geometry(p, c, b, wc, fdl.dtype, cf)
+    if tiles is None:
+        steps = items = nc = None
+        run = dense = _dense_steps(p, c, b, wc)
+    else:
+        steps, nc, items, run, dense = _tile_plan(tiles, c, wc, cf)
+    geo = stream_mac_geometry(p, c, b, wc, fdl.dtype, cf, nc)
     isz, msz = fdl.element_size(), filt_rim.element_size()
     code = _build.load().neo_fs_stream_mac(
         STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
         0 if scl is None else scl.data_ptr(), filt_rim.data_ptr(), 0 if seed is None else seed.data_ptr(),
-        dcfix.data_ptr(), 0 if tab is None else tab.data_ptr(), out.data_ptr(),
-        p, c, b, cf, wc, pos_first, pc, 0 if tab is None else tab.shape[1], geo["nc"],
+        dcfix.data_ptr(), 0 if tab is None else tab.data_ptr(), 0 if tiles is None else tiles.data_ptr(),
+        0 if steps is None else steps.data_ptr(), 0 if items is None else items.data_ptr(), out.data_ptr(),
+        p, c, b, cf, wc, pos_first, pc, 0 if tab is None else tab.shape[1], geo["grid"][0],
+        0 if steps is None else steps.shape[1], 0 if items is None else items.shape[0], geo["nc"],
         _piece_bytes(_MAC_LANES * isz, b * isz, fdl, x), _piece_bytes(_MAC_LANES * msz, b * msz, filt_rim),
         geo["smem"], _build.stream_of(fdl),
     )
     _build.check(code, "stream_mac")
     stream_mac.launches += 1
+    stream_mac.steps_run += run
+    stream_mac.steps_dense += dense
     return out
 
 
 stream_mac.launches = 0
+stream_mac.steps_run = 0
+stream_mac.steps_dense = 0
 
 
 # --------------------------------------------------- B2's one-block MAC
@@ -990,7 +1191,7 @@ fused_block_step.sched_launches = 0
 
 
 def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
-                 sched=None, acc_add=None):
+                 sched=None, acc_add=None, tiles=None):
     """Stream nb UPOLS blocks through the staged pipeline, in windows of
     :data:`WINDOW` blocks.
 
@@ -1011,6 +1212,12 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
                overwrite of lane 0 comes after, so lane 0 of the seed is
                ignored). The hybrid engine's chunk-rate tail sum enters
                its per-block head through it (linearity of the sum).
+    tiles    : optional tap-tile table uint8 [P, ceil(B / 8)] of the mask
+               (:func:`tap_tile_table`; ``params["tap_tiles"]``). With it
+               the MAC takes the table instead of the schedule's widths
+               (no :func:`sched_widths` launch): a subset of what the
+               schedule keeps, equal on the masked filter; the windows are
+               then :data:`TILES_WINDOWS` times longer
 
     Returns (out [C, nb*B] f32, fdl) or (out, fdl, scales).
     """
@@ -1031,32 +1238,33 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
                                     or tuple(acc_add.shape) != (nb, 2, c, b)):
             raise ValueError(f"acc_add must be float32 [{nb}, 2, {c}, {b}]")
         pos0 = int(pos0) % p
-        cpu = _check_common([sigpad, fdl, filt_rim, dcfix_all, cs, abt, scales, acc_add], "fused_stream")
+        cpu = _check_common([sigpad, fdl, filt_rim, dcfix_all, cs, abt, scales, acc_add, tiles], "fused_stream")
         pc = _check_sched(sched, fdl)
         _check_dft(cs, n, inverse=False)
         _check_dft(abt, n, inverse=True)
 
         dev = sigpad.device
-        widths = None if sched is None else (sched_widths(sched, b, pc), pc)
+        widths = None if sched is None or tiles is not None else (sched_widths(sched, b, pc), pc)
         out = torch.empty((c, nb * b), dtype=torch.float32, device=dev)
-        w = min(WINDOW, nb)  # staging, reused by every window
+        window = WINDOW if tiles is None else WINDOW * TILES_WINDOWS
+        w = min(window, nb)  # staging, reused by every window
         spec = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
         x = torch.empty((w, 2, c, b), dtype=fdl.dtype, device=dev)
         scl = None if scales is None else torch.empty((w, c), dtype=torch.float32, device=dev)
         acc = torch.empty((w, c, 2 * b), dtype=torch.float32, device=dev)
-        for i0 in range(0, nb, WINDOW):
-            wc = min(WINDOW, nb - i0)
+        for i0 in range(0, nb, window):
+            wc = min(window, nb - i0)
             pos_first = (pos0 + i0) % p
             s_w = None if scl is None else scl[:wc]
             window_forward(sigpad, cs, i0, wc, out=spec[:wc])
             quantize_rows(spec[:wc], fdl.dtype, x[:wc], s_w)
             stream_mac(fdl, scales, x[:wc], s_w, filt_rim, dcfix_all[i0 : i0 + wc], pos_first,
-                       None if acc_add is None else acc_add[i0 : i0 + wc], widths, out=acc[:wc])
+                       None if acc_add is None else acc_add[i0 : i0 + wc], widths, acc[:wc], tiles)
             ring_writeback(x[:wc], s_w, fdl, scales, pos_first)
             window_inverse(acc[:wc], abt, out, i0)
         if not cpu:
             fused_stream.launches += 1
-            fused_stream.sched_launches += sched is not None
+            fused_stream.sched_launches += sched is not None or tiles is not None
         return (out, fdl) if scales is None else (out, fdl, scales)
 
 

@@ -16,9 +16,10 @@ trace on the device's clock, beside the kernels launched inside it. With
 the profiler off no ``record_function`` is constructed, and a span costs
 two clock reads and a few additions.
 
-``totals()`` reads the span totals, ``snapshot()`` them and the kernel
-wrappers' launch counters (``kernels.launch_counts()``), ``reset()`` clears
-the span totals (``kernels.reset_launch_counts()`` the counters). A Chrome
+``totals()`` reads the span totals, ``snapshot()`` them, the kernel
+wrappers' launch counters (``kernels.launch_counts()``) and the kernels'
+work counters (``kernels.counters()``), ``reset()`` clears the span totals
+(``kernels.reset_launch_counts()`` the counters). A Chrome
 trace with the spans in it is written by ``bench.profile.trace``.
 
 The spans (name: what it covers):
@@ -130,10 +131,11 @@ def totals() -> dict:
 
 
 def snapshot() -> dict:
-    """``{"spans": totals(), "launches": kernels.launch_counts()}``."""
+    """``{"spans": totals(), "launches": kernels.launch_counts(),
+    "counters": kernels.counters()}``."""
     from neojax_torch import kernels
 
-    return {"spans": totals(), "launches": kernels.launch_counts()}
+    return {"spans": totals(), "launches": kernels.launch_counts(), "counters": kernels.counters()}
 
 
 def reset() -> None:

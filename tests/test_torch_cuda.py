@@ -721,6 +721,104 @@ def test_stream_mac_sched_equals_dense_on_the_masked_filter(cuda, rng, monkeypat
         assert torch.equal(got, dense)
 
 
+def _room_filter(c, cf, storage, dev, band=False):
+    """The masked benchmark cell's filter at P = 960, B = 512: params of the
+    octave-room spectra under its perceptual mask (or, ``band``, under the
+    mask of its first 30 % of partitions) in ``cf`` channels (the mono
+    filter times a gain a channel), and the mask's tap-tile table on
+    ``dev``."""
+    from benchmark.lib import inputs, spec
+
+    cell = spec.load_json(spec.ROOT / "benchmark/configs/ambi64_room10s_perc60_bf16.json")
+    filt = inputs.make_filter(cell)
+    mask = filt.mask
+    if band:
+        mask = np.zeros_like(mask)
+        mask[:288] = True
+    gains = np.linspace(1.0, 0.5, cf, dtype=np.float32)[:, None, None]
+    parts = (np.where(mask, filt.spectra, 0)[None] * gains).astype(np.complex64)
+    params = cv.filter_params(cv.PartitionedConfig(512, 960, c, storage=storage), parts, device=dev)
+    tiles = torch.from_numpy(fs.tap_tile_table(mask, 512).astype(np.uint8)).to(dev)
+    return params, tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("c", [64, 37])
+@pytest.mark.parametrize("cf", ["one", "all"])
+@pytest.mark.parametrize("mask", ["perceptual", "band30"])
+def test_stream_mac_tiles_equal_dense_on_the_masked_filter(cuda, rng, storage, c, cf, mask):
+    """The scheduled walk of the tap-tile table (work items, live warps,
+    dead taps staged as zeros) equals the dense kernel on the masked filter
+    bit for bit: the benchmark's perceptual mask at P = 960 (its plan takes
+    NC = 1) and a band of partitions (NC = 4 with a shared filter), a full
+    window and a ragged one, ring positions that wrap inside the window, Cf
+    = 1 and C, C off the 16-channel tile; and, perceptual, its plain
+    version on an unmasked filter."""
+    p, b = 960, 512
+    params, tiles = _room_filter(c, 1 if cf == "one" else c, storage, cuda, band=mask == "band30")
+    rim = params["filt_rim"]
+    assert fs._tile_plan(tiles, c, 64, rim.shape[1])[1] == (4 if mask == "band30" and cf == "one" else 1)
+    for wc, pos in ((64, 930), (23, 0), (64, 17)):
+        ring, scales, x, scl, _, dcfix, seed = _mac_inputs(rng, storage, p, wc, c, b, rim.shape[1], cuda)
+        steps = []
+        for kw in (dict(tiles=tiles), {}):
+            before = (fs.stream_mac.launches, fs.stream_mac.steps_run, fs.stream_mac.steps_dense)
+            steps.append(fs.stream_mac(ring, scales, x, scl, rim, dcfix, pos, seed, **kw))
+            assert fs.stream_mac.launches == before[0] + 1
+            steps.append((fs.stream_mac.steps_run - before[1], fs.stream_mac.steps_dense - before[2]))
+        torch.cuda.synchronize()
+        assert torch.equal(steps[0], steps[2]), (wc, pos)
+        (run, dense), (run_d, dense_d) = steps[1], steps[3]
+        assert dense == dense_d == run_d and 0 < run < 0.4 * dense
+    if mask == "band30":
+        return
+    unmasked = (rim.float() + 0.01).to(rim.dtype)  # every tap live
+    got = fs.stream_mac(ring, scales, x, scl, unmasked, dcfix, pos, seed, tiles=tiles)
+    want = fs.stream_mac_reference(ring, scales, x, scl, unmasked, dcfix, pos, seed, tiles=tiles)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < _TOL[storage]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["split", "bf16", "int8"])
+def test_masked_process_runs_the_tap_tiles(cuda, rng, storage):
+    """The masked convolver's ``process`` on the card: B3 with the tap-tile
+    table (no ``sched_widths``), equal to B3 with the schedule's widths and
+    to the dense B3 on the masked filter, bit for bit."""
+    from benchmark.lib import inputs, spec
+    from neojax_torch import kernels
+
+    c, nb = 8, 150
+    cs, abt = mb.packed_stream_mats(1024, fs.MATRIX_DTYPES[_DT[storage]], cuda)
+    filt = inputs.make_filter(spec.load_json(spec.ROOT / "benchmark/configs/ambi64_room10s_perc60_bf16.json"))
+    conv_ = conv.sparse_upols_convolver(sparsity=filt.mask, storage=storage, device=cuda)
+    conv_.filter(filt.spectra[None], pad_partitions=960)
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, nb * 512)).astype(np.float32)).to(cuda)
+    kernels.reset_launch_counts()
+    out = conv_.process(sig)
+    counts = kernels.launch_counts()
+    assert counts["fused_stream_sched"] == 1 and counts["sched_widths"] == 0
+    assert counts["stream_mac"] == -(-nb // (fs.WINDOW * fs.TILES_WINDOWS))
+    steps = kernels.counters()
+    assert 0 < steps["stream_mac.steps_run"] < steps["stream_mac.steps_dense"] / 3
+    # the same stream through B3 with the widths and through the dense B3
+    prm = conv_.params
+    sigpad = torch.cat([torch.zeros((c, 512), device=cuda), sig], dim=-1)
+    dcfix = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(cuda)
+    outs = []
+    for kw in (dict(sched=(prm["sp_c_idx"], prm["sp_c_flags"]), tiles=prm["tap_tiles"]),
+               dict(sched=(prm["sp_c_idx"], prm["sp_c_flags"])), {}):
+        st = cv.init_state(conv_.config, cuda)
+        fdl = st["fdl"]
+        planes, scales = fdl if isinstance(fdl, tuple) else (fdl, None)
+        outs.append(fs.fused_stream(sigpad, planes, prm["filt_rim"], 0, dcfix, cs, abt,
+                                    None if scales is None else scales[..., 0], **kw)[0])
+    torch.cuda.synchronize()
+    assert out.shape == (c, nb * 512) and torch.isfinite(out).all()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", _STORAGES)
 @pytest.mark.parametrize("p,c,b,nb,pos0", [(64, 3, 96, 70, 60), (5, 3, 64, 1, 2), (24, 5, 130, 100, 20),
