@@ -12,7 +12,8 @@ from benchmark.lib.traffic import STRETCH_SPAN
 
 __all__ = ["CALL", "host_seconds", "least_us_per_block", "idle_pct_in"]
 
-# the program's span around each call of the closed loop
+# the program's span around each call of the closed loop, by default
+# (``Convolver.process``'s; a reader of another engine names its own)
 CALL = "conv.process"
 
 
@@ -32,14 +33,14 @@ def _covered(merged, a: float, b: float) -> float:
     return sum(max(0.0, min(e, b) - max(s, a)) for s, e in merged)
 
 
-def least_us_per_block(run, name: str, less: str | None = None) -> float | None:
-    """The least, over the traced calls (the ``conv.process`` spans), of
+def least_us_per_block(run, name: str, less: str | None = None, call: str = CALL) -> float | None:
+    """The least, over the traced calls (the program's ``call`` spans), of
     the host time a call spends in ``name`` spans less the part ``less``
     spans cover, in µs a block."""
     t = run.trace
     if t is None:
         return None
-    calls, inner = t.spans_named(CALL), union(t.spans_named(name))
+    calls, inner = t.spans_named(call), union(t.spans_named(name))
     if not calls or not inner:
         return None
     minus = union(t.spans_named(less)) if less else []

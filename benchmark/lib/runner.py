@@ -58,7 +58,9 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, t_start: float
     """Run the cell (``spec.cell`` / ``spec.cell_for``) once and return its
     result (the line's keys, and ``checks``). ``t_start``: the host clock
     when the process started. ``overrides``: ``{"config": {...},
-    "traffic": {...}}`` updates (the CPU tests' small sizes). ``control``:
+    "traffic": {...}}`` updates (the CPU tests' small sizes), after which
+    the configuration must still take the mix (``spec.check_pairing``).
+    ``control``:
     run the configuration's control in the program's place instead:
     ``{"kind": "program", "storage": S}`` is the program at the lower
     storage S, ``{"kind": "stand_in", "precision": P}`` the reference
@@ -67,6 +69,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, t_start: float
     for part, upd in (overrides or {}).items():
         cell[part] = {**cell[part], **upd}
     config, tr = cell["config"], cell["traffic"]
+    spec.check_pairing(config, tr, f"cell {cell['workload']['name']}")
     ctl = config["control"] if control else {}
     storage = ctl.get("storage")
     device = torch.device(device)
@@ -79,6 +82,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, t_start: float
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
+    system.reset_counters()
     conv = system.build(config, filt, device, storage)
     entry = conv.process if tr["entry"] == "process" else conv
     warm = entry(stream.call_input(0))

@@ -6,6 +6,11 @@ outputs as a run does.
 
     python3 benchmark/limits.py --workload <cell> --seeds 1,2,... \
         --control-seeds 101,102,103 --seconds <s> [--out FILE]
+    python3 benchmark/limits.py --config <file> --traffic <mix> --seeds ... \
+        --control-seeds ... --seconds <s> [--out FILE]
+
+The second form reads a configuration file that ``BENCHMARK.json`` does
+not list yet (``spec.cell_for``), any engine it names included.
 
 The control is the configuration's ``control`` (``runner.run_cell``).
 Prints one JSON line per run and a summary (largest program reading,
@@ -22,8 +27,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def main(argv=None) -> int:
+    from benchmark.lib import spec
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", required=True)
+    spec.add_cell_arguments(ap)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--control-seeds", required=True)
     ap.add_argument("--seconds", type=float, required=True)
@@ -32,12 +39,12 @@ def main(argv=None) -> int:
 
     import torch
 
-    from benchmark.lib import runner, spec
+    from benchmark.lib import runner
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 2
-    cell = spec.cell(args.workload)
+    cell = spec.cell_of(args)
     rows = []
     for side, seeds in (("program", args.seeds), ("control", args.control_seeds)):
         for seed in (int(s) for s in seeds.split(",")):
@@ -47,7 +54,7 @@ def main(argv=None) -> int:
             rows.append(row)
             print(json.dumps(row), flush=True)
     names = list(res["checks"])
-    summary = {"workload": args.workload, "control": cell["config"]["control"],
+    summary = {"workload": cell["workload"]["name"], "control": cell["config"]["control"],
                "lower": {k: max(r[k] for r in rows if r["side"] == "program") for k in names},
                "upper": {k: min(r[k] for r in rows if r["side"] == "control") for k in names}}
     print(json.dumps(summary), flush=True)

@@ -17,7 +17,13 @@ Every output block is computed on its own from the input blocks
   - ``"tf32"``: the control for a float32 configuration, the same sum with
     float32 transforms and the spectra and filter rounded to TF32 (a
     10-bit mantissa) before a float32 multiply-accumulate: what a TF32
-    tensor-core product in place of the float32 one would give.
+    tensor-core product in place of the float32 one would give;
+  - ``"int4"``: the control for an int8 delay line, the same sum with
+    float32 transforms, a float32 filter and the input spectra (the delay
+    line) stored as int4: each plane on the grid of 7 steps each way, one
+    scale a channel, frame and group of 4 bins, at the group's peak over
+    both planes (what a 4-bit ring with dynamic scales, 4 values a scale as
+    the nested engine's int8 meta ring has, would hold).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["partition", "round_tf32", "output_blocks"]
+__all__ = ["partition", "round_tf32", "quantize_groups", "output_blocks"]
 
 
 def partition(ir: np.ndarray, block: int) -> np.ndarray:
@@ -52,6 +58,21 @@ def _round_complex(z: torch.Tensor) -> torch.Tensor:
     return torch.complex(round_tf32(z.real), round_tf32(z.imag))
 
 
+def quantize_groups(z: torch.Tensor, bits: int = 4, group: int = 4) -> torch.Tensor:
+    """complex [..., K] -> each plane rounded to the symmetric grid of
+    ``2**(bits-1) - 1`` steps each way, one scale a group of ``group`` bins
+    along the last axis (the last group shorter), at the group's peak over
+    both planes."""
+    qmax = 2 ** (bits - 1) - 1
+    k = z.shape[-1]
+    planes = torch.nn.functional.pad(torch.stack([z.real, z.imag]), (0, -k % group))
+    grouped = planes.unflatten(-1, (-1, group))  # [2, ..., G, group]
+    peak = grouped.abs().amax(dim=-1, keepdim=True).amax(dim=0, keepdim=True)
+    scale = torch.where(peak > 0, peak / qmax, torch.ones_like(peak))
+    q = (torch.round(grouped / scale).clamp(-qmax, qmax) * scale).flatten(-2)[..., :k]
+    return torch.complex(q[0], q[1])
+
+
 def output_blocks(segment, spectra: np.ndarray, blocks, block: int, precision: str = "f64",
                   device="cpu", channel_chunk: int = 16) -> dict[int, torch.Tensor]:
     """Output blocks ``{g: y_g [C, B] float64 on the host}`` for each g in
@@ -61,12 +82,16 @@ def output_blocks(segment, spectra: np.ndarray, blocks, block: int, precision: s
               as a tensor (any float dtype, any device; zeros for g < 0)
     spectra : [P, B + 1] complex partition spectra (masked bins zeroed)
     """
-    if precision not in ("f64", "tf32"):
+    if precision not in ("f64", "tf32", "int4"):
         raise ValueError(f"unknown precision {precision!r}")
     real = torch.float64 if precision == "f64" else torch.float32
     p = spectra.shape[0]
     h = torch.from_numpy(np.ascontiguousarray(spectra)).to(device)
-    h = h.to(torch.complex128) if precision == "f64" else _round_complex(h.to(torch.complex64))
+    if precision == "f64":
+        h = h.to(torch.complex128)
+    else:
+        h = h.to(torch.complex64)
+        h = _round_complex(h) if precision == "tf32" else h
     h_rev = h.flip(0)  # row i multiplies frame g - P + 1 + i
     out = {}
     for g in blocks:
@@ -78,6 +103,8 @@ def output_blocks(segment, spectra: np.ndarray, blocks, block: int, precision: s
             x = torch.fft.rfft(frames, dim=-1)
             if precision == "tf32":
                 x = _round_complex(x)
+            elif precision == "int4":
+                x = quantize_groups(x)
             acc = torch.einsum("cpk,pk->ck", x, h_rev)
             ys.append(torch.fft.irfft(acc, n=2 * block, dim=-1)[:, block:])
         out[g] = torch.cat(ys).to(torch.float64).cpu()

@@ -1,8 +1,11 @@
 """Run one cell of the benchmark once and print its result line.
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+    python3 benchmark/run.py --config <file> --traffic <mix> --seed <n> --seconds <s> --trace <0|1>
 
-From the root of a checkout. Set-up (imports, the kernel library's load or
+From the root of a checkout. The second form runs a configuration file that
+``BENCHMARK.json`` does not list yet under a traffic mix, on one card, as
+``spec.cell_for`` resolves it. Set-up (imports, the kernel library's load or
 first build, inputs, filter, one warm-up call) counts as ``setup_s``; the
 window then runs for ``--seconds``; after it the kept outputs are held
 against the plain reference. The last line of standard output is the
@@ -31,8 +34,10 @@ sys.path.insert(0, str(ROOT))
 
 
 def main(argv=None) -> int:
+    from benchmark.lib import spec
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", required=True)
+    spec.add_cell_arguments(ap)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
@@ -40,14 +45,14 @@ def main(argv=None) -> int:
 
     import torch
 
-    from benchmark.lib import runner, spec, system
+    from benchmark.lib import runner, system
 
     try:
         system.require()
     except ImportError as e:
         print(f"no result: the program is not in this checkout ({e})", file=sys.stderr)
         return 4
-    cell = spec.cell(args.workload)
+    cell = spec.cell_of(args)
     chips = cell["workload"]["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"no result: the cell needs {chips} CUDA card(s), "

@@ -43,6 +43,20 @@ def test_host_time_a_block_is_the_least_over_the_calls(traced_run):
     assert read("kernels.launch_host_us_per_block.render", traced_run) == pytest.approx(55 / 4)
 
 
+def test_the_call_span_is_an_argument():
+    """A reader of another engine names its own call span; the default
+    (``conv.process``) finds none of them and reads nothing."""
+    from benchmark.lib.program_spans import least_us_per_block
+
+    t = Trace([_u("render.process", 0, 50), _u("engine.process", 2, 46), _u("kernels.mac", 10, 20),
+               _u("render.process", 50, 50), _u("engine.process", 52, 46), _u("kernels.mac", 60, 12)])
+    run = _run("closed", t, 8, 4)
+    assert least_us_per_block(run, "kernels.mac", call="engine.process") == pytest.approx(12 / 4)
+    assert least_us_per_block(run, "engine.process", less="kernels.mac", call="engine.process") == \
+        pytest.approx(26 / 4)
+    assert least_us_per_block(run, "kernels.mac") is None
+
+
 def test_idle_time_splits_by_the_program_span(traced_run):
     # idle 26 of 200 µs: conv.dcfix 8 + 3, conv.process 1, kernels.fused_stream 10, render.process 4
     assert read("device.idle.render", traced_run) == pytest.approx(13.0)

@@ -86,3 +86,20 @@ def test_tf32_stand_in_departs_from_f64(case):
     tf32 = upols.output_blocks(_stream(x), spectra, [20], B, precision="tf32")[20]
     rel = float((tf32 - f64).norm() / f64.norm())
     assert 1e-5 < rel < 1e-2
+
+
+def test_int4_groups_round_to_seven_steps_of_their_peak():
+    z = torch.complex(torch.tensor([[7.0, -3.5, 1.0, 0.2, 0.0, 0.0, 0.0, 0.0, 2.0]]),
+                      torch.tensor([[0.0, 0.0, -7.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.2]]))
+    q = upols.quantize_groups(z)  # groups of 4 bins: peaks 7, 0 and 2 (the last group one bin)
+    assert q.real[0, :8].tolist() == [7.0, -4.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0]  # -3.5 to even
+    assert q.imag[0, :8].tolist() == [0.0, 0.0, -7.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    assert (float(q.real[0, 8]), float(q.imag[0, 8])) == pytest.approx((2.0, -4 * 2 / 7))
+
+
+def test_int4_stand_in_departs_from_f64_far_more_than_tf32(case):
+    ir, x = case
+    spectra = upols.partition(ir, B)
+    f64 = upols.output_blocks(_stream(x), spectra, [20], B)[20]
+    int4 = upols.output_blocks(_stream(x), spectra, [20], B, precision="int4")[20]
+    assert 0.02 < float((int4 - f64).norm() / f64.norm()) < 0.5
