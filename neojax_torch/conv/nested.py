@@ -25,6 +25,14 @@ Python int.
 state passed in shares them with the state returned); ``tail`` and
 ``prev`` are replaced. No ``jit``: the chunk loop is a Python loop, each
 step a few batched tensor ops and one kernel launch.
+
+Spans (``neojax_torch.trace``; host bookkeeping only, no device sync):
+``nested.process`` around the whole call, and in each chunk
+``nested.forward`` (the frames, block rfft, meta window's cats and
+meta-FFT), ``nested.push`` (``_meta_push``: peak, rounding, clamp, ring
+and scale writes), B5's own ``kernels.nested_mac`` and ``nested.inverse``
+(inverse meta-FFT, block irfft, output slice and tail). A shared filter's
+chunk opens all four; the plain MAC routes open no ``kernels.nested_mac``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neojax_torch import trace
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host, _kernel_route
 from neojax_torch.core.device import as_signal, resolve_device
@@ -97,9 +106,9 @@ def nested_filter_params(config: PartitionedConfig, partitions, chunk_blocks: in
 
 
 # Quantized meta-FDL scale granularity (``neojax.conv.nested._QUANT_GROUPS``):
-# one dynamic scale per GROUP of meta-bins. int8 runs G = 64 (a 2S = 256 row
-# has four groups), which is what brings it into its 46 dB class; int16
-# runs G = 1, one scale per row.
+# G dynamic scales a meta row, one per group of 2S / G meta-bins. int8 runs
+# G = 64 (a 2S = 256 row has 64 groups of four bins), which is what brings
+# it into its 46 dB class; int16 runs G = 1, one scale per row.
 _QUANT_GROUPS = {"int8": 64, "int16": 1}
 
 
@@ -241,64 +250,68 @@ def process_nested(config: PartitionedConfig, params: dict, state: dict, signal:
     state's device. Returns (new_state, out); the meta ring and its scales
     are updated in place.
     """
-    b = config.block_size
-    n = config.transform_size
-    p2, s, _ = _static_dims(params)
-    if chunk_blocks is not None and chunk_blocks != s:
-        raise ValueError(f"chunk_blocks {chunk_blocks} != filter params' {s}")
-    fwd_prec, inv_prec = _fft_precisions(config)
+    with trace.span("nested.process"):
+        b = config.block_size
+        n = config.transform_size
+        p2, s, _ = _static_dims(params)
+        if chunk_blocks is not None and chunk_blocks != s:
+            raise ValueError(f"chunk_blocks {chunk_blocks} != filter params' {s}")
+        fwd_prec, inv_prec = _fft_precisions(config)
 
-    signal = as_signal(signal, state["tail"].device)
-    squeeze = signal.ndim == 1
-    if squeeze:
-        signal = signal[None]
-    c, t_len = signal.shape
-    num_chunks = -(-t_len // (s * b))
-    padded = F.pad(signal, (0, num_chunks * s * b - t_len))
-    chunks = padded.reshape(c, num_chunks, s, b)
+        signal = as_signal(signal, state["tail"].device)
+        squeeze = signal.ndim == 1
+        if squeeze:
+            signal = signal[None]
+        c, t_len = signal.shape
+        num_chunks = -(-t_len // (s * b))
+        padded = F.pad(signal, (0, num_chunks * s * b - t_len))
+        chunks = padded.reshape(c, num_chunks, s, b)
 
-    tail, prev, fdl, pos = state["tail"], state["prev"], state["fdl"], state["pos"]
-    scales = state.get("scales")
-    outs = []
-    for i in range(num_chunks):
-        chunk = chunks[:, i].transpose(0, 1)  # [S, C, B]
-        if config.scheme == "upols":
-            prev_blocks = torch.cat([tail[None], chunk[:-1]], dim=0)
-            frames = torch.cat([prev_blocks, chunk], dim=-1)  # [S, C, 2B]
-            new_tail = chunk[-1]
+        tail, prev, fdl, pos = state["tail"], state["prev"], state["fdl"], state["pos"]
+        scales = state.get("scales")
+        outs = []
+        for i in range(num_chunks):
+            with trace.span("nested.forward"):
+                chunk = chunks[:, i].transpose(0, 1)  # [S, C, B]
+                if config.scheme == "upols":
+                    prev_blocks = torch.cat([tail[None], chunk[:-1]], dim=0)
+                    frames = torch.cat([prev_blocks, chunk], dim=-1)  # [S, C, 2B]
+                    new_tail = chunk[-1]
+                else:
+                    frames = F.pad(chunk, (0, n - b))
+
+                sre, sim = mb.rfft_split(mb.round_operand(frames, fwd_prec), n)  # [S, C, K]
+                cur = torch.stack([sre.permute(1, 2, 0), sim.permute(1, 2, 0)]).to(prev.dtype)  # [2, C, K, S]
+
+                # meta OLS window (2S frames) and the C2C meta-FFT along it
+                xre, xim = mb.meta_fft(mb.round_operand(torch.cat([prev[0], cur[0]], dim=-1), fwd_prec),
+                                       mb.round_operand(torch.cat([prev[1], cur[1]], dim=-1), fwd_prec))
+            with trace.span("nested.push"):
+                _meta_push(fdl, scales, pos, xre, xim)
+            acc_re, acc_im = _meta_mac(config, params, fdl, scales, pos)
+
+            with trace.span("nested.inverse"):
+                # inverse meta-FFT (tail frames), then the block irfft
+                yre, yim = mb.meta_ifft_tail(mb.round_operand(acc_re, fwd_prec),
+                                             mb.round_operand(acc_im, fwd_prec))  # [C, K, S]
+                y = mb.irfft_split(mb.round_operand(yre.permute(2, 0, 1), inv_prec),
+                                   mb.round_operand(yim.permute(2, 0, 1), inv_prec), n)  # [S, C, 2B]
+
+                if config.scheme == "upols":
+                    out = y[..., b:]
+                else:
+                    prev_tails = torch.cat([tail[None], y[:-1, :, b:]], dim=0)
+                    out = y[..., :b] + prev_tails
+                    new_tail = y[-1, :, b:]
+                outs.append(out)
+                tail = new_tail.to(torch.float32).clone()
+            prev = cur
+            pos = (pos + 1) % p2
+
+        new_state = dict(state)
+        new_state.update(tail=tail, prev=prev, fdl=fdl, pos=pos)
+        if num_chunks:
+            out = torch.stack(outs).permute(2, 0, 1, 3).reshape(c, num_chunks * s * b)[:, :t_len]
         else:
-            frames = F.pad(chunk, (0, n - b))
-
-        sre, sim = mb.rfft_split(mb.round_operand(frames, fwd_prec), n)  # [S, C, K]
-        cur = torch.stack([sre.permute(1, 2, 0), sim.permute(1, 2, 0)]).to(prev.dtype)  # [2, C, K, S]
-
-        # meta OLS window (2S frames) and the C2C meta-FFT along it
-        xre, xim = mb.meta_fft(mb.round_operand(torch.cat([prev[0], cur[0]], dim=-1), fwd_prec),
-                               mb.round_operand(torch.cat([prev[1], cur[1]], dim=-1), fwd_prec))
-        _meta_push(fdl, scales, pos, xre, xim)
-        acc_re, acc_im = _meta_mac(config, params, fdl, scales, pos)
-
-        # inverse meta-FFT (tail frames), then the block irfft
-        yre, yim = mb.meta_ifft_tail(mb.round_operand(acc_re, fwd_prec),
-                                     mb.round_operand(acc_im, fwd_prec))  # [C, K, S]
-        y = mb.irfft_split(mb.round_operand(yre.permute(2, 0, 1), inv_prec),
-                           mb.round_operand(yim.permute(2, 0, 1), inv_prec), n)  # [S, C, 2B]
-
-        if config.scheme == "upols":
-            out = y[..., b:]
-        else:
-            prev_tails = torch.cat([tail[None], y[:-1, :, b:]], dim=0)
-            out = y[..., :b] + prev_tails
-            new_tail = y[-1, :, b:]
-        outs.append(out)
-        tail = new_tail.to(torch.float32).clone()
-        prev = cur
-        pos = (pos + 1) % p2
-
-    new_state = dict(state)
-    new_state.update(tail=tail, prev=prev, fdl=fdl, pos=pos)
-    if num_chunks:
-        out = torch.stack(outs).permute(2, 0, 1, 3).reshape(c, num_chunks * s * b)[:, :t_len]
-    else:
-        out = signal[:, :0]
-    return new_state, (out[0] if squeeze else out)
+            out = signal[:, :0]
+        return new_state, (out[0] if squeeze else out)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from neojax_torch import trace
 from neojax_torch.kernels import _build
 from neojax_torch.kernels.fdl_mac import STORAGE_CODES
 
@@ -88,23 +89,24 @@ def nested_mac(planes, scales, filt_re, filt_im):
     filt_re/_im : [P2, K, L] f32, shared filter, already ring-rotated
     returns     : (acc_re, acc_im), each [C, K, L] f32
     """
-    _check_args(planes, scales, filt_re, filt_im)
-    if planes.device.type == "cpu":
-        return nested_mac_reference(planes, scales, filt_re, filt_im)
-    if planes.device.type != "cuda":
-        raise ValueError(f"nested_mac: unsupported device {planes.device}")
-    _, p2, c, k, l = planes.shape
-    acc_re = torch.empty((c, k, l), dtype=torch.float32, device=planes.device)
-    acc_im = torch.empty((c, k, l), dtype=torch.float32, device=planes.device)
-    code = _build.load().neo_nested_mac(
-        STORAGE_CODES[planes.dtype], planes.data_ptr(),
-        0 if scales is None else scales.data_ptr(),
-        filt_re.data_ptr(), filt_im.data_ptr(), acc_re.data_ptr(), acc_im.data_ptr(),
-        p2, c, k, l, 1 if scales is None else scales.shape[-1], _build.stream_of(planes),
-    )
-    _build.check(code, "nested_mac")
-    nested_mac.launches += 1
-    return acc_re, acc_im
+    with trace.span("kernels.nested_mac"):
+        _check_args(planes, scales, filt_re, filt_im)
+        if planes.device.type == "cpu":
+            return nested_mac_reference(planes, scales, filt_re, filt_im)
+        if planes.device.type != "cuda":
+            raise ValueError(f"nested_mac: unsupported device {planes.device}")
+        _, p2, c, k, l = planes.shape
+        acc_re = torch.empty((c, k, l), dtype=torch.float32, device=planes.device)
+        acc_im = torch.empty((c, k, l), dtype=torch.float32, device=planes.device)
+        code = _build.load().neo_nested_mac(
+            STORAGE_CODES[planes.dtype], planes.data_ptr(),
+            0 if scales is None else scales.data_ptr(),
+            filt_re.data_ptr(), filt_im.data_ptr(), acc_re.data_ptr(), acc_im.data_ptr(),
+            p2, c, k, l, 1 if scales is None else scales.shape[-1], _build.stream_of(planes),
+        )
+        _build.check(code, "nested_mac")
+        nested_mac.launches += 1
+        return acc_re, acc_im
 
 
 nested_mac.launches = 0

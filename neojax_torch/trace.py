@@ -36,7 +36,17 @@ The spans (name: what it covers):
 - ``conv.fifo``: its re-blocking FIFO;
 - ``conv.step``: one block (``conv.convolver.step``);
 - ``conv.dcny``: the DC/Nyquist side-carry of one fused block;
-- ``kernels.block_step``: B2's wrapper (workspace and its one C call).
+- ``kernels.block_step``: B2's wrapper (workspace and its one C call);
+- ``nested.process``: ``conv.nested.process_nested``, the nested engine's
+  call (and so ``make_engine("nested")``'s ``process``);
+- ``nested.forward``: a chunk's frames, block rfft, meta window's cats and
+  meta-FFT;
+- ``nested.push``: a chunk's ``_meta_push`` (the int storages' group peak,
+  rounding and clamp; the ring and scale writes);
+- ``kernels.nested_mac``: B5's wrapper (checks, allocation, launch), in the
+  nested engine and in the hybrid engine's tail;
+- ``nested.inverse``: a chunk's inverse meta-FFT, block irfft, output
+  slice and tail.
 """
 
 from __future__ import annotations

@@ -255,6 +255,41 @@ def test_nested_and_hybrid_cuda_route_match_cpu_route(cuda, rng, storage):
 
 
 @pytest.mark.cuda
+def test_nested_mac_span_counts_its_launches(cuda, rng, monkeypatch):
+    """``kernels.nested_mac`` spans one call a B5 launch, in the nested
+    engine (one a chunk, as ``nested.push``) and in the hybrid engine's
+    tail; the spans change no output on the card."""
+    import contextlib
+
+    from neojax_torch import trace
+    from neojax_torch.conv import nested as ne
+
+    b, p, c, s, chunks = 64, 19, 3, 4, 5
+    parts = ((rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, chunks * s * b)).astype(np.float32)).to(cuda)
+
+    def calls(name):
+        return trace.totals().get(name, {"calls": 0})["calls"]
+
+    outs = []
+    for engine in ("nested", "hybrid"):
+        eng = conv.make_engine(engine, parts, storage="int8", chunk_blocks=s, channels=c, device=cuda)
+        spans, pushes, launches = calls("kernels.nested_mac"), calls("nested.push"), nm.nested_mac.launches
+        outs.append(eng.process(sig))
+        torch.cuda.synchronize()
+        got = calls("kernels.nested_mac") - spans
+        assert got == nm.nested_mac.launches - launches and got >= chunks
+        if engine == "nested":
+            assert got == calls("nested.push") - pushes == chunks
+    fake = type("NoTrace", (), {"span": staticmethod(lambda name: contextlib.nullcontext())})
+    monkeypatch.setattr(ne, "trace", fake)
+    monkeypatch.setattr(nm, "trace", fake)
+    eng = conv.make_engine("nested", parts, storage="int8", chunk_blocks=s, channels=c, device=cuda)
+    assert torch.equal(eng.process(sig), outs[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["split", "int8"])
 @pytest.mark.parametrize("scheme", ["upols", "upola"])
 @pytest.mark.parametrize("fused", [None, False])
