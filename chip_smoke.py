@@ -288,11 +288,16 @@ def snr_db(out: np.ndarray, ref: np.ndarray) -> float:
     return float("inf") if den == 0 else 10.0 * np.log10(float(np.sum(ref**2)) / den)
 
 
+# stream_mac_dense_kernel<T, M>'s mangled template arguments, by storage
+DENSE_INSTANCE = {"split": "ff", "bf16": "13__nv_bfloat16S", "int16": "sf", "int8": "a13__nv_bfloat16"}
+
+
 def mac_ptxas(log_path: str) -> list[dict]:
     """Registers and spill bytes of each instance of the partition MAC
     (``step_mac_kernel``, ``step_reduce_kernel``; in ``probes.cu`` T1's
-    probe mode) and of B3's ``stream_mac_kernel`` in the nvcc log, by
-    translation unit."""
+    probe mode) and of B3's ``stream_mac_kernel``,
+    ``stream_mac_tiles_kernel`` and ``stream_mac_dense_kernel`` in the nvcc
+    log, by translation unit."""
     out, cur = [], None
     if not os.path.exists(log_path):
         return out
@@ -301,10 +306,12 @@ def mac_ptxas(log_path: str) -> list[dict]:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 name = m.group(1)
-                hit = re.search(r"((?:step_(?:mac|reduce)|stream_mac)_kernel\w*?)(?:EEEv|EEvP)", name)
+                hit = re.search(r"((?:step_(?:mac|reduce)|stream_mac(?:_tiles|_dense)?)_kernel\w*?)(?:EEEv|EEvP|EEvNS)",
+                                name)
                 cur = None
                 if hit:
-                    unit = next((u for u in ("fdl_mac", "probes") if f"{u}_cu" in name), "fused_step")
+                    unit = next((u for u in ("fdl_mac", "probes", "stream_mac_dense") if f"{u}_cu" in name),
+                                "fused_step")
                     cur = {"unit": f"{unit}.cu", "kernel": hit.group(1)}
                     out.append(cur)
             elif cur is not None:
@@ -1967,9 +1974,13 @@ def main(dist_only: bool = False) -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, built=info["built"],
          library=os.path.relpath(info["path"], os.path.dirname(os.path.abspath(__file__))),
          ptxas=ptxas, partition_mac=mac_lines)
-    # the stage map below finds B3's MAC in a trace by this kernel name
+    # the stage map below finds B3's MACs in a trace by these kernel names;
+    # the dense route's kernel spills nothing in any storage
+    dense_lines = [r for r in mac_lines if r["kernel"].startswith("stream_mac_dense_kernel")]
     assert not mac_lines or any(r["kernel"].startswith("stream_mac_kernel") for r in mac_lines), \
         "no stream_mac_kernel in the build log"
+    assert not mac_lines or len(dense_lines) == 4, "not four stream_mac_dense_kernel instances in the build log"
+    assert all(r.get("spill_bytes", 0) == 0 for r in dense_lines), f"stream_mac_dense_kernel spills: {dense_lines}"
 
     if dist_only:  # the dist phase alone, for work on it; no kernels line and no ok line
         res = run_dist(torch.device(DEVICE), card)
@@ -2026,7 +2037,8 @@ def main(dist_only: bool = False) -> int:
     # kernel timeline (fft_forward_kernel / fft_inverse_kernel: the transforms)
     stage_of = {"fft_forward": "window_forward", "fft_inverse": "window_inverse",
                 "quantize_kernel": "quantize_rows", "writeback_kernel": "ring_writeback",
-                "stream_mac_kernel": "stream_mac", "step_mac_kernel": "step_mac",
+                "stream_mac_kernel": "stream_mac", "stream_mac_dense_kernel": "stream_mac",
+                "step_mac_kernel": "step_mac",
                 "step_reduce_kernel": "step_reduce", "widths_kernel": "sched_widths"}
 
     b2_need = ("window_forward", "quantize_rows", "ring_writeback", "step_mac", "step_reduce", "window_inverse")
@@ -2215,6 +2227,9 @@ def main(dist_only: bool = False) -> int:
             else:  # no trace of the call showed the stage: time it alone with CUDA events
                 stages[name][storage]["ms"] = device_ms(stage_alone[name], 20)
                 stages[name][storage]["ms_from"] = "the stage alone (CUDA events): the traces missed it"
+        stages["stream_mac"][storage]["ptxas"] = next(  # the dense route's instance (Cf = 1): T and M
+            ({"registers": r.get("registers"), "spill_bytes": r.get("spill_bytes", 0)} for r in dense_lines
+             if r["kernel"].startswith("stream_mac_dense_kernelI" + DENSE_INSTANCE[storage])), None)
         emit(phase="stage_vs_plain", storage=storage, tol=TOL[storage], blocks=nb, pos0=pos0,
              stages={k: v[storage] for k, v in stages.items() if storage in v}, **card)
         del w_spec, w_x, w_acc, w_part, wb_ring, inv_out

@@ -34,7 +34,9 @@
 //      reads from shared memory feeds 8 blocks or 4 channels and the
 //      filter values slide along the Toeplitz diagonal in registers.
 //      History rows inside the window come from X_new, older ones from the
-//      ring (not yet overwritten: step 4 comes after).
+//      ring (not yet overwritten: step 4 comes after). A filter shared by
+//      more than 4 channels, with no schedule, takes stream_mac_dense.cu's
+//      kernel instead (the same sums, its own body).
 //   4. writeback_kernel: X_new and its scales into the ring slots, in their
 //      own launch after the MAC (the last write wins when W > P)
 //   5. transform.cu: the inverse FFTs, straight into the output
@@ -246,23 +248,6 @@ struct MacLayout {
 __host__ __device__ inline MacLayout mac_layout(int t_size, int m_size, int ct, int ctf, bool quant) {
   return MacLayout{4 * ctf * (kRing + kTail) * kLanes * m_size, kRows * 2 * ct * kLanes * t_size,
                    quant ? kRows * ct * 4 : 0, kBlocks * kRows * 2};
-}
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy n segments of kLanes elements E (lanes < nv of each) from src_of(s)
@@ -692,15 +677,6 @@ int launch_writeback(const void* x, const void* scl, void* fdl, void* scales, in
       static_cast<const T*>(x), static_cast<const float*>(scl), static_cast<T*>(fdl),
       static_cast<float*>(scales), P, C, B, wc, first, pos_first);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Allow a kernel more than 48 KB of shared memory, once per kernel and size.
-template <typename K>
-cudaError_t allow_smem(K kernel, int smem, int& allowed) {
-  if (smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) allowed = smem;
-  return e;
 }
 
 template <typename T, typename M, int NC>

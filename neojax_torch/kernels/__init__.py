@@ -14,7 +14,8 @@ Each wrapper counts its kernel launches in a plain int attribute
 (``fdl_mac.fdl_mac.launches``); ``fused_block_step`` and ``fused_stream``
 count the calls that ran their stage kernels, and, in ``sched_launches``,
 those that ran a chunk schedule or a tap-tile table. ``stream_mac`` also
-counts the steps of its walk (``counters()``). The CPU route counts
+counts the steps of its walk and its launches on the dense route
+(``counters()``). The CPU route counts
 nothing."""
 
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
@@ -40,7 +41,8 @@ def reset_launch_counts() -> None:
         k.launches = 0
     for k in _sched_wrappers():
         k.sched_launches = 0
-    _fused_step_mod.stream_mac.steps_run = _fused_step_mod.stream_mac.steps_dense = 0
+    mac = _fused_step_mod.stream_mac
+    mac.steps_run = mac.steps_dense = mac.dense_launches = 0
 
 
 def launch_counts() -> dict:
@@ -55,9 +57,12 @@ def counters() -> dict:
     """The kernels' work counters: ``stream_mac.steps_run``, the steps of
     history B3's time-batched MAC ran, and ``stream_mac.steps_dense``, those
     the dense kernel would have walked in the same windows (each counted
-    once a lane tile, block tile and channel: ``fused_step.stream_mac``)."""
+    once a lane tile, block tile and channel: ``fused_step.stream_mac``);
+    ``stream_mac.dense_launches``, its launches on the dense route
+    (``fused_step.stream_mac_route``)."""
     mac = _fused_step_mod.stream_mac
-    return {"stream_mac.steps_run": mac.steps_run, "stream_mac.steps_dense": mac.steps_dense}
+    return {"stream_mac.steps_run": mac.steps_run, "stream_mac.steps_dense": mac.steps_dense,
+            "stream_mac.dense_launches": mac.dense_launches}
 
 
 __all__ = ["reset_launch_counts", "launch_counts", "counters"]

@@ -66,6 +66,9 @@ _SIGNATURES = {
     # nc, vec_h, vec_f, smem, stream
     "neo_fs_stream_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # storage, ring, scales, xnew, snew, rim, seed, dcfix, acc, P, C, B, wc,
+    # pos_first, vec_h, vec_f, smem, stream
+    "neo_fs_stream_mac_dense": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # storage, ring, scales, fre, fim, f_row, f_c, wrow, part, P, C, K, pc, S, per, vec, stream
     "neo_fs_step_mac": [_I, _P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # mat_bf16, part, dcfix, acc, S, C, K, stream

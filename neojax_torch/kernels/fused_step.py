@@ -39,7 +39,9 @@ tiled filter) is a causal convolution along time. So B3 walks its nb blocks in w
    each lane a complex product of the Toeplitz matrix of the filter rows
    [blocks, history rows] by the history [history rows, channels], in f32
    FFMA on tiles staged in shared memory by ``cp.async``
-   (:func:`stream_mac_geometry`)
+   (:func:`stream_mac_geometry`; a shared filter over more than 4 channels
+   without a table takes its own kernel, :func:`stream_mac_route`,
+   :func:`stream_mac_dense_geometry`)
 4. :func:`ring_writeback` — ``X_new`` into ring slots ``(pos0 + i) % P``
    after the MAC (the last write wins when W > P)
 5. :func:`window_inverse` — the accumulators through the inverse FFT,
@@ -684,6 +686,47 @@ def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, c
             "smem": 4 * ctf * _MAC_SLOTS * _MAC_LANES * msz + _MAC_STAGES * stage}
 
 
+# stream_mac_dense_kernel's tile (csrc/stream_mac_dense.cu: kLanes, kCt, kBlocks, kMB, kRows, kStages, kSlots)
+_DENSE_CHANNELS, _DENSE_STAGES = 16, 4
+
+
+def stream_mac_route(cf: int, c: int, widths, tiles) -> str:
+    """The kernel :func:`stream_mac` launches for ``c`` channels: ``"dense"``
+    (``stream_mac_dense_kernel``) for a filter shared by the channels (``cf``
+    = 1) over more than 4 channels with neither a width table nor a tap-tile
+    table, else ``"cta"`` (``stream_mac_kernel``, or
+    ``stream_mac_tiles_kernel`` with a table). At 4 channels or fewer the
+    dense kernel's 16-channel tile would be mostly idle, and
+    ``stream_mac_kernel`` runs its 4-channel one."""
+    return "dense" if cf == 1 and c > 4 and widths is None and tiles is None else "cta"
+
+
+def stream_mac_dense_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype) -> dict:
+    """Launch geometry of :func:`stream_mac`'s dense route
+    (:func:`stream_mac_route`) for a ring [2, P, C, B] of the storage dtype
+    ``storage`` and a window of ``wc`` blocks; P sets the number of steps,
+    not the tile.
+
+    A CTA owns ``lanes`` lanes x ``channels`` channels x ``blocks`` blocks;
+    ``grid`` = (lane tiles, channel tiles, block tiles). Its ``threads`` are
+    8 warps: warp w the blocks [8 w, 8 w + 8) of the CTA's, thread t of a
+    warp lanes 2 (t % 4) and 2 (t % 4) + 1 and channels t // 4 and t // 4 +
+    8 of the tile. ``smem``: the dynamic shared bytes of the tap ring
+    (``slots`` taps of both rim halves and planes, matrix dtype) and
+    ``stages`` stages of ``rows`` history rows (storage dtype; int scales);
+    the kernel refuses any other count."""
+    if storage not in MATRIX_DTYPES:
+        raise ValueError(f"stream_mac_dense_geometry: unknown storage {storage!r}")
+    isz, msz = storage.itemsize, MATRIX_DTYPES[storage].itemsize
+    ct = _DENSE_CHANNELS
+    stage = _MAC_ROWS * 2 * ct * _MAC_LANES * isz + (_MAC_ROWS * ct * 4 if storage in _INT_MAX else 0)
+    return {"lanes": _MAC_LANES, "channels": ct, "blocks": _MAC_BLOCKS, "blocks_a_thread": _MAC_MB,
+            "lanes_a_thread": 2, "channels_a_thread": 2, "rows": _MAC_ROWS, "slots": _MAC_SLOTS,
+            "stages": _DENSE_STAGES, "threads": 32 * _MAC_BLOCKS // _MAC_MB,
+            "grid": (-(-b // _MAC_LANES), -(-c // ct), -(-wc // _MAC_BLOCKS)),
+            "smem": 4 * _MAC_SLOTS * _MAC_LANES * msz + _DENSE_STAGES * stage}
+
+
 def tap_tile_table(mask: np.ndarray, b: int) -> np.ndarray:
     """The tap-tile table of a keep-mask [P, K] or [P, C', K] (any channel)
     over the packed lanes of block B: bool ``[P, ceil(B / 8)]``, entry (a,
@@ -839,6 +882,12 @@ def _piece_bytes(segment: int, row_bytes: int, *tensors) -> int:
     return 0
 
 
+def _whole_pieces(piece: int, row_bytes: int, *tensors) -> int:
+    """``piece`` where it divides a row's bytes and every tensor's address (the
+    dense route's cp.async pieces), else 0 (element copies)."""
+    return piece if row_bytes % piece == 0 and all(t.data_ptr() % piece == 0 for t in tensors) else 0
+
+
 def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, widths=None, out=None,
                tiles=None):
     """The MAC of a window of blocks, batched over time.
@@ -862,10 +911,12 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
     (each row dequantized with its own scale), lane 0 := dcfix, rounded to
     the matrix dtype
 
-    Each launch adds to ``stream_mac.steps_run`` the steps it runs and to
+    :func:`stream_mac_route` picks the kernel. Each launch adds to
+    ``stream_mac.steps_run`` the steps it runs and to
     ``stream_mac.steps_dense`` those the dense kernel walks, counted once a
     lane tile, block tile and channel (``stream_mac_plan``): equal amounts
-    without a table.
+    without a table; ``stream_mac.dense_launches`` counts the launches of
+    the dense route.
     """
     _, p, c, b = fdl.shape
     wc = x.shape[0]
@@ -882,31 +933,44 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
         out = torch.empty((wc, c, 2 * b), dtype=torch.float32, device=fdl.device)
     pc = 0 if widths is None else widths[1]
     cf = filt_rim.shape[1]
-    if tiles is None:
-        steps = items = nc = None
-        run = dense = _dense_steps(p, c, b, wc)
-    else:
-        steps, nc, items, run, dense = _tile_plan(tiles, c, wc, cf)
-    geo = stream_mac_geometry(p, c, b, wc, fdl.dtype, cf, nc)
     isz, msz = fdl.element_size(), filt_rim.element_size()
-    code = _build.load().neo_fs_stream_mac(
-        STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
-        0 if scl is None else scl.data_ptr(), filt_rim.data_ptr(), 0 if seed is None else seed.data_ptr(),
-        dcfix.data_ptr(), 0 if tab is None else tab.data_ptr(), 0 if tiles is None else tiles.data_ptr(),
-        0 if steps is None else steps.data_ptr(), 0 if items is None else items.data_ptr(), out.data_ptr(),
-        p, c, b, cf, wc, pos_first, pc, 0 if tab is None else tab.shape[1], geo["grid"][0],
-        0 if steps is None else steps.shape[1], 0 if items is None else items.shape[0], geo["nc"],
-        _piece_bytes(_MAC_LANES * isz, b * isz, fdl, x), _piece_bytes(_MAC_LANES * msz, b * msz, filt_rim),
-        geo["smem"], _build.stream_of(fdl),
-    )
+    dense_route = stream_mac_route(cf, c, widths, tiles) == "dense"
+    if dense_route:
+        run = dense = _dense_steps(p, c, b, wc)
+        code = _build.load().neo_fs_stream_mac_dense(
+            STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
+            0 if scl is None else scl.data_ptr(), filt_rim.data_ptr(), 0 if seed is None else seed.data_ptr(),
+            dcfix.data_ptr(), out.data_ptr(), p, c, b, wc, pos_first,
+            _whole_pieces(min(16, _MAC_LANES * isz), b * isz, fdl, x), _whole_pieces(16, b * msz, filt_rim),
+            stream_mac_dense_geometry(p, c, b, wc, fdl.dtype)["smem"], _build.stream_of(fdl),
+        )
+    else:
+        if tiles is None:
+            steps = items = nc = None
+            run = dense = _dense_steps(p, c, b, wc)
+        else:
+            steps, nc, items, run, dense = _tile_plan(tiles, c, wc, cf)
+        geo = stream_mac_geometry(p, c, b, wc, fdl.dtype, cf, nc)
+        code = _build.load().neo_fs_stream_mac(
+            STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
+            0 if scl is None else scl.data_ptr(), filt_rim.data_ptr(), 0 if seed is None else seed.data_ptr(),
+            dcfix.data_ptr(), 0 if tab is None else tab.data_ptr(), 0 if tiles is None else tiles.data_ptr(),
+            0 if steps is None else steps.data_ptr(), 0 if items is None else items.data_ptr(), out.data_ptr(),
+            p, c, b, cf, wc, pos_first, pc, 0 if tab is None else tab.shape[1], geo["grid"][0],
+            0 if steps is None else steps.shape[1], 0 if items is None else items.shape[0], geo["nc"],
+            _piece_bytes(_MAC_LANES * isz, b * isz, fdl, x), _piece_bytes(_MAC_LANES * msz, b * msz, filt_rim),
+            geo["smem"], _build.stream_of(fdl),
+        )
     _build.check(code, "stream_mac")
     stream_mac.launches += 1
+    stream_mac.dense_launches += dense_route
     stream_mac.steps_run += run
     stream_mac.steps_dense += dense
     return out
 
 
 stream_mac.launches = 0
+stream_mac.dense_launches = 0
 stream_mac.steps_run = 0
 stream_mac.steps_dense = 0
 

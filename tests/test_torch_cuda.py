@@ -756,6 +756,40 @@ def test_stream_mac_sched_equals_dense_on_the_masked_filter(cuda, rng, monkeypat
         assert torch.equal(got, dense)
 
 
+# the dense route at P below, at and off the history step, windows of 1 to
+# two block tiles, C and B off the tiles (B = 10: rows copied element by
+# element; C <= 4 keeps the kept body): P, wc, C, B, pos_first (0: the rim
+# half switches inside a step; P - 5: the window wraps the ring)
+_DENSE_SHAPES = [(1, 9, 3, 40, 0), (5, 64, 1, 8, 3), (17, 128, 16, 40, 12), (17, 1, 64, 8, 16),
+                 (960, 64, 64, 512, 0), (960, 128, 16, 512, 955), (960, 9, 3, 40, 959), (960, 1, 1, 512, 500),
+                 (17, 9, 5, 10, 5), (960, 70, 20, 24, 951)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("p,wc,c,b,pos", _DENSE_SHAPES)
+def test_stream_mac_dense_route_equals_the_kept_body(cuda, rng, storage, p, wc, c, b, pos):
+    """stream_mac's dense route (a shared filter over more than 4 channels,
+    no table: stream_mac_dense_kernel) equals the kept body (stream_mac_cta,
+    here through an all-live tap-tile table) bit for bit, and its plain
+    version within the storage's tolerance, with and without a seed, on an
+    untiled rim (two halves) and a tiled one (the convolver's)."""
+    ring, scales, x, scl, rim, dcfix, seed = _mac_inputs(rng, storage, p, wc, c, b, 1, cuda)
+    tiles = torch.ones((p, -(-b // 8)), dtype=torch.uint8, device=cuda)
+    dense = int(c > 4)
+    for rim_ in (rim, torch.cat([rim[:p], rim[:p]])):
+        for sd in (None, seed):
+            before = (fs.stream_mac.dense_launches, fs.stream_mac.launches)
+            got = fs.stream_mac(ring, scales, x, scl, rim_, dcfix, pos, sd)
+            assert (fs.stream_mac.dense_launches, fs.stream_mac.launches) == (before[0] + dense, before[1] + 1)
+            kept = fs.stream_mac(ring, scales, x, scl, rim_, dcfix, pos, sd, tiles=tiles)
+            assert fs.stream_mac.dense_launches == before[0] + dense
+            want = fs.stream_mac_reference(ring, scales, x, scl, rim_, dcfix, pos, sd)
+            torch.cuda.synchronize()
+            assert torch.equal(got, kept), (sd is None, rim_ is rim)
+            assert _rel(got, want) < _TOL[storage], (sd is None, rim_ is rim)
+
+
 def _room_filter(c, cf, storage, dev, band=False):
     """The masked benchmark cell's filter at P = 960, B = 512: params of the
     octave-room spectra under its perceptual mask (or, ``band``, under the

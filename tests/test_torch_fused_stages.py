@@ -392,6 +392,40 @@ def test_stream_mac_geometry_covers_each_term_once(storage, shared, p, c, b, wc)
 
 
 @pytest.mark.parametrize("storage", _STORAGES)
+@pytest.mark.parametrize("p,c,b,wc", [(*_HEADLINE, 64), (64, 64, 512, 64), (960, 1, 1024, 64),
+                                      (960, 65, 1024, 64), (64, 65, 1024, 17), (5, 3, 48, 130), (1, 3, 40, 7)])
+def test_stream_mac_dense_geometry_covers_each_term_once(storage, p, c, b, wc):
+    """The dense route's geometry (stream_mac_dense_kernel): each (block,
+    channel, lane) is one thread's, once (a thread: 8 blocks x lanes 2 (t %
+    4) + v x channels t // 4 % 8 + 8 h); the shared bytes are the kernel's
+    layout and fit a CTA (227 KB); the tap ring holds a step's taps and
+    those copied ahead."""
+    geo = tfs.stream_mac_dense_geometry(p, c, b, wc, _DT[storage])
+    isz, msz = _DT[storage].itemsize, tfs.MATRIX_DTYPES[_DT[storage]].itemsize
+    stage = 16 * 2 * 16 * 8 * isz + (16 * 16 * 4 if storage in ("int16", "int8") else 0)
+    assert geo["smem"] == 4 * 160 * 8 * msz + 4 * stage <= 227 * 1024
+    assert (geo["threads"], geo["lanes"], geo["channels"], geo["blocks"], geo["stages"]) == (256, 8, 16, 64, 4)
+    assert geo["slots"] - 32 >= geo["blocks"] + geo["rows"] - 1 + (geo["stages"] - 1) * geo["rows"]
+    gx, gy, gz = geo["grid"]
+    x, y, z, t, v, h = np.ix_(np.arange(gx), np.arange(gy), np.arange(gz), np.arange(geo["threads"]),
+                              np.arange(geo["lanes_a_thread"]), np.arange(geo["channels_a_thread"]))
+    lane = x * geo["lanes"] + 2 * (t % 4) + v
+    chan = y * geo["channels"] + (t // 4) % 8 + 8 * h
+    first = z * geo["blocks"] + (t // 32) * geo["blocks_a_thread"]
+    count = np.zeros((wc, c, b), np.int64)
+    for j in range(geo["blocks_a_thread"]):
+        blk, ch, ln = np.broadcast_arrays(first + j, chan, lane)
+        keep = (blk < wc) & (ch < c) & (ln < b)
+        np.add.at(count, (blk[keep], ch[keep], ln[keep]), 1)
+    assert (count == 1).all()
+
+
+def test_stream_mac_dense_geometry_rejects_unknown_storages():
+    with pytest.raises(ValueError, match="storage"):
+        tfs.stream_mac_dense_geometry(4, 2, 8, 1, torch.float64)
+
+
+@pytest.mark.parametrize("storage", _STORAGES)
 @pytest.mark.parametrize("cf", [1, C])
 @pytest.mark.parametrize("sched", [False, True])
 def test_step_mac_and_reduce_match_direct_sum(rng, monkeypatch, storage, cf, sched):

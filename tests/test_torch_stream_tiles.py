@@ -256,4 +256,37 @@ def test_snapshot_carries_the_step_counters():
 
     counters = trace.snapshot()["counters"]
     assert counters == kernels.counters()
-    assert set(counters) == {"stream_mac.steps_run", "stream_mac.steps_dense"}
+    assert set(counters) == {"stream_mac.steps_run", "stream_mac.steps_dense", "stream_mac.dense_launches"}
+
+
+def test_reset_clears_the_dense_launches():
+    from neojax_torch import kernels
+
+    tfs.stream_mac.dense_launches = 7
+    assert kernels.counters()["stream_mac.dense_launches"] == 7
+    kernels.reset_launch_counts()
+    assert kernels.counters() == {"stream_mac.steps_run": 0, "stream_mac.steps_dense": 0,
+                                  "stream_mac.dense_launches": 0}
+
+
+_TILES = np.ones((4, 1), np.uint8)
+
+
+@pytest.mark.parametrize("cf,c,widths,tiles,route", [
+    (1, 64, None, None, "dense"),
+    (1, 5, None, None, "dense"),
+    (1, 4, None, None, "cta"),
+    (1, 1, None, None, "cta"),
+    (3, 3, None, None, "cta"),
+    (64, 64, None, None, "cta"),
+    (1, 64, (np.zeros((4, 1), np.int32), 4), None, "cta"),
+    (1, 64, None, _TILES, "cta"),
+    (64, 64, None, _TILES, "cta"),
+    (64, 64, (np.zeros((4, 1), np.int32), 4), None, "cta"),
+])
+def test_stream_mac_route_is_the_dense_kernel_only_for_a_plain_shared_filter(cf, c, widths, tiles, route):
+    """A shared filter over more than 4 channels with neither a width table
+    nor a tap-tile table takes stream_mac_dense_kernel; per-channel
+    filters, the schedule's widths, the tiles and 4 channels or fewer keep
+    stream_mac_kernel's body."""
+    assert tfs.stream_mac_route(cf, c, widths, tiles) == route
