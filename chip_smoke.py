@@ -40,11 +40,12 @@ Phases, each printing one JSON object per line:
  3c. the sparse kernels at the headline shapes, all four storages and both
      masks: B4 on the packed K = 512 ring (shared and per-channel filter,
      three positions) and on a non-packed K = 513 ring (split, int16), B2
-     with the chunk schedule at three positions and B3 with it over 64
-     blocks from P-5, each against its plain version and against the dense
-     kernel on the same masked filter (B4 against B1: max abs difference
-     0.0 required; B4 reads the schedule's ``tile_live`` table as the
-     convolver passes it)
+     with the chunk schedule at three positions and B3 with the tap-tile
+     table over 64 blocks from P-5, each against its plain version (B3's:
+     the block oracle with the chunk schedule) and against the dense kernel
+     on the same masked filter (B4 against B1 and B3 against dense B3: max
+     abs difference 0.0 required; B4 reads the ``tile_live`` table and B3
+     the ``tap_tiles`` table as the convolver passes them)
   4. the main path, UPOLS ``Convolver.process`` per storage, SNR against an
      f64 FFT-convolution oracle in steady state (blocks 1152-1167, 4
      channels), gated on the storage's class (split 90, int16 74, bf16 40
@@ -94,11 +95,12 @@ Phases, each printing one JSON object per line:
      CLI's real-time factor, launch counts, SNR of the output WAV against
      an f64 oracle, gated on the storage's class). In the first call each
      kernel wrapper the engines reach keeps a copy of the operands of its
-     last call of each kind (B2/B3 with and without the chunk schedule or
-     ``acc_add``); after it, the kernel and its plain version run on
-     copies of those operands (``cli_kernel_vs_plain``: B1 at block 4096
-     and on the hybrid's 16-channel head, B2, B3 and B3 ``sched`` at 16
-     channels, B5 on the nested and hybrid-tail rings), gated as phase 3
+     last call of each kind (B2 with and without the chunk schedule, B3
+     with and without the tap-tile table or ``acc_add``); after it, the
+     kernel and its plain version run on copies of those operands
+     (``cli_kernel_vs_plain``: B1 at block 4096 and on the hybrid's
+     16-channel head, B2, B3 and B3 with the table at 16 channels, B5 on
+     the nested and hybrid-tail rings), gated as phase 3
   7g. ``examples/realtime_stream_torch.run``: ``HybridStream`` callbacks
      against the 10 667 µs deadline and ``io.StreamExecutor`` with odd
      pushes (2 channels, 10 s IR, block 512, S = 64, split), both within
@@ -170,7 +172,7 @@ Phases, each printing one JSON object per line:
      plain version; then the measurement path (the tools' own row
      functions, ``neojax_torch.tools.roofline_cal`` / ``fused_probe``, at
      64 and 256 iterations or blocks: T1, B1, T2, dense B3, B3 with an
-     all-zero chunk schedule, B3 at P = 32) in its own launch window; a
+     all-zero tap-tile table, B3 at P = 32) in its own launch window; a
      ``torch.profiler`` trace of one ``process`` call (``bench.profile``);
      and for every kernel its bytes and operations
      (``bench.headline``), its bound on the card (the larger of bytes over
@@ -191,8 +193,8 @@ the nested and the hybrid halves of 6, 7, 7c, 7d, 7e, each reported CLI
 call of 7f (summed into one window), 7g, 7h, each path of 7i (summed over
 its ranks), each tool of 7j (summed into one window) and 7b's measurement
 path) and read right after it; each kernel of that path must have launched in its
-window (B2 and B3 with the chunk schedule counted apart, and each of their
-stage kernels by its own count).
+window (B2 with the chunk schedule and B3 with the tap-tile table counted
+apart, and each of their stage kernels by its own count).
 """
 
 from __future__ import annotations
@@ -684,7 +686,8 @@ def masked_upols_oracle(x64: np.ndarray, h: np.ndarray, block: int, start: int, 
 
 
 # the kernel wrappers the CLI's engines call, by the module that binds each
-# name; B2/B3 apart by the chunk schedule and the seed they were given
+# name; B2/B3 apart by the chunk schedule, the tap-tile table and the seed
+# they were given
 CLI_KERNEL_SITES = (("convolver", ("fdl_mac", "sparse_fdl_mac", "fused_block_step", "fused_stream")),
                     ("hybrid", ("fdl_mac", "fused_stream")),
                     ("nested", ("nested_mac",)))
@@ -702,7 +705,7 @@ def _clone(v):
 def last_kernel_calls(calls: dict):
     """Within the block, each wrapper of ``CLI_KERNEL_SITES`` keeps a copy
     of the operands of its last call of each kind, before the kernel writes
-    its ring: ``calls["fused_stream/sched"] = (wrapper, arguments, calls
+    its ring: ``calls["fused_stream/tiles"] = (wrapper, arguments, calls
     seen)``."""
     import importlib
     import inspect
@@ -712,7 +715,7 @@ def last_kernel_calls(calls: dict):
 
         def call(*args, **kwargs):
             named = sig.bind(*args, **kwargs).arguments
-            kind = "/".join([fn.__name__] + [k for k in ("sched", "acc_add") if named.get(k) is not None])
+            kind = "/".join([fn.__name__] + [k for k in ("sched", "tiles", "acc_add") if named.get(k) is not None])
             if fn.__name__ == "nested_mac" and named.get("scales") is not None:  # B5 by its group count
                 kind += f"/G{named['scales'].shape[-1]}"
             seen = calls[kind][2] if kind in calls else 0
@@ -802,12 +805,14 @@ def kernel_vs_plain_on(fn, named: dict) -> dict:
 def unheld_kernels(counts: dict, held) -> list:
     """The launch counters of ``counts`` that went up for a wrapper of
     ``CLI_KERNEL_SITES`` with no call of that kind in ``held`` (kinds as
-    ``last_kernel_calls`` names them) held against its plain version."""
+    ``last_kernel_calls`` names them; a ``_sched`` count is B2's chunk
+    schedule or B3's tap-tile table) held against its plain version."""
     missing = []
     for name, v in counts.items():
         wrapper = name.removesuffix("_sched")
         if v and any(wrapper in names for _, names in CLI_KERNEL_SITES):
-            if not any(k.split("/")[0] == wrapper and (name == wrapper or "sched" in k) for k in held):
+            if not any(k.split("/")[0] == wrapper and (name == wrapper or "sched" in k or "tiles" in k)
+                       for k in held):
                 missing.append(name)
     return missing
 
@@ -1159,9 +1164,9 @@ TOOLS = ("int8_sweep", "bench_sparse_sweep", "bench_perceptual", "bench_quality_
 # the kernel calls each tool's smoke must make and hold against their
 # plain versions (kinds as ``last_kernel_calls`` names them)
 TOOL_HELD = {"int8_sweep": ("nested_mac/G64", "nested_mac/G16"),
-             "bench_sparse_sweep": ("fused_stream", "fused_stream/sched"),
-             "bench_perceptual": ("fused_stream", "fused_stream/sched"),
-             "bench_quality_sweep": ("fused_stream", "fused_stream/sched"), "bench_grid": ("fdl_mac",),
+             "bench_sparse_sweep": ("fused_stream", "fused_stream/tiles"),
+             "bench_perceptual": ("fused_stream", "fused_stream/tiles"),
+             "bench_quality_sweep": ("fused_stream", "fused_stream/tiles"), "bench_grid": ("fdl_mac",),
              "bench_timesharded": ("fused_stream",)}
 GRID_RING = [2, 32, CHANNELS, 4096]  # the grid's largest ring: L = 2^17 at block 4096, packed
 
@@ -1172,7 +1177,7 @@ def run_tools(dev, card, cuda_ms, device_ms, bound_of) -> dict:
     read after; each kernel call it made kept (``last_kernel_calls``) and,
     after the counts are read, held against its plain version
     (``hold_kept``): B5 at G = 64 and G = 16, B3 dense and with the
-    schedule of a band and of a perceptual mask, B1 on the grid's
+    tap-tile table of a band and of a perceptual mask, B1 on the grid's
     GRID_RING. Every kernel a tool launched must have been held. Then B1
     at GRID_RING timed (device ms twice, plain, the complex ``einsum``;
     the card's clocks before and after) for the ``bounds`` line. Returns {"tools", "launches", "grid_b1", "wall_s"}."""
@@ -2552,14 +2557,16 @@ def main(dist_only: bool = False) -> int:
                  **card)
             del rings, scl
 
-            # B3 with the chunk schedule over 64 blocks from P-5 (wraps)
+            # B3 with the tap-tile table over 64 blocks from P-5 (wraps),
+            # against the block oracle with the chunk schedule
             nb, pos0 = 64, P - 5
+            tiles = prm["tap_tiles"]
             cs2, abt = mb.packed_stream_mats(n, mdt, dev)
             sigpad = torch.from_numpy(rng.uniform(-1, 1, (c, (nb + 1) * b)).astype(np.float32)).to(dev)
             dcfix_all = torch.from_numpy(rng.standard_normal((nb, 2, c)).astype(np.float32)).to(dev)
             rings = [ring.clone() for _ in range(3)]
             scl = [None if scales is None else scales.clone() for _ in range(3)]
-            ko = fs_mod.fused_stream(sigpad, rings[0], rim, pos0, dcfix_all, cs2, abt, scl[0], sched)[0]
+            ko = fs_mod.fused_stream(sigpad, rings[0], rim, pos0, dcfix_all, cs2, abt, scl[0], tiles)[0]
             po = fs_mod.fused_stream_reference(sigpad, rings[1], rim, pos0, dcfix_all, cs2, abt, scl[1], sched)[0]
             do = fs_mod.fused_stream(sigpad, rings[2], rim, pos0, dcfix_all, cs2, abt, scl[2])[0]
             torch.cuda.synchronize()
@@ -2569,20 +2576,19 @@ def main(dist_only: bool = False) -> int:
                        exact_ring(fs_mod.fused_stream_reference, sigpad, ring, rim, pos0, dcfix_all, cs2, abt,
                                   scales, sched=sched))
             assert torch.equal(rings[0], rings[2]), f"fused_stream sched {key}: ring differs from dense"
+            assert torch.equal(ko, do), f"fused_stream sched {key}: the table route differs from dense B3"
             k_ring, k_scl = rings[0], scl[0]
             s_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl,
-                                                       sched), 3)
+                                                       tiles), 3)
             d_ms = cuda_ms(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt, k_scl), 3)
             # the schedule's width table against its plain version
             pcf = fs_mod.fused_chunk_rows(sdt, P, c, b)
             tab = fs_mod.sched_widths(sched, b, pcf)
             assert torch.equal(tab, fs_mod.sched_widths_reference(sched, b, pcf)), f"sched_widths {key}"
             b3s_stages = stage_us(lambda: fs_mod.fused_stream(sigpad, k_ring, rim, pos0, dcfix_all, cs2, abt,
-                                                              k_scl, sched), b3_need + ("sched_widths",))
-            widths_ms = (b3s_stages["sched_widths"] / 1e3 if "sched_widths" in b3s_stages  # else timed alone
-                         else device_ms(lambda: fs_mod.sched_widths(sched, b, pcf), 20))
-            stages["sched_widths"][key] = {
-                "max_abs_err": 0.0, "rel_err": 0.0, "ms": widths_ms,
+                                                              k_scl, tiles), b3_need)
+            stages["sched_widths"][key] = {  # B2's stage, timed alone (B3 with the table launches none)
+                "max_abs_err": 0.0, "rel_err": 0.0, "ms": device_ms(lambda: fs_mod.sched_widths(sched, b, pcf), 20),
                 "plain_ms": cuda_ms(lambda: fs_mod.sched_widths_reference(sched, b, pcf), 1),
                 "table": list(tab.shape)}
             sp_sum["fused_stream_sched"][key] = {
@@ -2592,9 +2598,9 @@ def main(dist_only: bool = False) -> int:
                 "dense_us_per_block": 1e3 * d_ms / nb,
                 "plain_ms": cuda_ms(lambda: fs_mod.fused_stream_reference(sigpad, k_ring, rim, pos0, dcfix_all,
                                                                           cs2, abt, k_scl, sched), 1)}
-            emit(phase="kernel_vs_plain", kernel="fused_stream", sched=True, storage=storage, mask=mname,
+            emit(phase="kernel_vs_plain", kernel="fused_stream", tiles=True, storage=storage, mask=mname,
                  tol=TOL[storage], pos0=pos0, **sp_sum["fused_stream_sched"][key], **card)
-            del ring, scales, rings, scl, prm, k_ring
+            del ring, scales, rings, scl, prm, k_ring, tiles
             torch.cuda.empty_cache()
 
     # ---- 4. the main path: UPOLS process per storage
@@ -2737,7 +2743,7 @@ def main(dist_only: bool = False) -> int:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             assert tuple(out.shape) == (CHANNELS, t_len) and bool(torch.isfinite(out).all())
-            assert fs_mod.fused_stream.sched_launches > before, "sparse process did not run fused_stream + sched"
+            assert fs_mod.fused_stream.sched_launches > before, "sparse process did not run fused_stream + tiles"
             assert cvl.config.channels == CHANNELS and "sp_c_idx" in cvl.params
             snr = snr_db(window(out.cpu().numpy(), SNR_START), oracle_m)
             sparse_snrs[mname][storage] = snr
@@ -2965,7 +2971,7 @@ def main(dist_only: bool = False) -> int:
     for key, row in meas.items():
         emit(phase="measurement", row=key, lengths=list(short), **row, **card)
     read_window("measurement", ("probe_ring_read", "probe_stream", "fdl_mac", "fused_stream",
-                                "fused_stream_sched", *b3_stage_names, "sched_widths"))
+                                "fused_stream_sched", *b3_stage_names))
 
     # a torch.profiler trace of one process call (bench.profile.trace)
     v = conv.Convolver(storage="split", device=dev)

@@ -269,19 +269,14 @@ def filter_params(config: PartitionedConfig, partitions, sparsity: Any = None,
 def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -> dict:
     """The sparse schedules of a [P, C', K] keep-mask, with neojax's keys
     and geometry (``neojax/conv/convolver.py:233-270``), so the tables
-    equal neojax's:
+    equal neojax's, and the port's own tables (:func:`port_tables`):
 
     - ring configs of a split-plane storage: B4's (k-tile, p-chunk) tables
       ``sp_k_idx``/``sp_p_idx``/``sp_flags`` int32 [P, L] and the lane mask
       ``sp_lane`` bool [K] (K = B packed, B + 1 otherwise), at
-      ``choose_chunks``' geometry, and the tile-live table the B4 kernel
-      reads, ``tile_live`` uint8 [P, P / pc, NK] (:func:`_tile_live`; not
-      a neojax key);
-    - packed configs also: the fused kernels' chunk tables ``sp_c_idx``
-      (chunk | width code << 16) and ``sp_c_flags``, at
-      ``fused_chunk_rows``' geometry, and B3's tap-tile table ``tap_tiles``
-      uint8 [P, B / 8] (``kernels.fused_step.tap_tile_table``; not a
-      neojax key), the same at every ring position.
+      ``choose_chunks``' geometry;
+    - packed configs also: B2's chunk tables ``sp_c_idx`` (chunk | width
+      code << 16) and ``sp_c_flags``, at ``fused_chunk_rows``' geometry.
 
     The geometry depends on the channel count, so a Convolver rebuilds
     these when it binds a mono filter to more channels.
@@ -302,7 +297,6 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
         "sp_flags": put(sched["flags"], torch.int32),
         "sp_lane": put(sched["lane_mask"], torch.bool),
     }
-    out["tile_live"] = _tile_live(config, out)
     if config.use_packed:
         pcf = fused_chunk_rows(sdt, p, config.channels, config.block_size)
         csched = build_chunk_schedule(mask, pcf, lanes=config.block_size)
@@ -310,7 +304,31 @@ def _schedule_params(config: PartitionedConfig, mask: np.ndarray, device=None) -
         assert int(np.max(csched["c_idx"] >> 16)) < len(lane_widths(config.block_size))
         out["sp_c_idx"] = put(csched["c_idx"], torch.int32)
         out["sp_c_flags"] = put(csched["flags"], torch.int32)
-        out["tap_tiles"] = put(tap_tile_table(mask, config.block_size), torch.uint8)
+    out.update(port_tables(config, out, mask))
+    return out
+
+
+# the keys of :func:`port_tables`
+PORT_TABLES = ("tile_live", "tap_tiles")
+
+
+def port_tables(config: PartitionedConfig, tables: dict, mask: np.ndarray) -> dict:
+    """A masked filter's tables that only this package keeps (not neojax
+    keys), on the device of its ``sp_*`` schedule ``tables`` (``{}``
+    without them): B4's ``tile_live`` uint8 [P, P / pc, NK] of ``sp_k_idx``
+    / ``sp_p_idx`` / ``sp_flags``, and, beside B2's chunk tables, B3's
+    ``tap_tiles`` uint8 [P, B / 8] of the [P, C', K] or [P, K] keep-mask
+    ``mask`` (``kernels.fused_step.tap_tile_table``). Every entry point
+    that builds or carries params takes them from here."""
+    if "sp_k_idx" not in tables:
+        return {}
+    k_idx = tables["sp_k_idx"]
+    p = k_idx.shape[0]
+    k, k_tile, pc = _tile_geometry(config, p)
+    out = {"tile_live": tile_live_table(k_idx, tables["sp_p_idx"], tables["sp_flags"], p // pc, -(-k // k_tile))}
+    if "sp_c_idx" in tables:
+        tiles = tap_tile_table(mask, config.block_size)
+        out["tap_tiles"] = torch.from_numpy(tiles.astype(np.uint8)).to(k_idx.device)
     return out
 
 
@@ -320,15 +338,6 @@ def _tile_geometry(config: PartitionedConfig, p: int) -> tuple[int, int, int]:
     k = config.block_size if config.use_packed else config.num_bins
     k_tile, pc = choose_chunks(fdl_lib.STORAGE_DTYPES[config.storage], p, config.channels, k)
     return k, k_tile, pc
-
-
-def _tile_live(config: PartitionedConfig, params: dict) -> torch.Tensor:
-    """B4's tile-live table uint8 [P, P / pc, NK] of the ``sp_k_idx`` /
-    ``sp_p_idx`` / ``sp_flags`` tables in ``params``, on their device."""
-    p = params["sp_k_idx"].shape[0]
-    k, k_tile, pc = _tile_geometry(config, p)
-    return tile_live_table(params["sp_k_idx"], params["sp_p_idx"], params["sp_flags"], p // pc,
-                           -(-k // k_tile))
 
 
 def init_state(config: PartitionedConfig, device=None) -> dict:
@@ -444,9 +453,9 @@ def warm_ring(config: PartitionedConfig, state: dict, blocks: torch.Tensor) -> d
     kernels (UPOLS: the hop-B frames ``[block j-1 | block j]`` and B3's
     matrix; UPOLA: the zero-padded blocks 0..P-2 and B2's matrix, taken as
     the even frames of a zero-interleaved signal), with ``dcny`` from the
-    same float64 frame sums as ``_dcfix_sequence`` / ``_fused_step``. So
-    the ring holds the rows the stream itself would have written. The
-    UPOLS tail and the UPOLA overlap are the caller's."""
+    same float64 frame sums (:func:`_frame_sums`) as ``_dcfix_sequence`` /
+    ``_fused_step``. So the ring holds the rows the stream itself would
+    have written. The UPOLS tail and the UPOLA overlap are the caller's."""
     p, b, n = config.num_partitions, config.block_size, config.transform_size
     c = blocks.shape[1]
     planes, scales = state["fdl"] if isinstance(state["fdl"], tuple) else (state["fdl"], None)
@@ -455,16 +464,14 @@ def warm_ring(config: PartitionedConfig, state: dict, blocks: torch.Tensor) -> d
         x = blocks.permute(1, 0, 2).reshape(c, p * b)  # frame j = [block j-1 | block j]
         cs, _ = matmul_backend.packed_stream_mats(n, mdt, blocks.device)
         frames, hop = p - 1, 1
-        f64 = blocks.double()
-        bs, na = f64.sum(-1), (f64 * _alternating(b, blocks.device)).sum(-1)
+        bs, na = _frame_sums(blocks)
         pairs = torch.stack([bs[:-1] + bs[1:], na[:-1] + na[1:]], dim=-1)
     else:
         padded = F.pad(blocks[:-1], (0, b))  # [P-1, C, N]
         x = padded.permute(1, 0, 2).reshape(c, 2 * (p - 1) * b)  # the even frames are the blocks
         cs, _ = matmul_backend.packed_mats(n, mdt, blocks.device)
         frames, hop = 2 * (p - 1) - 1, 2
-        f64 = padded.double()
-        pairs = torch.stack([f64.sum(-1), (f64 * _alternating(n, blocks.device)).sum(-1)], dim=-1)
+        pairs = torch.stack(_frame_sums(padded), dim=-1)
     for i0 in range(0, frames, WINDOW):
         wc = min(WINDOW, frames - i0)
         spec = window_forward(x, cs, i0, wc)[(-i0) % hop :: hop].contiguous()
@@ -476,10 +483,16 @@ def warm_ring(config: PartitionedConfig, state: dict, blocks: torch.Tensor) -> d
     return state
 
 
-def _alternating(n: int, device) -> torch.Tensor:
-    alt = torch.ones(n, dtype=torch.float64, device=device)
+def _frame_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum, alternating-sign sum) of ``x`` over its last axis, in float64:
+    a frame's DC and Nyquist bins (the packed forward matrix's lane-0
+    columns are all-ones / alternating sign). Each caller adds them in its
+    own order (block sums pairwise for UPOLS frames, whole frames for UPOLA
+    and B2), the order ``dcny`` and ``dcfix`` are held to."""
+    f64 = x.to(torch.float64)
+    alt = torch.ones(x.shape[-1], dtype=torch.float64, device=x.device)
     alt[1::2] = -1.0
-    return alt
+    return f64.sum(-1), (f64 * alt).sum(-1)
 
 
 def _fused_step(config: PartitionedConfig, params: dict, state: dict, frame: torch.Tensor):
@@ -497,8 +510,7 @@ def _fused_step(config: PartitionedConfig, params: dict, state: dict, frame: tor
     pos = state["pos"]
 
     with trace.span("conv.dcny"):
-        f64 = frame.to(torch.float64)
-        pair = torch.stack([f64.sum(-1), (f64 * _alternating(n, frame.device)).sum(-1)], dim=-1)
+        pair = torch.stack(_frame_sums(frame), dim=-1)
         dcny = state["dcny"]
         dcny[pos] = pair.to(torch.float32)
         filt_dcny = fdl_lib.rotated_filter(params["filt_dcny"], pos, p)
@@ -614,9 +626,7 @@ def _dcfix_sequence(config: PartitionedConfig, params: dict, dcny: torch.Tensor,
         nb = sigpad.shape[1] // b - 1
         dev = sigpad.device
 
-        blocks = sigpad.reshape(c, nb + 1, b).to(torch.float64)
-        bs = blocks.sum(-1)  # [C, nb+1]
-        na = (blocks * _alternating(b, dev)).sum(-1)
+        bs, na = _frame_sums(sigpad.reshape(c, nb + 1, b))  # [C, nb+1]
         dc = bs[:, :-1] + bs[:, 1:]  # frame i = [block i | block i+1]
         ny = na[:, :-1] + na[:, 1:]
         pairs = torch.stack([dc.T, ny.T], dim=-1).to(torch.float32)  # [nb, C, 2]
@@ -640,9 +650,7 @@ def _dcfix_sequence(config: PartitionedConfig, params: dict, dcny: torch.Tensor,
 def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
                           signal: torch.Tensor):
     """Whole-stream fused path: ONE launch of B3 for the entire UPOLS scan
-    (with a sparse filter's chunk tables, whole: B3 reads row
-    ``(pos0 + i) % P`` for block i; and its tap-tile table, which B3's MAC
-    takes in their place)."""
+    (with a sparse filter's tap-tile table)."""
     b = config.block_size
     p = config.num_partitions
     n = config.transform_size
@@ -659,7 +667,7 @@ def _process_fused_stream(config: PartitionedConfig, params: dict, state: dict,
     cs, abt = matmul_backend.packed_stream_mats(n, MATRIX_DTYPES[planes.dtype], signal.device)
     res = fused_stream(
         sigpad, planes, params["filt_rim"], pos0, dcfix_all, cs, abt,
-        None if scales is None else scales[..., 0], _chunk_sched(params), tiles=params.get("tap_tiles"),
+        None if scales is None else scales[..., 0], tiles=params.get("tap_tiles"),
     )
 
     new_state = dict(state)

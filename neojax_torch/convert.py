@@ -13,8 +13,9 @@ dtype/device move plus two layout differences:
 
 A sparse filter's ``mask`` and ``sp_*`` schedule tables carry over as they
 are (int32 tables, bool ``mask`` and ``sp_lane``): the port builds the same
-tables and its kernels read them. The tile-live table of the B4 kernel
-(``tile_live``, not a neojax key) is derived from the carried tables.
+tables and its kernels read them. The port's own tables (B4's ``tile_live``,
+B3's ``tap_tiles``; not neojax keys) are built from the carried tables and
+mask by ``conv.convolver.port_tables``, as ``filter_params`` builds them.
 
 Like the other entry points, each ``*_from_neojax`` puts its tensors on the
 card unless given ``device`` (``"cpu"`` for the kernels' plain versions),
@@ -44,7 +45,7 @@ from neojax_torch.conv import chunked as chunked_lib
 from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv import hybrid as hybrid_lib
 from neojax_torch.conv import nested as nested_lib
-from neojax_torch.conv.convolver import PartitionedConfig, _tile_live
+from neojax_torch.conv.convolver import PartitionedConfig, _host, port_tables
 from neojax_torch.core.device import resolve_device
 
 __all__ = [
@@ -92,8 +93,8 @@ def params_from_neojax(config: PartitionedConfig, params_np: dict, device=None) 
             params["filt_rim"] = _tensor(rim, device)
         else:
             params[key] = _tensor(value, device)
-    if "sp_k_idx" in params:
-        params["tile_live"] = _tile_live(config, params)
+    if "mask" in params:
+        params.update(port_tables(config, params, _host(params["mask"])))
     return params
 
 

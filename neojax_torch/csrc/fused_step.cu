@@ -35,8 +35,8 @@
 //      filter values slide along the Toeplitz diagonal in registers.
 //      History rows inside the window come from X_new, older ones from the
 //      ring (not yet overwritten: step 4 comes after). A filter shared by
-//      more than 4 channels, with no schedule, takes stream_mac_dense.cu's
-//      kernel instead (the same sums, its own body).
+//      more than 4 channels, with no tap-tile table, takes
+//      stream_mac_dense.cu's kernel instead (the same sums, its own body).
 //   4. writeback_kernel: X_new and its scales into the ring slots, in their
 //      own launch after the MAC (the last write wins when W > P)
 //   5. transform.cu: the inverse FFTs, straight into the output
@@ -49,15 +49,14 @@
 // rounds. Both live in step_mac.cuh, shared with the unfused MAC (B1, B4 in
 // fdl_mac.cu), which takes its filter as planes with strides.
 //
-// Sparse filters: widths_kernel turns the chunk schedule (the full [P, L]
-// tables) into a [P, P / pc] table of live lane widths (0: not flagged).
-// Block i honours row (pos0 + i) % P: slot p contributes on lanes k <
-// width[row, p / pc]. The MACs skip what is dead for every term of a tile
-// (B3: a step of history rows on a CTA's lanes; B2: a chunk of slots) and
-// mask the terms of mixed tiles, in the dense kernel's summation order, so
-// the scheduled kernels equal the dense ones on a masked filter. B3 also
-// takes a finer table of its own, live by (tap, lane tile of kLanes) and
-// the same at every ring position: stream_mac_tiles_kernel below.
+// Sparse filters: B2 takes the chunk schedule, which widths_kernel turns
+// (the full [P, L] tables) into a [P, P / pc] table of live lane widths (0:
+// not flagged); the block at ring position pos honours row pos: slot p
+// contributes on lanes k < width[pos, p / pc]. step_mac skips the chunks
+// dead on all its lanes and masks the rest, in the dense kernel's
+// summation order. B3 takes a table by (tap, lane tile of kLanes), the same
+// at every ring position: stream_mac_tiles_kernel below. Either way the
+// scheduled kernels equal the dense ones on a masked filter.
 #include "step_mac.cuh"
 
 namespace {
@@ -175,27 +174,25 @@ __global__ void __launch_bounds__(kRowThreads) widths_kernel(const int* __restri
 // 2 NC + 2 shared reads for 4 kMB NC FFMAs (2 NC + 4 where the warp's
 // blocks straddle a wrap of the ring, whose two sides meet two halves).
 // Values are widened to f32 (int rows times their scale) as they leave
-// shared memory. The first and last steps of a warp, and the steps of a
-// schedule that are live on some but not all of the CTA's terms, mask
-// each (block, row) term by one bit (its tap in [0, P), its lane live);
-// a step in which a block's filter half changes, a warp with fewer than
-// kMB blocks and P < kMB take the general loop, which checks each (block,
-// row). With a schedule a step whose terms are dead on every lane of the
-// CTA copies no history and runs nothing. The unrolled rows are
+// shared memory. The first and last steps of a warp mask each (block, row)
+// term by one bit (its tap in [0, P)); a step in which a block's filter
+// half changes, a warp with fewer than kMB blocks and P < kMB take the
+// general loop, which checks each (block, row). The unrolled rows are
 // kept to groups of 4 (a whole step is ~2300 instructions, and warps in
 // different variants of it at once thrash the instruction cache).
 // Occupancy: at most 128 registers a thread (launch bounds), two CTAs of
-// 8 warps an SM at the headline (74 KB of shared memory each): 256 CTAs,
-// one wave on 132 SMs. Per-channel filters (Cf = C) keep each channel's
-// taps, so their tile is NC = 1 (Ct = 4).
+// 8 warps an SM. stream_mac_kernel runs NC = 1 (Ct = 4): per-channel
+// filters (Cf = C) keep each channel's taps, and a filter shared by more
+// than 4 channels takes stream_mac_dense.cu's kernel. The tiles kernel
+// below also runs NC = 4 with a shared filter.
 //
 // Summation order: each (block, channel, lane) sum is one f32 accumulator,
 // seeded, that takes its taps by ascending history row (oldest first: the
 // small terms of the decaying filter before the large) through cmac,
-// skipping the taps outside [0, P) and a schedule's dead terms (exact zeros
-// of the dense sum). No split over taps, no atomics: a block's bits do not
-// depend on its place in the window, on wc, on the steps' alignment, on
-// the channel count, the channel or lane tile or on the grid.
+// skipping the taps outside [0, P). No split over taps, no atomics: a
+// block's bits do not depend on its place in the window, on wc, on the
+// steps' alignment, on the channel count, the channel or lane tile or on
+// the grid.
 constexpr int kLanes = 8;                        // lanes a CTA
 constexpr int kMB = 8;                           // consecutive blocks a thread (and a warp)
 constexpr int kBlocks = 64;                      // blocks a CTA: a warp each kMB
@@ -215,9 +212,8 @@ struct MacArgs {
   const M* rim;         // [2P, Cf, 2B]
   const float* seed;    // [wc, 2, C, B] or null
   const float* dcfix;   // [wc, 2, C]
-  const int* wtab;      // [P, nchunks] or null
   float* acc;           // [wc, C, 2B]
-  int P, C, B, Cf, wc, pos_first, pc, nchunks;
+  int P, C, B, Cf, wc, pos_first;
   int vec_h, vec_f;     // cp.async piece bytes of the history and filter tiles (0: element by element)
   // stream_mac_tiles_kernel only (else null): the tap-tile table [P, nt]
   // (1: some kept bin of lane tile t at tap a), by lane tile the steps'
@@ -236,18 +232,17 @@ __device__ __align__(16) float kZeroTaps[kLanes] = {};
 
 // Shared bytes, each region a multiple of 16: the filter ring [2, 2, ctf,
 // kRing + kTail, kLanes] M, then kStages stages of history [kRows, 2, Ct,
-// kLanes] T, scales [kRows, Ct] f32 (int storages) and live widths
-// [kBlocks, kRows] int16. Mirrored by kernels/fused_step.py ::
-// stream_mac_geometry.
+// kLanes] T and scales [kRows, Ct] f32 (int storages). Mirrored by
+// kernels/fused_step.py :: stream_mac_geometry.
 struct MacLayout {
-  int filt, hist, scl, wd;
-  __host__ __device__ int stage() const { return hist + scl + wd; }
+  int filt, hist, scl;
+  __host__ __device__ int stage() const { return hist + scl; }
   __host__ __device__ int total() const { return filt + kStages * stage(); }
 };
 
 __host__ __device__ inline MacLayout mac_layout(int t_size, int m_size, int ct, int ctf, bool quant) {
   return MacLayout{4 * ctf * (kRing + kTail) * kLanes * m_size, kRows * 2 * ct * kLanes * t_size,
-                   quant ? kRows * ct * 4 : 0, kBlocks * kRows * 2};
+                   quant ? kRows * ct * 4 : 0};
 }
 
 // Copy n segments of kLanes elements E (lanes < nv of each) from src_of(s)
@@ -301,7 +296,7 @@ __device__ __forceinline__ void load_x(float (&xr)[NC], float (&xi)[NC], const T
 // registers: a row loads block 0's value (and, kSplit, block jw's, where
 // the blocks after a wrap of the ring meet the other half). kMasked: term
 // (r, j) only where bit 16 j + r of live (two blocks a word) is set: its
-// tap is in [0, P) and, with a schedule, live on the lane. The rows run
+// tap is in [0, P). The rows run
 // in groups of kGroup unrolled rows: a fully
 // unrolled step of 4 channels is ~2300 instructions, and warps running
 // different variants of it at once thrash the instruction cache.
@@ -360,13 +355,12 @@ __device__ __forceinline__ void mac_fast(float (&ar)[kMB][NC], float (&ai)[kMB][
 }
 
 // Any other step: each (block j, row r) checked for its tap a = u0 + j - d
-// in [0, P), its filter half (d < thr_j: the upper one, 2 planes further)
-// and, with a schedule, the live width wd[j * kRows + r] of the lane k.
-// f0 points at slot 0 of the lower half's re plane.
+// in [0, P) and its filter half (d < thr_j: the upper one, 2 planes
+// further). f0 points at slot 0 of the lower half's re plane.
 template <typename T, typename M, int NC>
 __device__ __forceinline__ void mac_general(float (&ar)[kMB][NC], float (&ai)[kMB][NC], const T* hs,
-                                            const float* ss, const M* f0, int fplane, const short* wd,
-                                            int k, int u0, int u_end, int d0, int P, int pos_first) {
+                                            const float* ss, const M* f0, int fplane, int u0, int u_end,
+                                            int d0, int P, int pos_first) {
   int thr[kMB];
 #pragma unroll
   for (int j = 0; j < kMB; ++j) thr[j] = u0 + j - (pos_first + u0 + j) % P;
@@ -379,7 +373,6 @@ __device__ __forceinline__ void mac_general(float (&ar)[kMB][NC], float (&ai)[kM
     for (int j = 0; j < kMB; ++j) {
       const int a = u0 + j - d;
       if (u0 + j >= u_end || a < 0 || a >= P) continue;
-      if (wd && k >= wd[j * kRows + r]) continue;
       const M* f = f0 + (d < thr[j] ? 2 * fplane : 0) + (a % kRing) * kLanes;
       const float fr = to_f32(f[0]), fi = to_f32(f[fplane]);
 #pragma unroll
@@ -435,16 +428,8 @@ __device__ __forceinline__ void stream_mac_cta(const MacArgs<T, M>& g, int tile,
       ai[j][q] = live ? g.seed[o + row] : 0.0f;
     }
 
-  unsigned live_bits = 0, full_bits = 0;  // by stage: the step has a live term / all its terms are live
-  // schedules: ring positions of the thread's width-table blocks, and the
-  // slot of its row in the next step to issue
-  constexpr int kWdPer = kBlocks * kRows / kMacThreads, kWdStride = kMacThreads / kRows;
-  int wpos[kWdPer];
-#pragma unroll
-  for (int q = 0; q < kWdPer; ++q) wpos[q] = (g.pos_first + u_base + tid / kRows + kWdStride * q) % P;
-  int wslot = ((g.pos_first + d_first + tid % kRows) % P + P) % P;
-  // step s: its first taps into the filter ring; with a schedule its live
-  // widths; then (if any term is live) its history into stage s % kStages
+  // step s: its first taps into the filter ring; kTiles: its live warps;
+  // then (if some warp runs it) its history into stage s % kStages
   auto issue = [&](int s) {
     if (s < s_hi) {
       const int buf = s % kStages;
@@ -473,34 +458,12 @@ __device__ __forceinline__ void stream_mac_cta(const MacArgs<T, M>& g, int tile,
                           [&](int sg) -> const M* { return (a0 + sg % n) % kRing < kTail ? src_of(sg) : nullptr; },
                           [&](int sg) { return slot_of(sg, 1); });
       }
-      int live = 1, full = 1;
+      bool live = true;
       if (kTiles) {  // the step's live warps, from the table; every term of theirs is run
         const unsigned w = g.tsteps[static_cast<size_t>(tile) * g.ns + s] & warps_in;
         warp_bits = (warp_bits & ~(0xFFu << 8 * buf)) | w << 8 * buf;
         live = w != 0;
-      } else if (g.wtab) {
-        // entries (block tid / kRows + kWdStride q, row tid % kRows) of the
-        // step's live widths; 0 where the tap is outside [0, P)
-        short* wd = reinterpret_cast<short*>(st + lay.hist + lay.scl);
-        const int kend = kbase + nv, d = d0 + tid % kRows, chunk = wslot / g.pc;
-        int any = 0, all = 1;
-#pragma unroll
-        for (int q = 0; q < kWdPer; ++q) {
-          const int u = u_base + tid / kRows + kWdStride * q, a = u - d;
-          int w = 0;
-          if (u < u_end && a >= 0 && a < P) {
-            w = g.wtab[static_cast<size_t>(wpos[q]) * g.nchunks + chunk];
-            any |= w > kbase;
-            all &= w >= kend;
-          }
-          wd[tid + kMacThreads * q] = static_cast<short>(w);
-        }
-        wslot = (wslot + kRows) % P;
-        live = __syncthreads_or(any);
-        full = __syncthreads_and(all);
       }
-      live_bits = (live_bits & ~(1u << buf)) | (live ? 1u << buf : 0u);
-      full_bits = (full_bits & ~(1u << buf)) | (full ? 1u << buf : 0u);
       if (live) {
         T* hs = reinterpret_cast<T*>(st);
         stage_segments<T>(
@@ -545,8 +508,8 @@ __device__ __forceinline__ void stream_mac_cta(const MacArgs<T, M>& g, int tile,
     const int buf = s % kStages;
     const int d0 = d_first + s * kRows;
     const int umax = min(u0 + kMB, u_end) - 1;  // the warp's last block
-    if (!(live_bits >> buf & 1) || umax < u0 || d0 > umax || d0 + kRows - 1 < u0 - (P - 1)) continue;
-    if (kTiles && !(warp_bits >> (8 * buf + warp) & 1)) continue;
+    if (umax < u0 || d0 > umax || d0 + kRows - 1 < u0 - (P - 1)) continue;
+    if (kTiles && !(warp_bits >> (8 * buf + warp) & 1)) continue;  // also every step that staged nothing
     const unsigned char* st = smem + lay.filt + buf * lay.stage();
     const T* hs = reinterpret_cast<const T*>(st) + cg * kLanes + l;
     const float* ss = reinterpret_cast<const float*>(st + lay.hist) + cg;
@@ -554,24 +517,16 @@ __device__ __forceinline__ void stream_mac_cta(const MacArgs<T, M>& g, int tile,
     const bool fast = u0 + kMB <= u_end && P >= kMB;
     const bool lo0 = d0 >= thr0, hi0 = d0 + kRows - 1 < thr0;
     const bool lo1 = d0 >= thr0 + P, hi1 = d0 + kRows - 1 < thr0 + P;
-    const short* wd = reinterpret_cast<const short*>(st + lay.hist + lay.scl) + warp * kMB * kRows;
     if (fast && (lo0 || hi0) && (jw == kMB || lo1 || hi1)) {
       // block j at row r meets tap c - (r - j)
       const int c = u0 - d0;
-      const bool full = full_bits >> buf & 1, all = full && c >= kRows - 1 && c <= P - kMB;
+      const bool all = c >= kRows - 1 && c <= P - kMB;
       unsigned live[kMB / 2] = {};
-      if (!all) {  // bit 16 j + r: the tap in [0, P) and, mixed schedule, live on lane k
+      if (!all) {  // bit 16 j + r: the rows r with tap c + j - r in [0, P)
 #pragma unroll
         for (int j = 0; j < kMB; ++j) {
-          unsigned m = 0;
-          if (full) {  // rows r with c + j - r in [0, P)
-            const int lo = max(0, c + j - P + 1), hi = min(kRows - 1, c + j);
-            m = hi < lo ? 0u : (2u << hi) - (1u << lo);
-          } else {  // the widths are 0 where the tap is outside [0, P)
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) m |= k < wd[j * kRows + r] ? 1u << r : 0u;
-          }
-          live[j / 2] |= m << (j % 2 * kRows);
+          const int lo = max(0, c + j - P + 1), hi = min(kRows - 1, c + j);
+          live[j / 2] |= (hi < lo ? 0u : (2u << hi) - (1u << lo)) << (j % 2 * kRows);
         }
       }
       const M* fre = f0 + (((c - (kRows - 1)) % kRing + kRing) % kRing + kRows - 1) * kLanes;
@@ -589,8 +544,7 @@ __device__ __forceinline__ void stream_mac_cta(const MacArgs<T, M>& g, int tile,
         NEO_FAST(true, true);
 #undef NEO_FAST
     } else {
-      mac_general<T, M, NC>(ar, ai, hs, ss, f0, fplane, !kTiles && g.wtab ? wd : nullptr, k, u0, u_end, d0,
-                            P, g.pos_first);
+      mac_general<T, M, NC>(ar, ai, hs, ss, f0, fplane, u0, u_end, d0, P, g.pos_first);
     }
   }
   cp_wait<0>();
@@ -615,7 +569,8 @@ __device__ __forceinline__ void stream_mac_cta(const MacArgs<T, M>& g, int tile,
   }
 }
 
-// grid (lane tiles of kLanes, channel tiles of 4 NC, block tiles of kBlocks)
+// grid (lane tiles of kLanes, channel tiles of 4 NC, block tiles of kBlocks);
+// launched at NC = 1 only
 template <typename T, typename M, int NC>
 __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M> g) {
   stream_mac_cta<T, M, NC, false>(g, blockIdx.x, blockIdx.y, blockIdx.z, 1);
@@ -623,15 +578,12 @@ __global__ void __launch_bounds__(kMacThreads, 2) stream_mac_kernel(MacArgs<T, M
 
 // ---- the scheduled MAC of a tap-tile table (B3 with a sparse filter)
 //
-// The chunk schedule bottoms out at lane widths of 128 (sparse_mac.py ::
-// lane_widths), and a perceptual mask keeps its lowest bins in every
-// partition, so every ring position keeps lanes < 128 at every tap: with
-// the widths the CTAs of those lanes walk their whole history, and with
-// one CTA a slot (256 CTAs, one wave on 132 SMs) the heaviest CTA is the
-// kernel's time. This kernel takes instead a table by (tap, lane tile of
-// kLanes), live where the filter keeps some bin of the tile at the tap. The
-// tap is the partition, whatever the ring position, so the table and what
-// it skips are the same in every window. From it the host builds, once a
+// A perceptual mask keeps its lowest bins in every partition: the CTAs of
+// those lanes walk their whole history, and with one CTA a grid slot the
+// heaviest CTA would be the kernel's time. This kernel takes a table by
+// (tap, lane tile of kLanes), live where the filter keeps some bin of the
+// tile at the tap. The tap is the partition, whatever the ring position,
+// so the table and what it skips are the same in every window. From it the host builds, once a
 // filter (kernels/fused_step.py :: stream_mac_plan): for each lane tile
 // and step of kRows history rows, the warps that meet a live tap; and a
 // list of work items, one a CTA, every (lane tile, channel tile of 4 NC,
@@ -679,13 +631,13 @@ int launch_writeback(const void* x, const void* scl, void* fdl, void* scales, in
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename M, int NC>
-int launch_stream_mac_nc(const MacArgs<T, M>& g, int smem, cudaStream_t st) {
+template <typename T, typename M>
+int launch_stream_mac_cta(const MacArgs<T, M>& g, int smem, cudaStream_t st) {
   static int smem_allowed = 48 * 1024;  // above 48 KB only once the kernel is allowed more
-  const cudaError_t e = allow_smem(stream_mac_kernel<T, M, NC>, smem, smem_allowed);
+  const cudaError_t e = allow_smem(stream_mac_kernel<T, M, 1>, smem, smem_allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((g.B + kLanes - 1) / kLanes, (g.C + 4 * NC - 1) / (4 * NC), (g.wc + kBlocks - 1) / kBlocks);
-  stream_mac_kernel<T, M, NC><<<grid, kMacThreads, smem, st>>>(g);
+  const dim3 grid((g.B + kLanes - 1) / kLanes, (g.C + 3) / 4, (g.wc + kBlocks - 1) / kBlocks);
+  stream_mac_kernel<T, M, 1><<<grid, kMacThreads, smem, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -700,7 +652,8 @@ int launch_stream_mac_tiles(const MacArgs<T, M>& g, int n_items, int smem, cudaS
 
 // nc, vec_h, vec_f and smem come from kernels/fused_step.py ::
 // stream_mac_geometry and the operands' alignment; checked here against
-// the layout and the pointers. With work items the tiles kernel runs them.
+// the layout and the pointers. With work items the tiles kernel runs them
+// (NC = 1 or 4), else stream_mac_kernel (NC = 1).
 template <typename T, typename M>
 int launch_stream_mac(const MacArgs<T, M>& g, int nc, int n_items, int smem, cudaStream_t st) {
   const int ct = 4 * nc;
@@ -709,13 +662,13 @@ int launch_stream_mac(const MacArgs<T, M>& g, int nc, int n_items, int smem, cud
     return v != 0 && ((v != 4 && v != 8 && v != 16) || v > kLanes * elem || (g.B * elem) % v ||
                       reinterpret_cast<uintptr_t>(p0) % v || reinterpret_cast<uintptr_t>(p1) % v);
   };
-  if ((nc != 1 && nc != 4) || (nc == 4 && g.Cf != 1) || smem != lay.total() ||
+  if ((nc != 1 && nc != 4) || (nc == 4 && (g.Cf != 1 || !g.items)) || smem != lay.total() ||
       bad_vec(g.vec_h, sizeof(T), g.ring, g.xnew) || bad_vec(g.vec_f, sizeof(M), g.rim, g.rim))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.items)
     return nc == 4 ? launch_stream_mac_tiles<T, M, 4>(g, n_items, smem, st)
                    : launch_stream_mac_tiles<T, M, 1>(g, n_items, smem, st);
-  return nc == 4 ? launch_stream_mac_nc<T, M, 4>(g, smem, st) : launch_stream_mac_nc<T, M, 1>(g, smem, st);
+  return launch_stream_mac_cta<T, M>(g, smem, st);
 }
 
 bool bad_ring(int P, int C, int B) { return P < 1 || C < 1 || C > 65535 || B < 1; }
@@ -763,25 +716,22 @@ extern "C" int neo_fs_widths(const void* c_idx, const void* c_flags, void* tab, 
 }
 
 // The time-batched MAC of one window: acc [wc, C, 2B] f32, rounded to the
-// matrix dtype. seed [wc, 2, C, B] and wtab [P, nchunks] may be null. nc
-// (channels a thread: 4, or 1 for per-channel filters; the tiles kernel's
-// from its plan), vec_h / vec_f (the cp.async piece bytes of the history and
-// filter tiles, 0 for element copies) and smem (dynamic shared bytes) from
-// stream_mac_geometry. With a tap-tile table ttab [P, nt] (else null, and
-// no wtab with it): its steps' live warps tsteps [nt, ns] and the n_items
-// work items [n_items, 4] int32 of kernels/fused_step.py ::
+// matrix dtype. seed [wc, 2, C, B] may be null. nc (channels a thread: 1,
+// or the tiles kernel's from its plan), vec_h / vec_f (the cp.async piece
+// bytes of the history and filter tiles, 0 for element copies) and smem
+// (dynamic shared bytes) from stream_mac_geometry. With a tap-tile table
+// ttab [P, nt] (else null): its steps' live warps tsteps [nt, ns] and the
+// n_items work items [n_items, 4] int32 of kernels/fused_step.py ::
 // stream_mac_plan, which the tiles kernel runs.
 extern "C" int neo_fs_stream_mac(int storage, const void* ring, const void* scales, const void* xnew,
-                                 const void* snew, const void* rim, const void* seed,
-                                 const void* dcfix, const void* wtab, const void* ttab, const void* tsteps,
-                                 const void* items, void* acc, int P, int C, int B, int Cf, int wc,
-                                 int pos_first, int pc, int nchunks, int nt, int ns, int n_items, int nc,
-                                 int vec_h, int vec_f, int smem, void* stream) {
+                                 const void* snew, const void* rim, const void* seed, const void* dcfix,
+                                 const void* ttab, const void* tsteps, const void* items, void* acc, int P,
+                                 int C, int B, int Cf, int wc, int pos_first, int nt, int ns, int n_items,
+                                 int nc, int vec_h, int vec_f, int smem, void* stream) {
   const bool tiles = ttab != nullptr;
   if (bad_ring(P, C, B) || wc < 1 || (Cf != 1 && Cf != C) || pos_first < 0 || pos_first >= P ||
-      (wtab && (pc < 1 || nchunks < 1 || nchunks * pc != P)) || tiles != (tsteps != nullptr) ||
-      tiles != (items != nullptr) ||
-      (tiles && (wtab || n_items < 1 || nt != (B + kLanes - 1) / kLanes || ns < (kBlocks + P - 2) / kRows + 1)))
+      tiles != (tsteps != nullptr) || tiles != (items != nullptr) ||
+      (tiles && (n_items < 1 || nt != (B + kLanes - 1) / kLanes || ns < (kBlocks + P - 2) / kRows + 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NEO_MAC(T, M)                                                                           \
@@ -789,9 +739,8 @@ extern "C" int neo_fs_stream_mac(int storage, const void* ring, const void* scal
       MacArgs<T, M>{static_cast<const T*>(ring), static_cast<const float*>(scales),             \
                     static_cast<const T*>(xnew), static_cast<const float*>(snew),               \
                     static_cast<const M*>(rim), static_cast<const float*>(seed),                \
-                    static_cast<const float*>(dcfix), static_cast<const int*>(wtab),            \
-                    static_cast<float*>(acc), P, C, B, Cf, wc, pos_first, pc, nchunks,          \
-                    vec_h, vec_f, static_cast<const unsigned char*>(ttab),                      \
+                    static_cast<const float*>(dcfix), static_cast<float*>(acc), P, C, B, Cf,    \
+                    wc, pos_first, vec_h, vec_f, static_cast<const unsigned char*>(ttab),       \
                     static_cast<const unsigned char*>(tsteps), static_cast<const int4*>(items), \
                     nt, ns},                                                                    \
       nc, n_items, smem, st)

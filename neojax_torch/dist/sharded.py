@@ -44,14 +44,15 @@ def _host(x) -> np.ndarray:
 def shard_params(config: cv.PartitionedConfig, params: dict, mesh: Mesh) -> dict:
     """This rank's filter params on its device. Shared (single-channel)
     filters are kept whole; per-channel filters keep this rank's channels
-    (dim 1). A masked filter's schedule tables (``sp_*``, ``tile_live``,
-    ``tap_tiles``) are rebuilt for the local channel count from its sliced
-    ``mask``, as ``Convolver`` rebuilds them when it binds a mono filter to
-    more channels: their chunk geometry depends on the channel count."""
+    (dim 1). A masked filter's schedule tables (``sp_*`` and the port's
+    own, ``cv.PORT_TABLES``) are rebuilt for the local channel count from
+    its sliced ``mask``, as ``Convolver`` rebuilds them when it binds a
+    mono filter to more channels: their chunk geometry depends on the
+    channel count."""
     local = local_config(config, mesh)
     out = {}
     for key, val in params.items():
-        if key.startswith("sp_") or key in ("tile_live", "tap_tiles"):
+        if key.startswith("sp_") or key in cv.PORT_TABLES:
             continue
         per_channel = val.shape[1] == config.channels and config.channels > 1
         if per_channel:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from neojax_torch.conv import chunked, hybrid, nested
-from neojax_torch.conv.convolver import PartitionedConfig
+from neojax_torch.conv.convolver import PORT_TABLES, PartitionedConfig
 from neojax_torch.dist.mesh import Mesh
 from neojax_torch.dist.sharded import local_config, place_signal, place_state
 
@@ -138,7 +138,7 @@ def sharded_process_hybrid(config: PartitionedConfig, params: dict, state: dict,
     local = _filter_params(local, mesh, per_channel, c)
     for key in ("head_packed", "tail"):
         if key in params:
-            sub = {k: v for k, v in params[key].items() if not k.startswith("sp_") and k != "tile_live"}
+            sub = {k: v for k, v in params[key].items() if not k.startswith("sp_") and k not in PORT_TABLES}
             local[key] = _filter_params(sub, mesh, per_channel, c)
     return hybrid.process_hybrid(local_config(config, mesh), local, shard_hybrid_state(state, mesh, c),
                                  place_signal(signal, c, mesh))

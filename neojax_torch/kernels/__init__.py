@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels (``csrc/``), each beside its plain PyTorch
 version: B1 ``fdl_mac.fdl_mac``, B2 ``fused_step.fused_block_step``, B3
 ``fused_step.fused_stream`` (the per-block convolver and the hybrid head;
-both with the sparse chunk schedule), B4 ``sparse_mac.sparse_fdl_mac`` (the
+B2 with a sparse filter's chunk schedule, B3 with its tap-tile table), B4 ``sparse_mac.sparse_fdl_mac`` (the
 unfused sparse MAC), B5 ``nested_mac.nested_mac`` (the nested engine and
 the hybrid tail), and the measurement probes T1 ``probes.probe_ring_read``
 and T2 ``probes.probe_stream``. B2 and B3 run as stage kernels
@@ -13,10 +13,9 @@ compiled at import time.
 Each wrapper counts its kernel launches in a plain int attribute
 (``fdl_mac.fdl_mac.launches``); ``fused_block_step`` and ``fused_stream``
 count the calls that ran their stage kernels, and, in ``sched_launches``,
-those that ran a chunk schedule or a tap-tile table. ``stream_mac`` also
-counts the steps of its walk and its launches on the dense route
-(``counters()``). The CPU route counts
-nothing."""
+those that ran a chunk schedule (B2) or a tap-tile table (B3).
+``stream_mac`` also counts the steps of its walk (``counters()``). The CPU
+route counts nothing."""
 
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
 from neojax_torch.kernels import fused_step as _fused_step_mod
@@ -42,7 +41,7 @@ def reset_launch_counts() -> None:
     for k in _sched_wrappers():
         k.sched_launches = 0
     mac = _fused_step_mod.stream_mac
-    mac.steps_run = mac.steps_dense = mac.dense_launches = 0
+    mac.steps_run = mac.steps_dense = 0
 
 
 def launch_counts() -> dict:
@@ -57,12 +56,9 @@ def counters() -> dict:
     """The kernels' work counters: ``stream_mac.steps_run``, the steps of
     history B3's time-batched MAC ran, and ``stream_mac.steps_dense``, those
     the dense kernel would have walked in the same windows (each counted
-    once a lane tile, block tile and channel: ``fused_step.stream_mac``);
-    ``stream_mac.dense_launches``, its launches on the dense route
-    (``fused_step.stream_mac_route``)."""
+    once a lane tile, block tile and channel: ``fused_step.stream_mac``)."""
     mac = _fused_step_mod.stream_mac
-    return {"stream_mac.steps_run": mac.steps_run, "stream_mac.steps_dense": mac.steps_dense,
-            "stream_mac.dense_launches": mac.dense_launches}
+    return {"stream_mac.steps_run": mac.steps_run, "stream_mac.steps_dense": mac.steps_dense}
 
 
 __all__ = ["reset_launch_counts", "launch_counts", "counters"]

@@ -61,11 +61,11 @@ _SIGNATURES = {
     "neo_fs_writeback": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # c_idx, c_flags, tab, P, L, nchunks, B, n_codes, stream
     "neo_fs_widths": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # storage, ring, scales, xnew, snew, rim, seed, dcfix, wtab, ttab, tsteps,
-    # items, acc, P, C, B, Cf, wc, pos_first, pc, nchunks, nt, ns, n_items,
-    # nc, vec_h, vec_f, smem, stream
-    "neo_fs_stream_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # storage, ring, scales, xnew, snew, rim, seed, dcfix, ttab, tsteps, items,
+    # acc, P, C, B, Cf, wc, pos_first, nt, ns, n_items, nc, vec_h, vec_f,
+    # smem, stream
+    "neo_fs_stream_mac": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # storage, ring, scales, xnew, snew, rim, seed, dcfix, acc, P, C, B, wc,
     # pos_first, vec_h, vec_f, smem, stream
     "neo_fs_stream_mac_dense": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -59,26 +59,25 @@ it makes it, and the wrapper adds those counts to the stages' counters.
 The MAC sums in another order than the block-by-block loop; the
 per-storage tolerances of ``tests/test_fused_step.py`` hold.
 
-Sparse filters (``sched=``): the chunk schedule of
+Sparse filters. B2 takes the chunk schedule (``sched=``) of
 ``kernels.sparse_mac.build_chunk_schedule`` — the FULL ``[P, L]`` int32
-tables ``(c_idx, flags)`` from the params, on the ring's device. Block i
-honours row ``(pos0 + i) % P`` (B2: row ``pos``): slot p contributes only
-if its chunk of :func:`fused_chunk_rows` rows is flagged in that row, and
-only on lanes ``k < B >> code``. :func:`sched_widths` turns the tables into
-a ``[P, P / pc]`` table of live widths once a call; the MACs skip the
-tiles that are dead for all their blocks and lanes, and mask the rest, in
-the dense kernels' order: masked filter bins are zero, so the scheduled
-kernels equal the dense ones on the masked filter.
+tables ``(c_idx, flags)`` from the params, on the ring's device — and
+honours its row ``pos``: slot p contributes only if its chunk of
+:func:`fused_chunk_rows` rows is flagged in that row, and only on lanes
+``k < B >> code``. :func:`sched_widths` turns the tables into a ``[P, P /
+pc]`` table of live widths; :func:`step_mac` skips the chunks that are dead
+and masks the rest, in the dense kernel's order.
 
-B3 also takes a finer table of its own (``tiles=``, the convolver's
+B3 takes the tap-tile table (``tiles=``, the convolver's
 ``params["tap_tiles"]``, :func:`tap_tile_table`): uint8 ``[P, B / 8]``,
 live where the mask keeps some bin of a lane tile of 8 lanes at a tap
-(partition). With it :func:`stream_mac` runs only the (history step, lane
-tile) pairs that meet a live tap, over a list of work items balanced by
-their cost (:func:`stream_mac_plan`), and :func:`fused_stream` launches no
-:func:`sched_widths` and walks windows :data:`TILES_WINDOWS` times longer:
-the widths bottom out at 128 lanes, and a perceptual mask keeps its lowest
-bins at every tap.
+(partition), the same at every ring position. With it :func:`stream_mac`
+runs only the (history step, lane tile) pairs that meet a live tap, over a
+list of work items balanced by their cost (:func:`stream_mac_plan`), and
+:func:`fused_stream` walks windows :data:`TILES_WINDOWS` times longer.
+Both sparse forms skip only bins the mask drops, exact zeros of the
+masked filter, so the sparse kernels equal the dense ones on it. :func:`fused_stream_reference` takes the
+schedule: the block-by-block oracle the table route is held against.
 
 The transform kernels compute the DFT itself, so B2, B3 and the two
 transform stages take only the packed DFT matrices of
@@ -242,6 +241,15 @@ def _check_sched(sched, fdl):
     if c_idx.device.type == "cpu" and int((c_idx >> 16).max()) >= len(widths):
         raise ValueError(f"sched holds a width code outside lane_widths({b}) = {widths}")
     return fused_chunk_rows(fdl.dtype, p, c, b)
+
+
+def _check_tiles(tiles, p: int, b: int) -> None:
+    """Validate a tap-tile table (:func:`tap_tile_table`) against a ring of
+    P partitions and B lanes."""
+    nt = -(-b // _MAC_LANES)
+    if tiles is not None and (not isinstance(tiles, torch.Tensor) or tiles.dtype != torch.uint8
+                              or tuple(tiles.shape) != (p, nt)):
+        raise ValueError(f"tiles must be a uint8 [{p}, {nt}] tensor")
 
 
 def _quant_scale(scales, dtype):
@@ -592,19 +600,11 @@ def sched_widths(sched, b: int, pc: int):
 sched_widths.launches = 0
 
 
-def _live_lanes(widths, pos: int, slots, b: int):
-    """[len(slots), B] bool: the lanes that row ``pos`` of the width table
-    keeps for each slot."""
-    tab, pc = widths
-    w = tab[pos].cpu()[torch.as_tensor(slots) // pc]
-    return torch.arange(b)[None, :] < w[:, None]
-
-
 # ------------------------------------------- 3. the time-batched MAC
 
 
-def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None,
-                         widths=None, out=None, tiles=None):
+def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, tiles=None,
+                         out=None):
     """Plain :func:`stream_mac` (float64 sums, a loop over the window)."""
     _, p, c, b = fdl.shape
     wc = x.shape[0]
@@ -627,11 +627,6 @@ def stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, s
         pos = (pos_first + i) % p
         f = filt_rim[torch.where(p - 1 - q <= pos, q, q + p)].double()
         fr, fi = f[..., :b], f[..., b:]
-        if widths is not None:
-            slots = [(pos - (p - 1 - j)) % p for j in range(p)]
-            live = _live_lanes(widths, pos, slots, b).to(f.device)[:, None, :]
-            fr = torch.where(live, fr, 0.0)
-            fi = torch.where(live, fi, 0.0)
         if tile_live is not None:
             fr = torch.where(tile_live, fr, 0.0)
             fi = torch.where(tile_live, fi, 0.0)
@@ -651,7 +646,7 @@ _MAC_LANES, _MAC_MB, _MAC_BLOCKS, _MAC_ROWS, _MAC_STAGES, _MAC_SLOTS = 8, 8, 64,
 
 
 def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, cf: int = 1,
-                        nc: int | None = None) -> dict:
+                        nc: int = 1) -> dict:
     """Launch geometry of :func:`stream_mac`'s kernel for a ring [2, P, C, B]
     of the storage dtype ``storage``, a window of ``wc`` blocks and a filter
     of ``cf`` channels (1 or C); P sets the number of steps, not the tile.
@@ -659,27 +654,24 @@ def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, c
     A CTA owns ``lanes`` lanes x ``channels`` channels x ``blocks`` blocks;
     ``grid`` = (lane tiles, channel tiles, block tiles). Its ``threads``
     are 8 warps: warp w the blocks [8 w, 8 w + 8) of the CTA's, thread t of
-    a warp lane t % 8 and channels t // 8 % 4 + 4 q for q < ``nc`` (4 with a
-    shared filter and C > 4, else 1: per-channel filters keep each
-    channel's taps; or ``nc`` as given, the tiles kernel's from
+    a warp lane t % 8 and channels t // 8 % 4 + 4 q for q < ``nc``: 1 on
+    the route without a table (per-channel filters keep each channel's
+    taps; a shared filter over more than 4 channels takes the dense kernel,
+    :func:`stream_mac_route`), 1 or 4 with one (the tiles kernel's, from
     :func:`stream_mac_plan`, which runs one cell of the grid a CTA).
     ``smem``: the dynamic shared bytes of the filter ring (``slots`` taps of
     both rim halves, matrix dtype) and ``stages`` stages of ``rows`` history
-    rows (storage dtype, int scales, int16 live widths); the kernel refuses
-    any other count."""
+    rows (storage dtype, int scales); the kernel refuses any other count."""
     if storage not in MATRIX_DTYPES:
         raise ValueError(f"stream_mac_geometry: unknown storage {storage!r}")
     if cf not in (1, c):
         raise ValueError(f"stream_mac_geometry: cf = {cf} is neither 1 nor C = {c}")
     isz, msz = storage.itemsize, MATRIX_DTYPES[storage].itemsize
-    if nc is None:
-        nc = 4 if cf == 1 and c > 4 else 1
-    elif nc not in (1, 4) or (nc == 4 and cf != 1):
+    if nc not in (1, 4) or (nc == 4 and cf != 1):
         raise ValueError(f"stream_mac_geometry: nc = {nc} with cf = {cf}")
     ct = 4 * nc
     ctf = 1 if cf == 1 else ct
-    stage = (_MAC_ROWS * 2 * ct * _MAC_LANES * isz + (_MAC_ROWS * ct * 4 if storage in _INT_MAX else 0)
-             + _MAC_BLOCKS * _MAC_ROWS * 2)
+    stage = _MAC_ROWS * 2 * ct * _MAC_LANES * isz + (_MAC_ROWS * ct * 4 if storage in _INT_MAX else 0)
     return {"lanes": _MAC_LANES, "channels": ct, "nc": nc, "blocks": _MAC_BLOCKS, "blocks_a_thread": _MAC_MB,
             "rows": _MAC_ROWS, "slots": _MAC_SLOTS, "stages": _MAC_STAGES, "threads": 32 * _MAC_BLOCKS // _MAC_MB,
             "grid": (-(-b // _MAC_LANES), -(-c // ct), -(-wc // _MAC_BLOCKS)),
@@ -690,15 +682,14 @@ def stream_mac_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype, c
 _DENSE_CHANNELS, _DENSE_STAGES = 16, 4
 
 
-def stream_mac_route(cf: int, c: int, widths, tiles) -> str:
+def stream_mac_route(cf: int, c: int, tiles) -> str:
     """The kernel :func:`stream_mac` launches for ``c`` channels: ``"dense"``
     (``stream_mac_dense_kernel``) for a filter shared by the channels (``cf``
-    = 1) over more than 4 channels with neither a width table nor a tap-tile
-    table, else ``"cta"`` (``stream_mac_kernel``, or
-    ``stream_mac_tiles_kernel`` with a table). At 4 channels or fewer the
-    dense kernel's 16-channel tile would be mostly idle, and
-    ``stream_mac_kernel`` runs its 4-channel one."""
-    return "dense" if cf == 1 and c > 4 and widths is None and tiles is None else "cta"
+    = 1) over more than 4 channels without a tap-tile table, else ``"cta"``
+    (``stream_mac_kernel``, or ``stream_mac_tiles_kernel`` with a table). At
+    4 channels or fewer the dense kernel's 16-channel tile would be mostly
+    idle, and ``stream_mac_kernel`` runs its 4-channel one."""
+    return "dense" if cf == 1 and c > 4 and tiles is None else "cta"
 
 
 def stream_mac_dense_geometry(p: int, c: int, b: int, wc: int, storage: torch.dtype) -> dict:
@@ -888,8 +879,7 @@ def _whole_pieces(piece: int, row_bytes: int, *tensors) -> int:
     return piece if row_bytes % piece == 0 and all(t.data_ptr() % piece == 0 for t in tensors) else 0
 
 
-def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, widths=None, out=None,
-               tiles=None):
+def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, tiles=None, out=None):
     """The MAC of a window of blocks, batched over time.
 
     fdl, scales : the ring [2, P, C, B] and its scales [P, C] (or None) as
@@ -902,11 +892,10 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
                   block-by-block kernel reads, one filter when ``filt_rim``
                   is the tiled form the convolver builds
     dcfix       : [wc, 2, C] f32 lane-0 values; seed: [wc, 2, C, B] f32 or None
-    widths      : ``(sched_widths(...), pc)`` or None (dense)
-    tiles       : or (not both) a tap-tile table uint8 [P, ceil(B / 8)] on
-                  the ring's device (:func:`tap_tile_table`): tap a adds
-                  nothing on lane k where entry (a, k // 8) is 0. The card
-                  runs the scheduled walk of :func:`stream_mac_plan`
+    tiles       : a tap-tile table uint8 [P, ceil(B / 8)] on the ring's
+                  device (:func:`tap_tile_table`) or None (dense): tap a
+                  adds nothing on lane k where entry (a, k // 8) is 0. The
+                  card runs the scheduled walk of :func:`stream_mac_plan`
     returns acc [wc, C, 2B] f32: block i's ``seed + sum_a filt[a] X[i - a]``
     (each row dequantized with its own scale), lane 0 := dcfix, rounded to
     the matrix dtype
@@ -915,27 +904,21 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
     ``stream_mac.steps_run`` the steps it runs and to
     ``stream_mac.steps_dense`` those the dense kernel walks, counted once a
     lane tile, block tile and channel (``stream_mac_plan``): equal amounts
-    without a table; ``stream_mac.dense_launches`` counts the launches of
-    the dense route.
+    without a table.
     """
     _, p, c, b = fdl.shape
     wc = x.shape[0]
     if (tuple(x.shape) != (wc, 2, c, b) or x.dtype != fdl.dtype or tuple(dcfix.shape) != (wc, 2, c)
             or (seed is not None and tuple(seed.shape) != (wc, 2, c, b)) or (scl is None) != (scales is None)):
         raise ValueError("stream_mac: x [wc, 2, C, B], dcfix [wc, 2, C], seed [wc, 2, C, B] as the ring")
-    if tiles is not None and (widths is not None or tiles.dtype != torch.uint8
-                              or tuple(tiles.shape) != (p, -(-b // _MAC_LANES))):
-        raise ValueError(f"stream_mac: tiles must be uint8 [{p}, {-(-b // _MAC_LANES)}], without widths")
-    tab = None if widths is None else widths[0]
-    if _check_common([fdl, scales, x, scl, filt_rim, dcfix, seed, tab, tiles, out], "stream_mac"):
-        return stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first, seed, widths, out, tiles)
+    _check_tiles(tiles, p, b)
+    if _check_common([fdl, scales, x, scl, filt_rim, dcfix, seed, tiles, out], "stream_mac"):
+        return stream_mac_reference(fdl, scales, x, scl, filt_rim, dcfix, pos_first, seed, tiles, out)
     if out is None:
         out = torch.empty((wc, c, 2 * b), dtype=torch.float32, device=fdl.device)
-    pc = 0 if widths is None else widths[1]
     cf = filt_rim.shape[1]
     isz, msz = fdl.element_size(), filt_rim.element_size()
-    dense_route = stream_mac_route(cf, c, widths, tiles) == "dense"
-    if dense_route:
+    if stream_mac_route(cf, c, tiles) == "dense":
         run = dense = _dense_steps(p, c, b, wc)
         code = _build.load().neo_fs_stream_mac_dense(
             STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
@@ -946,7 +929,8 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
         )
     else:
         if tiles is None:
-            steps = items = nc = None
+            steps = items = None
+            nc = 1
             run = dense = _dense_steps(p, c, b, wc)
         else:
             steps, nc, items, run, dense = _tile_plan(tiles, c, wc, cf)
@@ -954,23 +938,20 @@ def stream_mac(fdl, scales, x, scl, filt_rim, dcfix, pos_first: int, seed=None, 
         code = _build.load().neo_fs_stream_mac(
             STORAGE_CODES[fdl.dtype], fdl.data_ptr(), 0 if scales is None else scales.data_ptr(), x.data_ptr(),
             0 if scl is None else scl.data_ptr(), filt_rim.data_ptr(), 0 if seed is None else seed.data_ptr(),
-            dcfix.data_ptr(), 0 if tab is None else tab.data_ptr(), 0 if tiles is None else tiles.data_ptr(),
-            0 if steps is None else steps.data_ptr(), 0 if items is None else items.data_ptr(), out.data_ptr(),
-            p, c, b, cf, wc, pos_first, pc, 0 if tab is None else tab.shape[1], geo["grid"][0],
-            0 if steps is None else steps.shape[1], 0 if items is None else items.shape[0], geo["nc"],
+            dcfix.data_ptr(), 0 if tiles is None else tiles.data_ptr(), 0 if steps is None else steps.data_ptr(),
+            0 if items is None else items.data_ptr(), out.data_ptr(), p, c, b, cf, wc, pos_first, geo["grid"][0],
+            0 if steps is None else steps.shape[1], 0 if items is None else items.shape[0], nc,
             _piece_bytes(_MAC_LANES * isz, b * isz, fdl, x), _piece_bytes(_MAC_LANES * msz, b * msz, filt_rim),
             geo["smem"], _build.stream_of(fdl),
         )
     _build.check(code, "stream_mac")
     stream_mac.launches += 1
-    stream_mac.dense_launches += dense_route
     stream_mac.steps_run += run
     stream_mac.steps_dense += dense
     return out
 
 
 stream_mac.launches = 0
-stream_mac.dense_launches = 0
 stream_mac.steps_run = 0
 stream_mac.steps_dense = 0
 
@@ -1003,8 +984,9 @@ def step_mac_reference(fdl, scales, filt_rim, pos: int, widths=None):
             x = x * _quant_scale(scales[sl], fdl.dtype)[None, :, :, None]
         f = filt_rim[[p - 1 - pos + q for q in sl]].double()  # [n, C', 2B]
         fr, fi = f[..., :b], f[..., b:]
-        if widths is not None:
-            live = _live_lanes(widths, pos, sl, b).to(f.device)[:, None, :]
+        if widths is not None:  # row pos of the width table: slot q keeps lanes k < width[pos, q // pc]
+            w = widths[0][pos].cpu()[torch.as_tensor(sl) // widths[1]]
+            live = (torch.arange(b)[None, :] < w[:, None]).to(f.device)[:, None, :]
             fr = torch.where(live, fr, 0.0)
             fi = torch.where(live, fi, 0.0)
         part[s, 0] = torch.sum(x[0] * fr - x[1] * fi, dim=0).float()
@@ -1153,8 +1135,10 @@ def fused_block_step_reference(frame, fdl, filt_rim, pos, dcfix, cs, ab, scales=
 
 def fused_stream_reference(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
                            sched=None, acc_add=None):
-    """Plain PyTorch B3, a Python loop over blocks (the oracle); same
-    contract as :func:`fused_stream`."""
+    """Plain PyTorch B3, a Python loop over blocks (the oracle); the
+    contract of :func:`fused_stream`, with a sparse filter's chunk schedule
+    ``sched`` (as :func:`fused_block_step`'s; block i honours row ``(pos0 +
+    i) % P``) in place of its tap-tile table."""
     c = sigpad.shape[0]
     p, b = fdl.shape[1], fdl.shape[3]
     nb = sigpad.shape[1] // b - 1
@@ -1255,7 +1239,7 @@ fused_block_step.sched_launches = 0
 
 
 def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
-                 sched=None, acc_add=None, tiles=None):
+                 tiles=None, acc_add=None):
     """Stream nb UPOLS blocks through the staged pipeline, in windows of
     :data:`WINDOW` blocks.
 
@@ -1268,22 +1252,19 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
     cs       : [N, 2B] forward packed-DFT matrix, cos|sin lane-packed
     abt      : [2B, B] inverse matrix, last-B columns only (tail half)
     scales   : [P, C] f32 (int8/int16) — updated IN PLACE
-    sched    : optional chunk schedule ``(c_idx, flags)``, the full [P, L]
-               int32 tables (module docstring); block i honours row
-               ``(pos0 + i) % P``
+    tiles    : optional tap-tile table uint8 [P, ceil(B / 8)] of the mask
+               (:func:`tap_tile_table`; ``params["tap_tiles"]``): the MAC
+               skips the (tap, lane tile) pairs it marks dead, and the
+               windows are :data:`TILES_WINDOWS` times longer
     acc_add  : optional [nb, 2, C, B] f32 per-block accumulator SEED
                (packed lanes; the MAC adds onto it, and the ``dcfix``
                overwrite of lane 0 comes after, so lane 0 of the seed is
                ignored). The hybrid engine's chunk-rate tail sum enters
                its per-block head through it (linearity of the sum).
-    tiles    : optional tap-tile table uint8 [P, ceil(B / 8)] of the mask
-               (:func:`tap_tile_table`; ``params["tap_tiles"]``). With it
-               the MAC takes the table instead of the schedule's widths
-               (no :func:`sched_widths` launch): a subset of what the
-               schedule keeps, equal on the masked filter; the windows are
-               then :data:`TILES_WINDOWS` times longer
 
-    Returns (out [C, nb*B] f32, fdl) or (out, fdl, scales).
+    Returns (out [C, nb*B] f32, fdl) or (out, fdl, scales). On the card
+    ``fused_stream.launches`` counts the calls and
+    ``fused_stream.sched_launches`` those with a table.
     """
     with trace.span("kernels.fused_stream"):
         if sigpad.ndim != 2 or sigpad.dtype != torch.float32:
@@ -1301,14 +1282,13 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
         if acc_add is not None and (acc_add.dtype != torch.float32
                                     or tuple(acc_add.shape) != (nb, 2, c, b)):
             raise ValueError(f"acc_add must be float32 [{nb}, 2, {c}, {b}]")
+        _check_tiles(tiles, p, b)
         pos0 = int(pos0) % p
         cpu = _check_common([sigpad, fdl, filt_rim, dcfix_all, cs, abt, scales, acc_add, tiles], "fused_stream")
-        pc = _check_sched(sched, fdl)
         _check_dft(cs, n, inverse=False)
         _check_dft(abt, n, inverse=True)
 
         dev = sigpad.device
-        widths = None if sched is None or tiles is not None else (sched_widths(sched, b, pc), pc)
         out = torch.empty((c, nb * b), dtype=torch.float32, device=dev)
         window = WINDOW if tiles is None else WINDOW * TILES_WINDOWS
         w = min(window, nb)  # staging, reused by every window
@@ -1323,12 +1303,12 @@ def fused_stream(sigpad, fdl, filt_rim, pos0, dcfix_all, cs, abt, scales=None,
             window_forward(sigpad, cs, i0, wc, out=spec[:wc])
             quantize_rows(spec[:wc], fdl.dtype, x[:wc], s_w)
             stream_mac(fdl, scales, x[:wc], s_w, filt_rim, dcfix_all[i0 : i0 + wc], pos_first,
-                       None if acc_add is None else acc_add[i0 : i0 + wc], widths, acc[:wc], tiles)
+                       None if acc_add is None else acc_add[i0 : i0 + wc], tiles, acc[:wc])
             ring_writeback(x[:wc], s_w, fdl, scales, pos_first)
             window_inverse(acc[:wc], abt, out, i0)
         if not cpu:
             fused_stream.launches += 1
-            fused_stream.sched_launches += sched is not None or tiles is not None
+            fused_stream.sched_launches += tiles is not None
         return (out, fdl) if scales is None else (out, fdl, scales)
 
 

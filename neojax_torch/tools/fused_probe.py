@@ -8,12 +8,14 @@ Port of ``tools/fused_probe.py``. Rows, each in µs a block:
                                   transform (+ a fold of its output)
   ``win_fwd_inv/{...}``           T2 ``win_fwd_inv``: + B3's tail-half
                                   inverse
-  ``b3_zero_sched/{bf16,split}/P{32,960}``  B3 with an all-zero chunk schedule
-                                  (every flag 0): the whole fixed path —
-                                  window, forward DFT, quantize, the MAC
-                                  launch skipping every tile, ring
+  ``b3_zero_sched/{bf16,split}/P{32,960}``  B3 with an all-zero tap-tile
+                                  table (every tap dead; the TPU tool's
+                                  all-zero chunk schedule): the whole fixed
+                                  path — window, forward DFT, quantize, the
+                                  MAC launch running no step, ring
                                   write-back, DC/Nyquist fix, inverse (the
-                                  row the TPU tool names but never ran)
+                                  row the TPU tool names but never ran), in
+                                  the table's windows of 128 blocks
   ``b3/{bf16,split}/P{32,960}``   B3 dense (the kernel wrapper, same inputs)
   ``stream/{bf16,split}/P{32,960}`` the per-block convolver's ``process``
 
@@ -72,7 +74,7 @@ def probe_row(mode: str, mat: str = "float32", blocks: tuple[int, int] = BLOCKS)
 
 def b3_row(storage: str, p: int, blocks: tuple[int, int] = BLOCKS, zero_sched: bool = False) -> float:
     """B3 (``fused_stream``) on the headline filter's params and a zero
-    ring, from position 0, dense or with an all-zero chunk schedule: µs a
+    ring, from position 0, dense or with an all-zero tap-tile table: µs a
     block."""
     cfg = cv.PartitionedConfig(B, p, C, storage=storage, fused=True)
     params = cv.filter_params(cfg, headline.make_parts(p, cfg.num_bins), device=DEVICE)
@@ -81,13 +83,10 @@ def b3_row(storage: str, p: int, blocks: tuple[int, int] = BLOCKS, zero_sched: b
     cs, abt = mb.packed_stream_mats(N, MATRIX_DTYPES[planes.dtype], DEVICE)
     sigpads = _sigpads(blocks)
     dcfix = torch.zeros((max(blocks), 2, C), dtype=torch.float32, device=DEVICE)
-    sched = None
-    if zero_sched:
-        z = torch.zeros((p, 1), dtype=torch.int32, device=DEVICE)
-        sched = (z, z.clone())
+    tiles = torch.zeros((p, B // 8), dtype=torch.uint8, device=DEVICE) if zero_sched else None
 
     def run(nb):
-        fused_stream(sigpads[nb], planes, params["filt_rim"], 0, dcfix[:nb], cs, abt, scales, sched)
+        fused_stream(sigpads[nb], planes, params["filt_rim"], 0, dcfix[:nb], cs, abt, scales, tiles)
 
     return 1e6 * harness.slope_seconds(run, blocks)
 

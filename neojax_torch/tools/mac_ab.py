@@ -40,11 +40,12 @@ a window of 64 blocks at ring position P - 5 (the window wraps the ring)
 with an untiled random rim: the headline ring in the four storages, split
 with a per-channel filter (Cf = C), the hybrid head (P = 64, with a seed;
 split and int16, the int8 hybrid's head storage),
-split with the chunk schedule of the ``band30`` and ``perc30`` masks (the
-convolver's masked filter; the width table built outside the timed
-region), and a B3 split call of 64 blocks (``fused_stream``). Each row
-carries ``plain_rel_err`` against the tree's own plain version; the trees'
-kernels sum alike, so their ``out_sha`` agree.
+split with the tap-tile table of the ``band30`` and ``perc30`` masks (the
+convolver's masked filter and ``params["tap_tiles"]``; the walk's plan
+built before the timed calls), and a B3 split call of 64 blocks
+(``fused_stream``). Each row carries ``plain_rel_err`` against the tree's
+own plain version; the trees' kernels sum alike, so their ``out_sha``
+agree.
 
 ``--variants`` (a tree whose ``kernels.fdl_mac`` has ``_MAC_VEC_BYTES``)
 first times B1 and B4 on the headline ring at the geometries the kept one
@@ -199,10 +200,11 @@ def main(argv=None) -> int:
             sd = torch.randn((wc, 2, c, b), device=dev, generator=gen) if seed else None
             return ring, scales, x, scl, rim, dcfix, sd
 
-        def mac_row(ops, p, widths=None, **tag):
+        def mac_row(ops, p, tiles=None, **tag):
             ring, scales, x, scl, rim, dcfix, sd = ops
-            args_ = (ring, scales, x, scl, rim, dcfix, p - 5, sd, widths)
-            emit("stream_mac", lambda: fs.stream_mac(*args_), lambda: fs.stream_mac_reference(*args_),
+            args_ = (ring, scales, x, scl, rim, dcfix, p - 5, sd)
+            emit("stream_mac", lambda: fs.stream_mac(*args_, tiles=tiles),
+                 lambda: fs.stream_mac_reference(*args_, tiles=tiles),
                  ring=[p, c, b], blocks=wc, cf=rim.shape[1], seed=sd is not None, **tag)
 
         for storage in DT:
@@ -220,11 +222,9 @@ def main(argv=None) -> int:
         for mname, mask in masks.items():
             prm = cv.filter_params(cv.PartitionedConfig(b, 960, c, storage="split"), parts_pad, sparsity=mask,
                                    device=dev)
-            pc = fs.fused_chunk_rows(torch.float32, 960, c, b)
-            widths = (fs.sched_widths((prm["sp_c_idx"], prm["sp_c_flags"]), b, pc), pc)
             ops = list(window("split", 960))
             ops[4] = prm["filt_rim"]
-            mac_row(ops, 960, widths, storage="split", mask=mname)
+            mac_row(ops, 960, prm["tap_tiles"], storage="split", mask=mname)
             del prm, ops
         p = 960
         sig = torch.rand((c, 65 * b), device=dev, generator=gen) * 2 - 1

@@ -258,6 +258,38 @@ def test_convert_continues_a_neojax_stream(rng, storage, scheme):
     assert back["pos"] == 8 % P
 
 
+@pytest.mark.parametrize("storage", ["split", "bf16", "int16", "int8"])
+def test_masked_params_from_neojax_carry_the_port_tables(rng, storage):
+    """A masked neojax filter carried over by ``convert.params_from_neojax``
+    gets the port's own tables (``tile_live``, ``tap_tiles``; not neojax
+    keys) equal to the port's ``filter_params``, so its renders take the
+    same B3 route; a stream run k blocks in neojax and continued in the
+    port matches one run wholly in neojax."""
+    k, p = 3, 8
+    parts = _parts(rng, p)
+    mask = np.zeros((p, B + 1), bool)
+    for i in range(p - 2):  # fewer lane tiles a later partition, the last two dead
+        mask[i, : max(2, (B + 1) * (p - i) // p)] = True
+    sig = rng.uniform(-1, 1, (C, 8 * B)).astype(np.float32)
+    jcfg = jcv.PartitionedConfig(B, p, C, storage=storage)
+    jparams = jcv.filter_params(jcfg, parts, sparsity=mask)
+    _, full = jcv.process(jcfg, jparams, jcv.init_state(jcfg), jnp.asarray(sig))
+    jstate, head = jcv.process(jcfg, jparams, jcv.init_state(jcfg), jnp.asarray(sig[:, : k * B]))
+
+    tcfg = tcv.PartitionedConfig(B, p, C, storage=storage)
+    tparams = convert.params_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    own = tcv.filter_params(tcfg, parts, sparsity=mask, device="cpu")
+    for key in tcv.PORT_TABLES:
+        assert key not in jparams and tparams[key].dtype == torch.uint8, key
+        assert torch.equal(tparams[key], own[key]), key
+    tiles = tparams["tap_tiles"]
+    assert 0 < int(tiles.sum()) < tiles.numel()
+    tstate = convert.state_from_neojax(tcfg, jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
+    _, tail = tcv.process(tcfg, tparams, tstate, torch.from_numpy(sig[:, k * B :]))
+    got = np.concatenate([np.asarray(head), tail.numpy()], axis=-1)
+    assert _rel(got, np.asarray(full)) < _TOL[storage]
+
+
 def test_convert_round_trip_state(rng):
     cfg = tcv.PartitionedConfig(B, P, C, storage="bf16")
     state = tcv.init_state(cfg, device="cpu")

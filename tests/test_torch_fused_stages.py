@@ -289,10 +289,13 @@ def test_sched_widths_match_the_block_oracle_liveness(rng, monkeypatch, p):
     assert widths == {0, 128, 256}
 
 
-def _direct_mac(storage, ring, scales, x, scl, rim, dcfix, pos_first, seed=None, sched=None, pc=1):
+def _direct_mac(storage, ring, scales, x, scl, rim, dcfix, pos_first, seed=None, tiles=None):
     """numpy, block by block: insert block i's row at its slot, then the
-    rotated-filter MAC over every slot (the TPU kernel's order of events)."""
+    rotated-filter MAC over every slot (the TPU kernel's order of events);
+    with a tap-tile table, only the lanes of its live (tap, lane tile)
+    pairs."""
     p, b = ring.shape[1], ring.shape[3]
+    lanes = None if tiles is None else np.repeat(tiles.numpy().astype(bool), 8, axis=1)[:, :b]  # [tap, lane]
     hist = _deq(ring, scales, storage).copy()
     new = x.double().numpy()
     if scl is not None:
@@ -304,8 +307,8 @@ def _direct_mac(storage, ring, scales, x, scl, rim, dcfix, pos_first, seed=None,
         hist[:, pos] = new[i]
         rot = f[p - 1 - pos : 2 * p - 1 - pos]  # slot q meets row P-1-pos+q
         fr, fi = rot[..., :b], rot[..., b:]
-        if sched is not None:
-            live = tfs._sched_live(sched, pos, p, b, pc).numpy()[:, None, :]
+        if lanes is not None:
+            live = lanes[(pos - np.arange(p)) % p][:, None, :]  # slot q holds tap (pos - q) % P
             fr, fi = fr * live, fi * live
         re = (hist[0] * fr - hist[1] * fi).sum(0)
         im = (hist[0] * fi + hist[1] * fr).sum(0)
@@ -347,16 +350,19 @@ def test_stream_mac_matches_direct_sum(rng, storage, cf, wc, p, c, b):
 @pytest.mark.parametrize("wc", [1, 10, 17])
 @pytest.mark.parametrize("c,cf", [(C, 1), (3, 3), (1, 1)])
 def test_stream_mac_sched_matches_direct_sum(rng, monkeypatch, storage, p, wc, c, cf):
+    """The MAC with the tap-tile table of the schedule's mask against the
+    direct sum over the table's live lanes."""
     b = 256
-    params, sched, pc = _chunk_sched(rng, storage, p, b, monkeypatch)
+    params, _, _ = _chunk_sched(rng, storage, p, b, monkeypatch)
+    tiles = params["tap_tiles"]  # tap_tile_table of the mask
+    assert 0 < int(tiles.sum()) < tiles.numel()
     ring, scales = _ring(rng, storage, p, c, b)
-    rim = _rim(rng, storage, p, cf, b)  # unmasked: the schedule alone must drop the dead terms
+    rim = _rim(rng, storage, p, cf, b)  # unmasked: the table alone must drop the dead terms
     x, scl = tfs.quantize_rows(torch.from_numpy(rng.standard_normal((wc, c, 2 * b)).astype(np.float32)),
                                _DT[storage])
     dcfix = torch.from_numpy(rng.standard_normal((wc, 2, c)).astype(np.float32))
-    widths = (tfs.sched_widths(sched, b, pc), pc)
-    got = tfs.stream_mac(ring, scales, x, scl, rim, dcfix, 5, widths=widths)
-    want = _direct_mac(storage, ring, scales, x, scl, rim, dcfix, 5, sched=sched, pc=pc)
+    got = tfs.stream_mac(ring, scales, x, scl, rim, dcfix, 5, tiles=tiles)
+    want = _direct_mac(storage, ring, scales, x, scl, rim, dcfix, 5, tiles=tiles)
     tol = _TOL["bf16"] if _mdt(storage) == torch.bfloat16 else _EXACT
     assert _rel(got, want) < tol
 
@@ -373,8 +379,10 @@ def test_stream_mac_geometry_covers_each_term_once(storage, shared, p, c, b, wc)
     the hybrid head at P = 64, B = 1024, C = 1 and 65) and off them: each
     (block, channel, lane) is one thread's, once; the shared bytes fit a
     CTA (227 KB); the filter ring holds a step's taps and those copied
-    ahead."""
-    geo = tfs.stream_mac_geometry(p, c, b, wc, _DT[storage], 1 if shared else c)
+    ahead. A shared filter over more than 4 channels at NC = 4 (the tiles
+    kernel's tile for it), else NC = 1."""
+    geo = tfs.stream_mac_geometry(p, c, b, wc, _DT[storage], 1 if shared else c, 4 if shared and c > 4 else 1)
+    assert geo["nc"] == (4 if shared and c > 4 else 1)
     assert geo["smem"] <= 227 * 1024
     assert geo["slots"] - 32 >= geo["blocks"] + geo["rows"] - 1 + (geo["stages"] - 1) * geo["rows"]
     gx, gy, gz = geo["grid"]
@@ -580,9 +588,10 @@ def test_staged_block_step_matches_oracle_and_neojax(rng, storage, cf):
 @pytest.mark.parametrize("storage", _STORAGES)
 @pytest.mark.parametrize("p", [24, 32])
 def test_staged_stream_sched_matches_oracle_and_dense(rng, monkeypatch, small_window, storage, p):
-    """8-row chunks and two lane widths, several windows: against the block
-    oracle with the same tables, and equal to the dense staged stream on the
-    masked filter (masked bins are zero: every skipped term is an exact 0)."""
+    """B3 with the mask's tap-tile table, several windows: against the block
+    oracle with the mask's chunk schedule (8-row chunks, two lane widths),
+    and equal to the dense staged stream on the masked filter (masked bins
+    are zero: every skipped term is an exact 0)."""
     b, nb = 256, 2 * p + 3
     small_window(16)
     params, sched, _ = _chunk_sched(rng, storage, p, b, monkeypatch)
@@ -593,7 +602,7 @@ def test_staged_stream_sched_matches_oracle_and_dense(rng, monkeypatch, small_wi
     rings = [ring.clone() for _ in range(3)]
     scl = [None if scales is None else scales.clone() for _ in range(3)]
     rim = params["filt_rim"]
-    got = tfs.fused_stream(sig, rings[0], rim, p - 5, dcfix, cs, abt, scl[0], sched)[0]
+    got = tfs.fused_stream(sig, rings[0], rim, p - 5, dcfix, cs, abt, scl[0], params["tap_tiles"])[0]
     want = tfs.fused_stream_reference(sig, rings[1], rim, p - 5, dcfix, cs, abt, scl[1], sched)[0]
     dense = tfs.fused_stream(sig, rings[2], rim, p - 5, dcfix, cs, abt, scl[2])[0]
     assert _rel(got, want) < _TOL[storage]
@@ -614,9 +623,9 @@ def neojax_small_chunks():
 
 @pytest.mark.parametrize("storage", _STORAGES)
 def test_staged_sched_process_matches_neojax(rng, neojax_small_chunks, small_window, storage):
-    """The masked convolver's ``process`` (B3 with the chunk schedule, in
-    windows of 8 blocks) against neojax's fused path in interpret mode, both
-    packages at 8-row chunks (P = 24)."""
+    """The masked convolver's ``process`` (B3 with the tap-tile table, in
+    windows of 16 blocks) against neojax's fused path with the chunk
+    schedule in interpret mode, both packages at 8-row chunks (P = 24)."""
     small_window(8)
     b, p = 64, 24
     parts = ((rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1))) * 0.1

@@ -186,11 +186,10 @@ def test_fused_stream_rejects_unported_inputs():
     rim = torch.zeros((2 * P, 1, 2 * B))
     args = (torch.zeros((C, 2 * B)), ring, rim, 0, torch.zeros((1, 2, C)),
             torch.zeros((2 * B, 2 * B)), torch.zeros((2 * B, B)))
-    with pytest.raises(ValueError, match="sched"):  # ported; the full int32 [P, L] tables
-        tfs.fused_stream(*args, sched=(np.zeros(1), np.zeros(1)))
-    with pytest.raises(ValueError, match="sched"):
-        tfs.fused_stream(*args, sched=(torch.zeros((P, 2), dtype=torch.int32),
-                                       torch.zeros((P - 1, 2), dtype=torch.int32)))
+    with pytest.raises(ValueError, match="tiles"):  # ported; a uint8 [P, ceil(B / 8)] tap-tile table
+        tfs.fused_stream(*args, tiles=np.zeros((P, -(-B // 8)), np.uint8))
+    with pytest.raises(ValueError, match="tiles"):
+        tfs.fused_stream(*args, tiles=torch.zeros((P - 1, -(-B // 8)), dtype=torch.uint8))
     with pytest.raises(ValueError, match="acc_add"):  # ported; its shape is checked
         tfs.fused_stream(*args, acc_add=torch.zeros((1, 2, C, B + 1)))
     with pytest.raises(TypeError):

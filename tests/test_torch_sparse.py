@@ -149,16 +149,17 @@ def test_process_masked_matches_neojax_fused(small_chunks, rng, monkeypatch, sto
     parts = _parts(rng, p, b)
     mask = _band_mask(p, b + 1)
     sig = rng.uniform(-1, 1, (c, 40 * b)).astype(np.float32)  # wraps the ring
-    calls = []
+    calls = []  # (kernel, its sparse input: B3's tap-tile table, B2's chunk schedule)
     for name in ("fused_stream", "fused_block_step"):
         real = getattr(tcv, name)
-        monkeypatch.setattr(tcv, name, lambda *a, _r=real, _n=name, **k: calls.append((_n, a[8])) or _r(*a, **k))
+        monkeypatch.setattr(tcv, name, lambda *a, _r=real, _n=name, **k: calls.append(
+            (_n, k.get("tiles", a[8] if len(a) > 8 else None))) or _r(*a, **k))
     got, want, tparams = _process_both(dict(block_size=b, num_partitions=p, channels=c, scheme=scheme,
                                             storage=storage, fused=True), parts, mask, sig)
     active = (tparams["sp_c_flags"] == 1).sum(1)
     assert tfs.fused_chunk_rows(tcv.fdl_lib.STORAGE_DTYPES[storage], p, c, b) == 8
     assert int(active.min()) < p // 8  # rows really skip chunks
-    assert calls and all(sched is not None for _, sched in calls)
+    assert calls and all(sparse is not None for _, sparse in calls)
     assert {n for n, _ in calls} == {"fused_stream" if scheme == "upols" else "fused_block_step"}
     assert _rel(got, want) < _TOL[storage]
 

@@ -212,20 +212,21 @@ def test_stream_mac_reference_with_tiles(rng, storage, p, wc, c, b, cf):
 
 
 def test_stream_mac_takes_tiles_or_widths():
+    """stream_mac's one sparse input is a uint8 [P, ceil(B / 8)] table."""
     ring, x, dcfix = torch.zeros((2, 4, 1, 16)), torch.zeros((2, 2, 1, 16)), torch.zeros((2, 2, 1))
     rim = torch.zeros((8, 1, 32))
     with pytest.raises(ValueError, match="tiles"):
         tfs.stream_mac(ring, None, x, None, rim, dcfix, 0, tiles=torch.zeros((4, 3), dtype=torch.uint8))
     with pytest.raises(ValueError, match="tiles"):
-        tfs.stream_mac(ring, None, x, None, rim, dcfix, 0, widths=(torch.zeros((4, 1), dtype=torch.int32), 4),
-                       tiles=torch.zeros((4, 2), dtype=torch.uint8))
+        tfs.stream_mac(ring, None, x, None, rim, dcfix, 0, tiles=torch.zeros((4, 2), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("storage", ["split", "bf16"])
 def test_masked_process_with_the_table_equals_the_schedule(rng, monkeypatch, storage):
-    """The masked convolver's B3 takes the table, in windows TILES_WINDOWS
-    times longer; on its masked filter the result equals B3 with the chunk
-    schedule's widths and the dense B3."""
+    """B3 with the masked filter's table walks windows TILES_WINDOWS times
+    longer; on the masked filter the result is the block oracle's with the
+    chunk schedule (within the storage's tolerance) and the dense B3's (bit
+    for bit)."""
     monkeypatch.setattr(tfs, "WINDOW", 8)
     monkeypatch.setattr(tfs, "_CHUNK_TARGET", 1)
     b, p, c, nb = 64, 24, 2, 30
@@ -241,14 +242,17 @@ def test_masked_process_with_the_table_equals_the_schedule(rng, monkeypatch, sto
     macs = []  # (wc, tiles given) of each stream_mac call
     mac = tfs.stream_mac
     monkeypatch.setattr(tfs, "stream_mac", lambda *a, **k: macs.append(
-        (a[2].shape[0], k.get("tiles", a[10] if len(a) > 10 else None) is not None)) or mac(*a, **k))
+        (a[2].shape[0], k.get("tiles", a[8] if len(a) > 8 else None) is not None)) or mac(*a, **k))
     outs = []
-    for kw in (dict(sched=sched, tiles=params["tap_tiles"]), dict(sched=sched), {}):
-        r = ring.clone()
-        outs.append(tfs.fused_stream(sig, r, params["filt_rim"], 5, dcfix, cs, abt, **kw)[0])
-    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    for run, kw in ((tfs.fused_stream, dict(tiles=params["tap_tiles"])),
+                    (tfs.fused_stream_reference, dict(sched=sched)), (tfs.fused_stream, {})):
+        r, s = ring.clone(), None if scales is None else scales.clone()
+        outs.append(run(sig, r, params["filt_rim"], 5, dcfix, cs, abt, s, **kw)[0])
+    tol = {"split": 2e-5, "bf16": 5e-3}[storage]
+    assert float((outs[0] - outs[1]).abs().max()) < tol * float(outs[1].abs().max())
+    assert torch.equal(outs[0], outs[2])
     # the table's walk takes windows TILES_WINDOWS times longer: 16, 14 blocks against 8, 8, 8, 6
-    assert macs == [(16, True), (14, True)] + [(8, False)] * 3 + [(6, False)] + [(8, False)] * 3 + [(6, False)]
+    assert macs == [(16, True), (14, True)] + [(8, False)] * 3 + [(6, False)]
 
 
 def test_snapshot_carries_the_step_counters():
@@ -256,37 +260,24 @@ def test_snapshot_carries_the_step_counters():
 
     counters = trace.snapshot()["counters"]
     assert counters == kernels.counters()
-    assert set(counters) == {"stream_mac.steps_run", "stream_mac.steps_dense", "stream_mac.dense_launches"}
-
-
-def test_reset_clears_the_dense_launches():
-    from neojax_torch import kernels
-
-    tfs.stream_mac.dense_launches = 7
-    assert kernels.counters()["stream_mac.dense_launches"] == 7
-    kernels.reset_launch_counts()
-    assert kernels.counters() == {"stream_mac.steps_run": 0, "stream_mac.steps_dense": 0,
-                                  "stream_mac.dense_launches": 0}
+    assert set(counters) == {"stream_mac.steps_run", "stream_mac.steps_dense"}
 
 
 _TILES = np.ones((4, 1), np.uint8)
 
 
-@pytest.mark.parametrize("cf,c,widths,tiles,route", [
-    (1, 64, None, None, "dense"),
-    (1, 5, None, None, "dense"),
-    (1, 4, None, None, "cta"),
-    (1, 1, None, None, "cta"),
-    (3, 3, None, None, "cta"),
-    (64, 64, None, None, "cta"),
-    (1, 64, (np.zeros((4, 1), np.int32), 4), None, "cta"),
-    (1, 64, None, _TILES, "cta"),
-    (64, 64, None, _TILES, "cta"),
-    (64, 64, (np.zeros((4, 1), np.int32), 4), None, "cta"),
+@pytest.mark.parametrize("cf,c,tiles,route", [
+    (1, 64, None, "dense"),
+    (1, 5, None, "dense"),
+    (1, 4, None, "cta"),
+    (1, 1, None, "cta"),
+    (3, 3, None, "cta"),
+    (64, 64, None, "cta"),
+    (1, 64, _TILES, "cta"),
+    (64, 64, _TILES, "cta"),
 ])
-def test_stream_mac_route_is_the_dense_kernel_only_for_a_plain_shared_filter(cf, c, widths, tiles, route):
-    """A shared filter over more than 4 channels with neither a width table
-    nor a tap-tile table takes stream_mac_dense_kernel; per-channel
-    filters, the schedule's widths, the tiles and 4 channels or fewer keep
-    stream_mac_kernel's body."""
-    assert tfs.stream_mac_route(cf, c, widths, tiles) == route
+def test_stream_mac_route_is_the_dense_kernel_only_for_a_plain_shared_filter(cf, c, tiles, route):
+    """A shared filter over more than 4 channels without a tap-tile table
+    takes stream_mac_dense_kernel; per-channel filters, the tiles and 4
+    channels or fewer keep stream_mac_kernel's body."""
+    assert tfs.stream_mac_route(cf, c, tiles) == route

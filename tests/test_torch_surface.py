@@ -537,6 +537,10 @@ _JAX_ONLY = {
 # ``neojax_torch.trace``, and the benchmark's result lines)
 _NOT_PORTED = {"P", "fdl_mac_pallas", "sparse_fdl_mac_pallas", "nested_mac_pallas", "shift8_filter",
                "save_state_orbax", "load_state_orbax", "RunRecord", "emit_record"}
+# parameters the port takes in the place of neojax's, by (module, callable):
+# the port's B3 takes a masked filter's tap-tile table where neojax's kernel
+# takes its chunk schedule (ROADMAP §C)
+_REPLACED = {("neojax.kernels.fused_step", "fused_stream"): {"sched": "tiles"}}
 
 
 def _neojax_modules():
@@ -584,7 +588,8 @@ def test_signatures_are_a_prefix_of_the_ports(module):
         jp, tp = _param_names(getattr(jm, name)), _param_names(getattr(tm, name))
         if jp is None or tp is None:
             continue
-        jp = [p for p in jp if p not in skip]
+        swap = _REPLACED.get((module, name), {})
+        jp = [swap.get(p, p) for p in jp if p not in skip]
         assert tp[: len(jp)] == jp, f"{module}.{name}: neojax {jp}, port {tp}"
 
 
