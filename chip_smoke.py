@@ -1945,6 +1945,7 @@ def main(dist_only: bool = False) -> int:
     from neojax_torch.kernels import fdl_mac as mac_mod
     from neojax_torch.core.device import ieee_float32
     from neojax_torch.kernels import fused_step as fs_mod
+    from neojax_torch.kernels import meta_push as mp_mod
     from neojax_torch.kernels import nested_mac as nm_mod
     from neojax_torch.kernels import sparse_mac as sm_mod
     from neojax_torch.kernels import probes as pr_mod
@@ -2319,6 +2320,26 @@ def main(dist_only: bool = False) -> int:
             summary["nested_mac"].setdefault(engine, {})[storage] = row
             emit(phase="kernel_vs_plain", kernel="nested_mac", shapes=engine, storage=storage,
                  tol=TOL[storage], positions=[0, p2 - 1], **row, **card)
+            # the meta push into the same ring: a row in the meta-FFT's layout
+            # (.real / .imag of one complex64 tensor), bit-equal to its plain version
+            gen = torch.Generator(dev).manual_seed(5)
+            z = torch.randn((c, k, l), dtype=torch.complex64, device=dev, generator=gen) * 30
+            got_s = None if scales is None else torch.ones_like(scales)
+            want, want_s = planes.clone(), None if got_s is None else got_s.clone()
+            mp_mod.meta_push(planes, got_s, p2 - 1, z.real, z.imag)
+            mp_mod.meta_push_reference(want, want_s, p2 - 1, z.real, z.imag)
+            torch.cuda.synchronize()
+            assert torch.equal(planes, want) and (got_s is None or torch.equal(got_s, want_s)), \
+                f"meta_push {engine} {storage}: not bit-equal to its plain version"
+            push = lambda: mp_mod.meta_push(planes, got_s, p2 - 1, z.real, z.imag)  # noqa: E731
+            ms, back_to_back = device_ms(push, 20), cuda_ms(push, 20)  # back to back: the host where slower
+            plain = cuda_ms(lambda: mp_mod.meta_push_reference(want, want_s, p2 - 1, z.real, z.imag), 2)
+            nbytes = z.numel() * (8 + 2 * planes.element_size()) + (0 if got_s is None else c * k * g * 4)
+            emit(phase="kernel_vs_plain", kernel="meta_push", shapes=engine, storage=storage, bit_equal=True,
+                 ms=ms, ms_back_to_back=back_to_back, plain_ms=plain, groups=g if got_s is not None else None,
+                 mbytes=nbytes / 1e6,
+                 **bound_of(headline.Work(nbytes, 0), ms), **card)
+            del z, got_s, want, want_s
             del planes, scales, tiled
             torch.cuda.empty_cache()
 
@@ -2831,8 +2852,8 @@ def main(dist_only: bool = False) -> int:
                 outs_main[storage] = out
             del params, state, out
         torch.cuda.empty_cache()
-        read_window(name, ("nested_mac",) if name == "nested" else ("nested_mac", "fused_stream", "fdl_mac",
-                                                                    *b3_stage_names))
+        read_window(name, ("nested_mac", "meta_push") if name == "nested" else
+                    ("nested_mac", "meta_push", "fused_stream", "fdl_mac", *b3_stage_names))
 
     # ---- 7. the hybrid's and nested's other entry points
     kernels.reset_launch_counts()
@@ -2866,7 +2887,7 @@ def main(dist_only: bool = False) -> int:
     assert r < 1e-6, f"process_nested across two calls differs from one call: {r}"
     del params, one, a, b2, st
     torch.cuda.empty_cache()
-    read_window("hybrid_stream", ("fdl_mac", "nested_mac"))
+    read_window("hybrid_stream", ("fdl_mac", "nested_mac", "meta_push"))
 
     # ---- 7c-7e. the chunked engine's main path (no kernel of the port: its
     # product is torch.bmm, so its window expects none), make_engine over
@@ -2877,7 +2898,7 @@ def main(dist_only: bool = False) -> int:
     read_window("chunked", ())
     kernels.reset_launch_counts()
     make_engine_sum = run_engines(dev, card, parts, sig2)
-    read_window("make_engine", ("fused_stream", "nested_mac", *b3_stage_names))
+    read_window("make_engine", ("fused_stream", "nested_mac", "meta_push", *b3_stage_names))
     kernels.reset_launch_counts()
     convolve_sum = run_convolve(dev, card, cuda_ms)
     # block 2048 (the 24 000-tap IR) is above B3's 1024: UPOLS and UPOLA step block by block through B1

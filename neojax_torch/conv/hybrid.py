@@ -50,6 +50,7 @@ from neojax_torch.core.device import as_signal, resolve_device
 from neojax_torch.fft import matmul_backend as mb
 from neojax_torch.kernels.fdl_mac import fdl_mac
 from neojax_torch.kernels.fused_step import MATRIX_DTYPES, MAX_BLOCK, fused_stream
+from neojax_torch.kernels.meta_push import meta_push
 from neojax_torch.ops.quantize import int_max_for
 
 __all__ = [
@@ -271,7 +272,7 @@ def _tail_chunk(config: PartitionedConfig, tail_params: dict, mstate: dict,
     xre, xim = mb.meta_fft(mb.round_operand(torch.cat([prev[0], cur_p[0]], dim=-1), fwd_prec),
                            mb.round_operand(torch.cat([prev[1], cur_p[1]], dim=-1), fwd_prec))
     fdl, scales, pos = mstate["meta_fdl"], mstate.get("meta_scales"), mstate["meta_pos"]
-    nested_lib._meta_push(fdl, scales, pos, xre, xim)
+    meta_push(fdl, scales, pos, xre, xim)
     # Tail meta-filter index q' multiplies the window q'+1 chunks old: the
     # newest ring entry is the window just inserted, and the next chunk
     # needs ages 0..P2t-1 against F[0..].

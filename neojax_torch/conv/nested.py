@@ -24,14 +24,15 @@ Python int.
 ``process_nested`` **writes the meta ring and its scales in place** (the
 state passed in shares them with the state returned); ``tail`` and
 ``prev`` are replaced. No ``jit``: the chunk loop is a Python loop, each
-step a few batched tensor ops and one kernel launch.
+step a few batched tensor ops and two kernel launches (the push and B5).
 
 Spans (``neojax_torch.trace``; host bookkeeping only, no device sync):
 ``nested.process`` around the whole call, and in each chunk
 ``nested.forward`` (the frames, block rfft, meta window's cats and
-meta-FFT), ``nested.push`` (``_meta_push``: peak, rounding, clamp, ring
-and scale writes), B5's own ``kernels.nested_mac`` and ``nested.inverse``
-(inverse meta-FFT, block irfft, output slice and tail). A shared filter's
+meta-FFT), ``nested.push`` (``kernels.meta_push``: peak, rounding, clamp,
+ring and scale writes; one launch on the card), B5's own
+``kernels.nested_mac`` and ``nested.inverse`` (inverse meta-FFT, block
+irfft, output slice and tail). A shared filter's
 chunk opens all four; the plain MAC routes open no ``kernels.nested_mac``.
 """
 
@@ -46,6 +47,7 @@ from neojax_torch.conv import fdl as fdl_lib
 from neojax_torch.conv.convolver import PartitionedConfig, _canon_partitions, _host, _kernel_route
 from neojax_torch.core.device import as_signal, resolve_device
 from neojax_torch.fft import matmul_backend as mb
+from neojax_torch.kernels.meta_push import meta_push
 from neojax_torch.kernels.nested_mac import nested_mac
 from neojax_torch.ops.quantize import int_max_for
 
@@ -189,26 +191,6 @@ def nested_init_state(config: PartitionedConfig, params: dict, device=None) -> d
     return state
 
 
-def _meta_push(fdl: torch.Tensor, scales, pos: int, xre: torch.Tensor, xim: torch.Tensor) -> None:
-    """Write one meta row ([C, K, 2S] re/im, f32) at ring slot ``pos``, in
-    place. Int storage quantizes each (c, k, group) at its dynamic peak
-    scale: ``rint(x / scale * int_max)`` (half to even, as ``jnp.round``),
-    clamped."""
-    row = torch.stack([xre, xim])  # [2, C, K, L]
-    if scales is None:
-        fdl[:, pos] = row.to(fdl.dtype)
-        return
-    imax = int_max_for(fdl.dtype)
-    _, c, k, l = row.shape
-    g = scales.shape[-1]
-    grp = row.reshape(2, c, k, g, l // g)
-    peak = torch.amax(torch.abs(grp), dim=(0, 4))  # [C, K, G]
-    scale = torch.where(peak > 0, peak, torch.ones_like(peak))
-    q = torch.clamp(torch.round(grp / scale[None, :, :, :, None] * imax), -imax, imax)
-    fdl[:, pos] = q.reshape(2, c, k, l).to(fdl.dtype)
-    scales[pos] = scale
-
-
 def _meta_mac(config: PartitionedConfig, params: dict, fdl: torch.Tensor, scales, pos: int):
     """The meta-partition MAC of ring slot ``pos``'s rotation. Returns
     (acc_re, acc_im) [C, K, 2S] f32.
@@ -287,7 +269,7 @@ def process_nested(config: PartitionedConfig, params: dict, state: dict, signal:
                 xre, xim = mb.meta_fft(mb.round_operand(torch.cat([prev[0], cur[0]], dim=-1), fwd_prec),
                                        mb.round_operand(torch.cat([prev[1], cur[1]], dim=-1), fwd_prec))
             with trace.span("nested.push"):
-                _meta_push(fdl, scales, pos, xre, xim)
+                meta_push(fdl, scales, pos, xre, xim)
             acc_re, acc_im = _meta_mac(config, params, fdl, scales, pos)
 
             with trace.span("nested.inverse"):

@@ -43,6 +43,7 @@ from neojax_torch.core.device import resolve_device
 from neojax_torch.dist.mesh import Mesh, ppermute, psum
 from neojax_torch.dist.sharded import place_signal
 from neojax_torch.fft import matmul_backend as mb
+from neojax_torch.kernels.meta_push import meta_push
 
 __all__ = [
     "partnested_filter_params",
@@ -208,7 +209,7 @@ class PartShardedNested:
             if first:
                 xre, xim = mb.meta_fft(mb.round_operand(torch.cat([prev[0], cur[0]], dim=-1), fwd_prec),
                                        mb.round_operand(torch.cat([prev[1], cur[1]], dim=-1), fwd_prec))
-                nested_lib._meta_push(fdl, scales, pos_l, xre, xim)
+                meta_push(fdl, scales, pos_l, xre, xim)
             else:
                 fdl[:, pos_l] = recv[0]
                 if scales is not None:

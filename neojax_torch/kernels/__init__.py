@@ -3,7 +3,8 @@ version: B1 ``fdl_mac.fdl_mac``, B2 ``fused_step.fused_block_step``, B3
 ``fused_step.fused_stream`` (the per-block convolver and the hybrid head;
 B2 with a sparse filter's chunk schedule, B3 with its tap-tile table), B4 ``sparse_mac.sparse_fdl_mac`` (the
 unfused sparse MAC), B5 ``nested_mac.nested_mac`` (the nested engine and
-the hybrid tail), and the measurement probes T1 ``probes.probe_ring_read``
+the hybrid tail), the meta push ``meta_push.meta_push`` (their meta-ring
+insert), and the measurement probes T1 ``probes.probe_ring_read``
 and T2 ``probes.probe_stream``. B2 and B3 run as stage kernels
 (``fused_step.stage_wrappers()``: the windowed forward and inverse
 products, quantize, the time-batched MAC, the ring write-back, the
@@ -19,6 +20,7 @@ route counts nothing."""
 
 from neojax_torch.kernels import fdl_mac as _fdl_mac_mod
 from neojax_torch.kernels import fused_step as _fused_step_mod
+from neojax_torch.kernels import meta_push as _meta_push_mod
 from neojax_torch.kernels import nested_mac as _nested_mac_mod
 from neojax_torch.kernels import probes as _probes_mod
 from neojax_torch.kernels import sparse_mac as _sparse_mac_mod
@@ -26,7 +28,7 @@ from neojax_torch.kernels import sparse_mac as _sparse_mac_mod
 
 def _wrappers():
     return (_fdl_mac_mod.fdl_mac, _fused_step_mod.fused_block_step, _fused_step_mod.fused_stream,
-            _sparse_mac_mod.sparse_fdl_mac, _nested_mac_mod.nested_mac,
+            _sparse_mac_mod.sparse_fdl_mac, _nested_mac_mod.nested_mac, _meta_push_mod.meta_push,
             _probes_mod.probe_ring_read, _probes_mod.probe_stream, *_fused_step_mod.stage_wrappers())
 
 

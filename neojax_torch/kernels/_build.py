@@ -75,6 +75,8 @@ _SIGNATURES = {
     "neo_fs_step_reduce": [_I, _P, _P, _P, _I, _I, _I, _P],
     # storage, planes, scales, filt_re, filt_im, acc_re, acc_im, P2, C, K, L, G, stream
     "neo_nested_mac": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # storage, fdl, scales, xre, xim, xre/xim strides (c, k, l), P2, pos, C, K, L, G, stream
+    "neo_meta_push": [_I, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P],
     # storage, fdl, fr, out, part, P, C, K, pc, S, per, vec, stream
     "neo_probe_ring_read": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # mode, spec, out, C, B, nb, wc, i0, stream

@@ -41,8 +41,9 @@ The spans (name: what it covers):
   call (and so ``make_engine("nested")``'s ``process``);
 - ``nested.forward``: a chunk's frames, block rfft, meta window's cats and
   meta-FFT;
-- ``nested.push``: a chunk's ``_meta_push`` (the int storages' group peak,
-  rounding and clamp; the ring and scale writes);
+- ``nested.push``: a chunk's ``kernels.meta_push`` (the int storages' group
+  peak, rounding and clamp; the ring and scale writes), one launch on the
+  card, counted in ``meta_push.launches``;
 - ``kernels.nested_mac``: B5's wrapper (checks, allocation, launch), in the
   nested engine and in the hybrid engine's tail;
 - ``nested.inverse``: a chunk's inverse meta-FFT, block irfft, output

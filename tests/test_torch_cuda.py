@@ -3,7 +3,8 @@ card, at shapes the headline smoke (``chip_smoke.py``) does not cover: odd
 P, C and K, per-channel fused filters, the largest fused block (1024), ring
 wraps, B1 at the hybrid head's non-packed K = B+1, B1 and B4 split over P
 (the ordered reduce, an unaligned filter view), B5 (the nested meta MAC)
-at every storage and group count, B3 with its ``acc_add`` seed, B4 (the
+at every storage and group count, the nested engine's meta push bit for
+bit against its plain version, B3 with its ``acc_add`` seed, B4 (the
 tile-sparse MAC) and B2/B3 with the sparse chunk schedule — each also
 against the dense kernel on the same masked filter — and the convolver's
 (dense and sparse), nested engine's and hybrid engine's CUDA routes against
@@ -287,6 +288,99 @@ def test_nested_mac_span_counts_its_launches(cuda, rng, monkeypatch):
     monkeypatch.setattr(nm, "trace", fake)
     eng = conv.make_engine("nested", parts, storage="int8", chunk_blocks=s, channels=c, device=cuda)
     assert torch.equal(eng.process(sig), outs[0])
+
+
+def _meta_row(rng, c, k, l, g, storage):
+    """A complex64 [C, K, L] meta row with an all-zero (c, k), one whose
+    quotients land on n + 1/2 exactly (x = 4 fl((n + 1/2) / int_max) in
+    groups of peak 4) and one a rounding away from its peak (the clamp)."""
+    z = (rng.standard_normal((c, k, l)) + 1j * rng.standard_normal((c, k, l))).astype(np.complex64) * 3
+    z[0, 0] = 0
+    if storage in _INT_MAX:
+        steps = (np.arange(l) % 126 + 0.5).astype(np.float32)
+        half = (steps / np.float32(_INT_MAX[storage])).astype(np.float32) * np.float32(4)
+        half[:: l // g] = 4.0
+        z[0, 1] = half - 1j * half
+        z[1, 0, ::2] = np.float32(7.0) * (1 + 1j)
+        z[1, 0, 1::2] = np.nextafter(np.float32(7.0), np.float32(0)) * (1 - 1j)
+    return z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,l,g", [
+    ("int8", 256, 64), ("int8", 128, 64), ("int8", 16, 16), ("int8", 10, 5), ("int8", 6, 2),
+    ("int16", 256, 1), ("int16", 12, 1), ("int16", 2048, 1), ("int16", 256, 64),
+    ("split", 256, None), ("split", 6, None), ("bf16", 256, None), ("bf16", 10, None),
+])
+@pytest.mark.parametrize("layout", ["complex_views", "planes", "unaligned_views"])
+def test_meta_push_kernel_is_bit_equal_to_reference(cuda, rng, storage, l, g, layout):
+    """The push kernel writes the reference's bits into the ring slot and
+    its scales (W = L/G bins a group: 4 at the cell, 2, 1, 3 and wider than
+    a warp or a CTA), from the meta-FFT's .real/.imag views, from two
+    contiguous planes, and from views 8 bytes off a 16-byte boundary."""
+    from neojax_torch.kernels import meta_push as mp
+
+    p2, c, k = 3, 3, 33  # C*K*G not a multiple of the CTA width
+    z = _meta_row(rng, c, k, l + (layout == "unaligned_views"), g, storage)
+    zt = torch.from_numpy(z).to(cuda)
+    if layout == "unaligned_views":
+        zt = zt[..., 1:]
+    xre, xim = (zt.real, zt.imag) if layout != "planes" else (zt.real.contiguous(), zt.imag.contiguous())
+    fdl = torch.from_numpy(rng.integers(-100, 100, (2, p2, c, k, l))).to(cuda, _DT[storage])
+    scales = None if g is None else torch.from_numpy(rng.uniform(1, 2, (p2, c, k, g)).astype(np.float32)).to(cuda)
+    want_f, want_s = fdl.clone(), None if scales is None else scales.clone()
+    for pos in (0, p2 - 1):
+        before = mp.meta_push.launches
+        mp.meta_push(fdl, scales, pos, xre, xim)
+        torch.cuda.synchronize()
+        assert mp.meta_push.launches == before + 1
+        mp.meta_push_reference(want_f, want_s, pos, xre, xim)
+        assert torch.equal(fdl, want_f)
+        assert scales is None or torch.equal(scales, want_s)
+    cpu_f, cpu_s = want_f.cpu(), None if want_s is None else want_s.cpu()
+    mp.meta_push(cpu_f, cpu_s, 1, xre.cpu(), xim.cpu())  # the CPU reference gives the same bits
+    mp.meta_push(fdl, scales, 1, xre, xim)
+    assert torch.equal(fdl.cpu(), cpu_f) and (scales is None or torch.equal(scales.cpu(), cpu_s))
+    if g is not None:
+        assert bool((scales[0, 0, 0] == 1).all()) and int(fdl[:, 0].abs().max()) == _INT_MAX[storage]
+
+
+@pytest.mark.cuda
+def test_meta_push_counts_every_push_and_writes_the_reference_ring(cuda, rng, monkeypatch):
+    """``meta_push.launches`` counts one launch a ``nested.push`` span in
+    the nested engine and one a tail chunk (a B5 launch) in the hybrid
+    engine; after each push of a nested call the ring and scales are those
+    the reference push writes from the same meta-FFT output."""
+    from neojax_torch import trace
+    from neojax_torch.conv import nested as ne
+    from neojax_torch.kernels import meta_push as mp
+
+    b, p, c, s, chunks = 64, 19, 3, 4, 5
+    parts = ((rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1))) * 0.1
+             ).astype(np.complex64)
+    sig = torch.from_numpy(rng.uniform(-1, 1, (c, chunks * s * b)).astype(np.float32)).to(cuda)
+
+    def calls(name):
+        return trace.totals().get(name, {"calls": 0})["calls"]
+
+    for engine, span in (("nested", "nested.push"), ("hybrid", "kernels.nested_mac")):
+        eng = conv.make_engine(engine, parts, storage="int8", chunk_blocks=s, channels=c, device=cuda)
+        spans, launches = calls(span), mp.meta_push.launches
+        eng.process(sig)
+        torch.cuda.synchronize()
+        assert mp.meta_push.launches - launches == calls(span) - spans > 0
+    checked = []
+
+    def held(fdl, scales, pos, xre, xim):
+        ref_f, ref_s = fdl.clone(), scales.clone()
+        mp.meta_push_reference(ref_f, ref_s, pos, xre, xim)
+        mp.meta_push(fdl, scales, pos, xre, xim)
+        checked.append(torch.equal(fdl, ref_f) and torch.equal(scales, ref_s))
+
+    monkeypatch.setattr(ne, "meta_push", held)
+    eng = conv.make_engine("nested", parts, storage="int8", chunk_blocks=s, channels=c, device=cuda)
+    eng.process(sig)
+    assert checked == [True] * chunks
 
 
 @pytest.mark.cuda
