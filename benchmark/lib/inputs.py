@@ -24,9 +24,11 @@ def substream_seed(seed: int, stream: int) -> int:
 
 
 class Filter:
-    """``spectra`` [P, K] complex64 as the program gets them, ``mask`` bool
-    [P, K] or None, and ``reference`` [P, K]: the spectra the program's
-    output should follow (dropped bins zeroed)."""
+    """``spectra`` complex64 as the program gets them, ``mask`` bool of the
+    same shape or None, and ``reference``: the spectra the program's output
+    should follow (dropped bins zeroed). Each is [P, K] for one filter that
+    every channel shares, [C, P, K] for one filter a channel
+    (``ir.per_channel``)."""
 
     def __init__(self, spectra: np.ndarray, mask):
         self.spectra = spectra
@@ -39,8 +41,15 @@ class Filter:
 
 
 def make_filter(config: dict) -> Filter:
-    ir = spec.module("irs", config["ir"]["generator"]).make(
-        np.random.default_rng(config["ir"]["seed"]), config)
+    """The deployment's filter from its IR generator and fixed seed. With
+    ``ir.per_channel`` the one generator state makes ``channels`` IRs in
+    turn, channel 0 first, stacked to [C, taps]; else it makes one."""
+    make = spec.module("irs", config["ir"]["generator"]).make
+    rng = np.random.default_rng(config["ir"]["seed"])
+    if config["ir"].get("per_channel"):
+        ir = np.stack([make(rng, config) for _ in range(config["channels"])])
+    else:
+        ir = make(rng, config)
     spectra = upols.partition(ir, config["block"])
     mask = None
     if config.get("mask"):

@@ -17,6 +17,10 @@ Keys of a configuration file that route it (``lib/system.py`` builds it):
 - ``scheme``, ``storage``, ``block``, ``channels``, ``ring_partitions``
   (the filter is zero-padded to as many partitions), ``ir``, ``mask``,
   ``control`` and ``limits``, as every configuration has;
+- ``ir.per_channel`` (optional, default false): one IR a channel, each
+  made in turn by the ``ir.generator`` from the one ``ir.seed``
+  (``lib/inputs.py``), in place of one IR that every channel shares. It
+  takes no ``mask``: a mask is made for one shared filter;
 - ``tiny`` (optional): the small sizes of the CPU tests
   (``benchmark/tests/tiny.py``), merged over theirs.
 
@@ -73,6 +77,8 @@ def engine(config: dict) -> str:
 def pairing_error(config: dict, traffic: dict) -> str | None:
     """Why a configuration cannot run a traffic mix (at the sizes given),
     or None where it can."""
+    if config["ir"].get("per_channel") and config.get("mask"):
+        return "ir.per_channel and mask: a mask is made for one shared filter, not one a channel"
     kind = engine(config)
     if kind not in ENGINES:
         return f"unknown engine {kind!r} (have {list(ENGINES)})"

@@ -31,9 +31,18 @@ def reset_counters() -> None:
 
 
 def _padded(a: np.ndarray, partitions: int, fill) -> np.ndarray:
-    """``a`` [P, K] with rows appended, each ``fill``, up to ``partitions``."""
-    extra = partitions - a.shape[0]
-    return np.concatenate([a, np.full((extra, a.shape[1]), fill, a.dtype)]) if extra > 0 else a
+    """``a`` [P, K] or [C, P, K] with partition rows appended, each
+    ``fill``, up to ``partitions``."""
+    extra = partitions - a.shape[-2]
+    if extra <= 0:
+        return a
+    return np.concatenate([a, np.full(a.shape[:-2] + (extra, a.shape[-1]), fill, a.dtype)], axis=-2)
+
+
+def _channels_first(spectra: np.ndarray) -> np.ndarray:
+    """The program's filter layout [C|1, P, K]: a shared filter [P, K] as
+    one channel, one filter a channel [C, P, K] as it is."""
+    return spectra if spectra.ndim == 3 else spectra[None]
 
 
 def build(config: dict, filt, device, storage: str | None = None):
@@ -46,7 +55,8 @@ def build(config: dict, filt, device, storage: str | None = None):
     ``ring_partitions``. Another engine gets the spectra (and mask)
     zero-padded to ``ring_partitions`` where the file gives it, as
     ``Convolver.filter`` pads them, which is exact, and the configuration's
-    channel count, block and ``chunk_blocks``."""
+    channel count, block and ``chunk_blocks``. Either takes the filter as
+    one shared channel, or, with ``ir.per_channel``, one a channel."""
     storage = storage or config["storage"]
     kind = spec.engine(config)
     if kind == "convolver":
@@ -54,7 +64,7 @@ def build(config: dict, filt, device, storage: str | None = None):
 
         conv = Convolver(config["scheme"], storage, sparsity=filt.mask,
                          require_sparsity=filt.mask is not None, device=device)
-        conv.filter(filt.spectra[None], pad_partitions=config["ring_partitions"])
+        conv.filter(_channels_first(filt.spectra), pad_partitions=config["ring_partitions"])
         return conv
 
     from neojax_torch.conv import make_engine
@@ -62,6 +72,6 @@ def build(config: dict, filt, device, storage: str | None = None):
     p = config.get("ring_partitions", 0)
     spectra = _padded(filt.spectra, p, 0)
     mask = None if filt.mask is None else _padded(filt.mask, p, False)
-    return make_engine(kind, spectra[None], block_size=config["block"], storage=storage,
+    return make_engine(kind, _channels_first(spectra), block_size=config["block"], storage=storage,
                        scheme=config["scheme"], chunk_blocks=config.get("chunk_blocks"),
                        channels=config["channels"], sparsity=mask, device=device)

@@ -7,12 +7,14 @@ block axis, as the nested engine's meta-FFT does, computes the same
 function with fewer operations):
 
 - each input sample read once and each output sample written once, float32;
-- each live (partition, bin) entry of the filter read once, a complex
-  number at the storage's precision (a masked filter: its kept entries);
+- each live (channel, partition, bin) entry of the filter read once, a
+  complex number at the storage's precision (a masked filter: its kept
+  entries; a filter that every channel shares: its entries once);
 - the state read once and written once a call, less what the card can keep
   on chip between calls (its L2 and all shared memory). The state is the
   function's own: the input history the filter reaches back over,
-  ``P_live * B - 1`` samples a channel at the storage's precision, whatever
+  ``P_live * B - 1`` samples a channel (``P_live``: the deepest partition
+  that any channel's filter keeps) at the storage's precision, whatever
   form (time samples or spectra) a program keeps it in. A call writes at
   most as much of it as it brings new samples.
 
@@ -42,10 +44,12 @@ def least_bytes(channels: int, block: int, call_blocks: int, live: np.ndarray, s
                 onchip_bytes: int) -> int:
     """Least bytes one call of ``call_blocks`` blocks must move.
 
-    live : bool [P, K], the filter entries that are kept and not zero
+    live : bool [P, K] (one filter that every channel shares) or [C', P, K]
+           (one a channel), the filter entries that are kept and not zero
     """
     sb = SAMPLE_BYTES[storage]
-    rows = np.flatnonzero(np.asarray(live).any(axis=-1))
+    live = np.asarray(live)
+    rows = np.flatnonzero(live.any(axis=-1).reshape(-1, live.shape[-2]).any(axis=0))
     p_live = int(rows[-1]) + 1 if rows.size else 0
     io = 2 * channels * call_blocks * block * 4
     filt = int(np.count_nonzero(live)) * 2 * sb

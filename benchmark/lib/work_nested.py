@@ -10,7 +10,9 @@ dq(x[p2, c, k, m]) * filt[p2, k, m]`` over the whole meta ring. Bytes
   precision;
 - its float32 dynamic scales read once (the int storages: int8 keeps one a
   4 meta-bins, int16 one a meta row);
-- the ring-rotated float32 filter's two planes ``[P2, K, 2S]`` read once;
+- the ring-rotated float32 filter's two planes ``[C', P2, K, 2S]`` read
+  once, C' = 1 for a filter that every channel shares and C with
+  ``ir.per_channel``;
 - the two float32 accumulator planes ``[C, K, 2S]`` written once.
 
 P2 = ceil(ring_partitions / chunk_blocks), C = channels, K = block + 1 and
@@ -40,6 +42,6 @@ def least_bytes_per_launch(config: dict) -> int:
     c, k, row = config["channels"], config["block"] + 1, 2 * s
     ring = 2 * p2 * c * k * row * SAMPLE_BYTES[storage]
     scales = p2 * c * k * _scales_per_row(storage, row) * 4
-    filt = 2 * p2 * k * row * 4
+    filt = 2 * (c if config.get("ir", {}).get("per_channel") else 1) * p2 * k * row * 4
     acc = 2 * c * k * row * 4
     return ring + scales + filt + acc

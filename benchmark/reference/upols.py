@@ -1,12 +1,14 @@
 """Uniformly partitioned overlap-save convolution, written out plainly.
 
-For partition spectra ``H [P, K]`` (K = B + 1 bins of a 2B-point real FFT;
-a masked filter has its dropped bins zeroed) and an input stream of
-B-sample blocks ``x_j`` (zero before the stream starts), output block g is
+For partition spectra ``H [C, P, K]`` (K = B + 1 bins of a 2B-point real
+FFT; a masked filter has its dropped bins zeroed; ``[P, K]``, one filter
+that every channel shares, is ``H_p[c] = H_p`` for every c) and an input
+stream of B-sample blocks ``x_j[c]`` (zero before the stream starts),
+output block g of channel c is
 
-    X_j = rfft([x_{j-1} | x_j])          (2B points)
-    Y_g = sum_{p < P} X_{g-p} * H_p
-    y_g = irfft(Y_g)[B:]
+    X_j[c] = rfft([x_{j-1}[c] | x_j[c]])          (2B points)
+    Y_g[c] = sum_{p < P} X_{g-p}[c] * H_p[c]
+    y_g[c] = irfft(Y_g[c])[B:]
 
 which, for spectra partitioned from a real IR, is its linear convolution.
 Every output block is computed on its own from the input blocks
@@ -35,14 +37,15 @@ __all__ = ["partition", "round_tf32", "quantize_groups", "output_blocks"]
 
 
 def partition(ir: np.ndarray, block: int) -> np.ndarray:
-    """IR [taps] -> complex64 spectra [P, B + 1]: each B-sample segment
-    zero-padded to 2B and transformed (float32 input, as a deployment
-    loads its IR)."""
+    """IR [taps] -> complex64 spectra [P, B + 1], or IRs [C, taps] -> [C, P,
+    B + 1]: each B-sample segment zero-padded to 2B and transformed (float32
+    input, as a deployment loads its IR)."""
     ir = np.asarray(ir, np.float32)
+    lead = ir.shape[:-1]
     p = -(-ir.shape[-1] // block)
-    padded = np.zeros(p * block, np.float32)
-    padded[: ir.shape[-1]] = ir
-    return np.fft.rfft(padded.reshape(p, block), n=2 * block, axis=-1).astype(np.complex64)
+    padded = np.zeros(lead + (p * block,), np.float32)
+    padded[..., : ir.shape[-1]] = ir
+    return np.fft.rfft(padded.reshape(lead + (p, block)), n=2 * block, axis=-1).astype(np.complex64)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -80,23 +83,27 @@ def output_blocks(segment, spectra: np.ndarray, blocks, block: int, precision: s
 
     segment : ``segment(g0, g1) -> [C, (g1 - g0) * B]`` input blocks g0 .. g1-1
               as a tensor (any float dtype, any device; zeros for g < 0)
-    spectra : [P, B + 1] complex partition spectra (masked bins zeroed)
+    spectra : [P, B + 1] complex partition spectra (masked bins zeroed),
+              shared by every channel, or [C, P, B + 1], channel c's own
     """
     if precision not in ("f64", "tf32", "int4"):
         raise ValueError(f"unknown precision {precision!r}")
     real = torch.float64 if precision == "f64" else torch.float32
-    p = spectra.shape[0]
+    per_channel = spectra.ndim == 3
+    p = spectra.shape[-2]
     h = torch.from_numpy(np.ascontiguousarray(spectra)).to(device)
     if precision == "f64":
         h = h.to(torch.complex128)
     else:
         h = h.to(torch.complex64)
         h = _round_complex(h) if precision == "tf32" else h
-    h_rev = h.flip(0)  # row i multiplies frame g - P + 1 + i
+    h_rev = h.flip(-2)  # row i multiplies frame g - P + 1 + i
     out = {}
     for g in blocks:
         g = int(g)
         seg = segment(g - p, g + 1).to(device=device, dtype=real)  # blocks g-P .. g
+        if per_channel and seg.shape[0] != h.shape[0]:
+            raise ValueError(f"{h.shape[0]} channels of filter for {seg.shape[0]} of input")
         ys = []
         for c0 in range(0, seg.shape[0], channel_chunk):
             frames = seg[c0 : c0 + channel_chunk].unfold(-1, 2 * block, block)  # [c, P, 2B]: frames g-P+1 .. g
@@ -105,7 +112,10 @@ def output_blocks(segment, spectra: np.ndarray, blocks, block: int, precision: s
                 x = _round_complex(x)
             elif precision == "int4":
                 x = quantize_groups(x)
-            acc = torch.einsum("cpk,pk->ck", x, h_rev)
+            if per_channel:
+                acc = torch.einsum("cpk,cpk->ck", x, h_rev[c0 : c0 + x.shape[0]])
+            else:
+                acc = torch.einsum("cpk,pk->ck", x, h_rev)
             ys.append(torch.fft.irfft(acc, n=2 * block, dim=-1)[:, block:])
         out[g] = torch.cat(ys).to(torch.float64).cpu()
     return out

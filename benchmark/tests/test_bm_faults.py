@@ -57,11 +57,20 @@ def answer_altered(real):
     return fn
 
 
+def _core(cell: dict):
+    """Where a cell's timed path runs: the Convolver's ``process`` or
+    ``step`` by its traffic's entry, another engine's functional core."""
+    kind = spec.engine(cell["config"])
+    if kind != "convolver":
+        return ENGINE_CORE[kind]
+    return cv, "process" if cell["traffic"]["entry"] == "process" else "step"
+
+
 @pytest.mark.parametrize("fault", [state_unchanged, half_left_out, answer_altered])
 @pytest.mark.parametrize("mix", tiny.MIXES)
 def test_fault_is_caught(mix, fault, device, monkeypatch):
-    name = "process" if spec.cell_for(*mix)["traffic"]["entry"] == "process" else "step"
-    monkeypatch.setattr(cv, name, fault(getattr(cv, name)))
+    module, name = _core(spec.cell_for(*mix))
+    monkeypatch.setattr(module, name, fault(getattr(module, name)))
     res = tiny.run(mix, 2**31 + 99, device)
     assert res["correct"] is False, res["checks"]
 
